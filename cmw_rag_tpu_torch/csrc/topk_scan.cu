@@ -32,6 +32,16 @@
 //     gate: a row is inserted only if it beats the current k-th entry, so
 //     after warm-up almost no tile does any insertion work.
 //   * Each block writes its sorted partial lists to [n_blocks, Q, k].
+//   * k > 128 (kLarge): 32 running lists of k entries do not fit in shared
+//     memory (256 KB at k = 1000), so each query's running list lives in
+//     global memory, in the [n_blocks, Q, k] partial buffer itself and a
+//     second buffer of the same shape, used in turn. A tile's candidates
+//     (rows that beat the k-th entry) are compacted in shared memory; every
+//     candidate and every running entry then computes its rank in the union
+//     (a count over the candidates plus a binary search in the sorted list)
+//     and those with rank < k are written to the other buffer. Ranks are
+//     distinct because (score, id) order is total over unique ids and empty
+//     entries keep their index order, so the write is a permutation.
 //   * Launch 2 (merge_kernel): one block per query does a k-way merge of the
 //     n_blocks sorted lists. Order is by (score, id) alone, so the result
 //     does not depend on block scheduling.
@@ -52,7 +62,7 @@ constexpr int kRows = kWarps * kMT * 16;     // 256 rows per tile
 constexpr int kDC = 256;                     // query columns staged per chunk
 constexpr int kQStride = kDC + 32;           // bf16 per staged row (+64 B)
 constexpr int kScStride = kRows + 4;         // floats per score row
-constexpr int kMaxK = 128;
+constexpr int kMaxK = 128;                  // largest k kept in shared memory
 constexpr int kMergeLists = 4 * kThreads;    // lists one merge block handles
 constexpr float kNegInf = -3.0e38f;
 
@@ -107,17 +117,70 @@ __device__ __forceinline__ void load_row8(const int8_t* corpus, int64_t row,
   }
 }
 
-template <typename T>
+// Large-k fold of one tile into query qc's running list (one warp): rs/ri
+// is the current sorted list of k entries, ns/ni receives the merged one.
+// cs/ci is this warp's candidate staging area (kRows entries).
+__device__ __forceinline__ void fold_large(
+    const float* sc_row, int64_t row0, int64_t n, const int* ids, int k,
+    const float* rs, const int* ri, float* ns, int* ni, float* cs, int* ci,
+    int lane) {
+  const float th_s = rs[k - 1];
+  const int th_i = ri[k - 1];
+  int nc = 0;
+  for (int base = 0; base < kRows; base += 32) {
+    const int64_t r = row0 + base + lane;
+    const float s = sc_row[base + lane];
+    const int id = r < n ? ids[r] : -1;
+    const bool cand = id >= 0 && s > 0.5f * kNegInf &&
+                      better(s, id, th_s, th_i);
+    const unsigned m = __ballot_sync(0xffffffffu, cand);
+    if (cand) {
+      const int p = nc + __popc(m & ((1u << lane) - 1u));
+      cs[p] = s;
+      ci[p] = id;
+    }
+    nc += __popc(m);
+  }
+  __syncwarp();
+  // candidates: rank = #better candidates + #better running entries
+  for (int j = lane; j < nc; j += 32) {
+    const float s = cs[j];
+    const int id = ci[j];
+    int r = 0;
+    for (int u = 0; u < nc; ++u) r += better(cs[u], ci[u], s, id) ? 1 : 0;
+    int lo = 0, hi = k;
+    while (lo < hi) {
+      const int mid = (lo + hi) >> 1;
+      if (better(rs[mid], ri[mid], s, id)) lo = mid + 1; else hi = mid;
+    }
+    r += lo;
+    if (r < k) { ns[r] = s; ni[r] = id; }
+  }
+  // running entries: rank = own index + #better candidates
+  for (int j = lane; j < k; j += 32) {
+    const float s = rs[j];
+    const int id = ri[j];
+    int r = j;
+    for (int u = 0; u < nc && r < k; ++u)
+      r += better(cs[u], ci[u], s, id) ? 1 : 0;
+    if (r < k) { ns[r] = s; ni[r] = id; }
+  }
+  __syncwarp();
+}
+
+template <typename T, bool kLarge>
 __global__ void __launch_bounds__(kThreads, 2)
 scan_kernel(const __nv_bfloat16* __restrict__ queries,
             const T* __restrict__ corpus, const float* __restrict__ scales,
             const int* __restrict__ ids, int nq, int64_t n, int d, int k,
-            float* __restrict__ part_s, int* __restrict__ part_i) {
+            float* part_s, int* part_i, float* alt_s, int* alt_i) {
   extern __shared__ __align__(16) unsigned char smem[];
   __nv_bfloat16* q_sh = reinterpret_cast<__nv_bfloat16*>(smem);
   float* sc = reinterpret_cast<float*>(smem + kQT * kQStride * 2);
+  // small k: sorted running lists [kQT, k]; large k: candidate staging
+  // [kWarps, kRows] (the running lists are in part_* / alt_*)
   float* run_s = sc + kQT * kScStride;
-  int* run_i = reinterpret_cast<int*>(run_s + kQT * k);
+  int* run_i = reinterpret_cast<int*>(run_s + (kLarge ? kWarps * kRows : kQT * k));
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
@@ -127,9 +190,22 @@ scan_kernel(const __nv_bfloat16* __restrict__ queries,
   const int64_t tile_begin = n_tiles * blockIdx.x / gridDim.x;
   const int64_t tile_end = n_tiles * (blockIdx.x + 1) / gridDim.x;
 
-  for (int i = threadIdx.x; i < kQT * k; i += kThreads) {
-    run_s[i] = kNegInf;
-    run_i[i] = -1;
+  // bit qc / kWarps: the running list of query qc is in alt_* (large k)
+  unsigned parity = 0;
+  if constexpr (kLarge) {
+    for (int qc = warp; qc < nqb; qc += kWarps) {
+      const int64_t o = (static_cast<int64_t>(blockIdx.x) * nq + q0 + qc) * k;
+      for (int j = lane; j < k; j += 32) {
+        part_s[o + j] = kNegInf;
+        part_i[o + j] = -1;
+      }
+    }
+    __syncwarp();
+  } else {
+    for (int i = threadIdx.x; i < kQT * k; i += kThreads) {
+      run_s[i] = kNegInf;
+      run_i[i] = -1;
+    }
   }
 
   for (int64_t tile = tile_begin; tile < tile_end; ++tile) {
@@ -204,6 +280,21 @@ scan_kernel(const __nv_bfloat16* __restrict__ queries,
       }
     __syncthreads();
 
+    if constexpr (kLarge) {
+      for (int qc = warp; qc < nqb; qc += kWarps) {
+        const int64_t o =
+            (static_cast<int64_t>(blockIdx.x) * nq + q0 + qc) * k;
+        const unsigned bit = 1u << (qc / kWarps);
+        const bool in_alt = (parity & bit) != 0;
+        fold_large(sc + qc * kScStride, tile * kRows, n, ids, k,
+                   (in_alt ? alt_s : part_s) + o, (in_alt ? alt_i : part_i) + o,
+                   (in_alt ? part_s : alt_s) + o, (in_alt ? part_i : alt_i) + o,
+                   run_s + warp * kRows, run_i + warp * kRows, lane);
+        parity ^= bit;
+      }
+      continue;
+    }
+
     // one warp per query: fold the tile into the sorted running top-k
     for (int qc = warp; qc < nqb; qc += kWarps) {
       float* rs = run_s + qc * k;
@@ -248,6 +339,18 @@ scan_kernel(const __nv_bfloat16* __restrict__ queries,
     }
   }
 
+  if constexpr (kLarge) {
+    // lists that ended in alt_* move to part_*, where the merge reads them
+    for (int qc = warp; qc < nqb; qc += kWarps) {
+      if (!(parity & (1u << (qc / kWarps)))) continue;
+      const int64_t o = (static_cast<int64_t>(blockIdx.x) * nq + q0 + qc) * k;
+      for (int j = lane; j < k; j += 32) {
+        part_s[o + j] = alt_s[o + j];
+        part_i[o + j] = alt_i[o + j];
+      }
+    }
+    return;
+  }
   __syncthreads();
   for (int i = threadIdx.x; i < nqb * k; i += kThreads) {
     const int qc = i / k, j = i % k;
@@ -328,30 +431,46 @@ merge_kernel(const float* __restrict__ part_s, const int* __restrict__ part_i,
 }
 
 size_t scan_smem_bytes(int k) {
+  const int run = k > kMaxK ? kWarps * kRows : kQT * k;
   return static_cast<size_t>(kQT) * kQStride * 2 +
          static_cast<size_t>(kQT) * kScStride * 4 +
-         static_cast<size_t>(kQT) * k * 8;
+         static_cast<size_t>(run) * 8;
+}
+
+template <typename T, bool kLarge>
+cudaError_t launch_scan(const void* queries, const T* corpus,
+                        const float* scales, const int* ids, int nq,
+                        long long n, int d, int k, int n_blocks, float* part_s,
+                        int* part_i, float* alt_s, int* alt_i,
+                        cudaStream_t st) {
+  const size_t smem = scan_smem_bytes(k);
+  cudaError_t err = cudaFuncSetAttribute(
+      scan_kernel<T, kLarge>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  const dim3 grid(n_blocks, (nq + kQT - 1) / kQT);
+  scan_kernel<T, kLarge><<<grid, kThreads, smem, st>>>(
+      static_cast<const __nv_bfloat16*>(queries), corpus, scales, ids, nq,
+      static_cast<int64_t>(n), d, k, part_s, part_i, alt_s, alt_i);
+  return cudaGetLastError();
 }
 
 template <typename T>
 int launch(const void* queries, const T* corpus, const float* scales,
            const int* ids, int nq, long long n, int d, int k, int n_blocks,
-           float* part_s, int* part_i, float* out_s, int* out_i,
-           void* stream) {
-  if (nq < 1 || n < 1 || d < 8 || d % 8 != 0 || k < 1 || k > kMaxK ||
-      n_blocks < 1 || n_blocks > kMergeLists)
+           float* part_s, int* part_i, float* alt_s, int* alt_i, float* out_s,
+           int* out_i, void* stream) {
+  if (nq < 1 || n < 1 || d < 8 || d % 8 != 0 || k < 1 ||
+      n_blocks < 1 || n_blocks > kMergeLists ||
+      (k > kMaxK && (alt_s == nullptr || alt_i == nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const size_t smem = scan_smem_bytes(k);
-  cudaError_t err = cudaFuncSetAttribute(
-      scan_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(n_blocks, (nq + kQT - 1) / kQT);
-  scan_kernel<T><<<grid, kThreads, smem, st>>>(
-      static_cast<const __nv_bfloat16*>(queries), corpus, scales, ids, nq,
-      static_cast<int64_t>(n), d, k, part_s, part_i);
-  err = cudaGetLastError();
+  cudaError_t err =
+      k > kMaxK
+          ? launch_scan<T, true>(queries, corpus, scales, ids, nq, n, d, k,
+                                 n_blocks, part_s, part_i, alt_s, alt_i, st)
+          : launch_scan<T, false>(queries, corpus, scales, ids, nq, n, d, k,
+                                  n_blocks, part_s, part_i, alt_s, alt_i, st);
   if (err != cudaSuccess) return static_cast<int>(err);
   merge_kernel<<<nq, kThreads, 0, st>>>(part_s, part_i, n_blocks, nq, k,
                                         out_s, out_i);
@@ -362,29 +481,35 @@ int launch(const void* queries, const T* corpus, const float* scales,
 
 extern "C" {
 
-// Rows per scan tile and the most partial lists the merge takes: the
-// wrapper sizes the [n_blocks, Q, k] partial buffers from these.
+// Rows per scan tile, the most partial lists the merge takes, and the
+// largest k whose running lists stay in shared memory: the wrapper sizes the
+// [n_blocks, Q, k] partial buffers from these, and passes a second buffer
+// of that shape (alt_*) when k is larger (else null).
 int topk_scan_tile_rows() { return kRows; }
 int topk_scan_max_blocks() { return kMergeLists; }
+int topk_scan_max_shared_k() { return kMaxK; }
 
 // queries [nq, d] bf16, corpus [n, d] bf16, ids [n] int32 -> out_s [nq, k]
-// f32, out_i [nq, k] int32. Returns the CUDA error code of the launches.
+// f32, out_i [nq, k] int32, any k >= 1. Returns the CUDA error code of the
+// launches.
 int topk_scan_bf16(const void* queries, const void* corpus, const int* ids,
                    int nq, long long n, int d, int k, int n_blocks,
-                   float* part_s, int* part_i, float* out_s, int* out_i,
-                   void* stream) {
+                   float* part_s, int* part_i, float* alt_s, int* alt_i,
+                   float* out_s, int* out_i, void* stream) {
   return launch(queries, static_cast<const __nv_bfloat16*>(corpus), nullptr,
-                ids, nq, n, d, k, n_blocks, part_s, part_i, out_s, out_i,
-                stream);
+                ids, nq, n, d, k, n_blocks, part_s, part_i, alt_s, alt_i,
+                out_s, out_i, stream);
 }
 
 // The same over an int8 corpus [n, d] with f32 row scales [n].
 int topk_scan_int8(const void* queries, const void* corpus,
                    const float* scales, const int* ids, int nq, long long n,
                    int d, int k, int n_blocks, float* part_s, int* part_i,
-                   float* out_s, int* out_i, void* stream) {
+                   float* alt_s, int* alt_i, float* out_s, int* out_i,
+                   void* stream) {
   return launch(queries, static_cast<const int8_t*>(corpus), scales, ids, nq,
-                n, d, k, n_blocks, part_s, part_i, out_s, out_i, stream);
+                n, d, k, n_blocks, part_s, part_i, alt_s, alt_i, out_s, out_i,
+                stream);
 }
 
 }  // extern "C"

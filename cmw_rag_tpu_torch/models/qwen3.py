@@ -1,9 +1,12 @@
 """Qwen3-class causal decoder (port of ``cmw_rag_tpu/models/qwen3.py:90-160``).
 
-Only the plain-attention branch: the shipping path's pairs are shorter than
-the 1024 tokens at which the JAX package switches to its flash kernel.
 Pre-norm RMSNorm, per-head q/k RMSNorm before RoPE (rotate-half), grouped
-query attention, SwiGLU FFN, tied embeddings.
+query attention, SwiGLU FFN, tied embeddings. Attention takes one of two
+routes, as in the JAX package: the plain one (``models/common.attention``
+under a causal padding bias), or, with ``use_flash=True``, the flash kernel
+(``ops/flash_attention.flash_attention_bhld``, causal, the key mask passed
+as is, K and V repeated to the full head count), which the embedder and
+the LLM reranker choose for sequences of 1024 tokens or more.
 """
 
 from __future__ import annotations
@@ -25,6 +28,7 @@ from cmw_rag_tpu_torch.models.common import (
     rms_norm,
 )
 from cmw_rag_tpu_torch.models.weights import Leaf, tree_map
+from cmw_rag_tpu_torch.ops.flash_attention import flash_attention_bhld
 
 
 @dataclass(frozen=True)
@@ -83,12 +87,19 @@ def init_qwen3(gen: torch.Generator, cfg: Qwen3Config,
 
 def qwen3_hidden_states(params: Params, cfg: Qwen3Config,
                         input_ids: torch.Tensor,
-                        attention_mask: torch.Tensor) -> torch.Tensor:
-    """Causal forward → hidden states [B, L, D] in cfg.dtype."""
+                        attention_mask: torch.Tensor,
+                        use_flash: bool = False,
+                        flash_block: int = 256) -> torch.Tensor:
+    """Causal forward → hidden states [B, L, D] in cfg.dtype.
+
+    ``use_flash=True`` routes attention through the flash kernel; L must
+    then be a multiple of ``flash_block`` (the plain twin's block on the
+    CPU) and of the kernel's tile on a card."""
     b, l = input_ids.shape
     hq, hkv, dh = cfg.num_heads, cfg.kv_heads, cfg.hd
     x = params["embed"][input_ids.long()]
-    mask_bias = padding_mask_bias(attention_mask, causal=True)
+    mask_bias = None if use_flash else padding_mask_bias(attention_mask,
+                                                         causal=True)
     cos, sin = make_rope(dh, l, cfg.rope_theta, device=x.device)
 
     for layer in params["layers"]:
@@ -98,7 +109,14 @@ def qwen3_hidden_states(params: Params, cfg: Qwen3Config,
         v = (y @ layer["wv"]).reshape(b, l, hkv, dh)
         q = apply_rope(rms_norm(q, layer["q_norm"]), cos, sin)
         k = apply_rope(rms_norm(k, layer["k_norm"]), cos, sin)
-        attn = attention(q, k, v, mask_bias)
+        if use_flash:
+            k_full = torch.repeat_interleave(k, hq // hkv, dim=2)
+            v_full = torch.repeat_interleave(v, hq // hkv, dim=2)
+            attn = flash_attention_bhld(q, k_full, v_full, attention_mask,
+                                        causal=True, block_q=flash_block,
+                                        block_k=flash_block)
+        else:
+            attn = attention(q, k, v, mask_bias)
         x = x + attn.reshape(b, l, hq * dh) @ layer["wo"]
         y = rms_norm(x, layer["ffn_norm"])
         x = x + (F.silu(y @ layer["w_gate"]) * (y @ layer["w_up"])) @ layer["w_down"]

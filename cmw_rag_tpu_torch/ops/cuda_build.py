@@ -1,10 +1,12 @@
 """Build the hand-written CUDA kernels and load them with ctypes.
 
-``csrc/topk_scan.cu`` is compiled by ``nvcc`` for ``sm_90a`` into a shared
-library with a plain C interface, on first use, into
-``build/cmw_rag_tpu_torch/`` under the checkout. The library's file name
-carries a hash of its source, so an edited source is rebuilt and an
-unchanged one is loaded as it is. Nothing here runs at import time.
+Each source ``csrc/<stem>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into a
+shared library of its own with a plain C interface, on first use, into
+``build/cmw_rag_tpu_torch/`` under the checkout. A library's file name
+carries a hash of its source and flags, so an edited source is rebuilt and
+an unchanged one is loaded as it is. ``build()`` starts one ``nvcc`` per
+missing library, all at once, and waits for them together. Nothing here
+runs at import time.
 """
 
 from __future__ import annotations
@@ -18,12 +20,14 @@ from pathlib import Path
 
 from cmw_rag_tpu_torch.device import REPO_ROOT
 
-SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "topk_scan.cu"
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+#: every kernel source of the port, by stem
+SOURCES = ("topk_scan", "flash_attention")
 BUILD_DIR = REPO_ROOT / "build" / "cmw_rag_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
-_lib: ctypes.CDLL | None = None
+_libs: dict[str, ctypes.CDLL] = {}
 
 
 def find_nvcc() -> str:
@@ -37,27 +41,46 @@ def find_nvcc() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
-def build() -> Path:
-    """Compile the source unless an up-to-date library exists; return the
-    library's path. Raises with the compiler's output if the build fails."""
-    digest = hashlib.sha256(SOURCE.read_bytes()
+def source(stem: str) -> Path:
+    return CSRC / f"{stem}.cu"
+
+
+def target(stem: str) -> Path:
+    """The library built from ``source(stem)`` with ``NVCC_FLAGS``."""
+    digest = hashlib.sha256(source(stem).read_bytes()
                             + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    out = BUILD_DIR / f"{SOURCE.stem}_{digest}.so"
-    if not out.is_file():
+    return BUILD_DIR / f"{stem}_{digest}.so"
+
+
+def build(stems=SOURCES) -> dict[str, Path]:
+    """Compile every source in ``stems`` that has no up-to-date library, one
+    ``nvcc`` each, all started together; return each library's path. Raises
+    with the compiler's output if a build fails."""
+    out = {stem: target(stem) for stem in stems}
+    todo = {stem: path for stem, path in out.items() if not path.is_file()}
+    if todo:
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        res = subprocess.run([find_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-                              str(SOURCE)], capture_output=True, text=True)
-        if res.returncode != 0:
-            raise RuntimeError(f"nvcc {SOURCE.name} failed ({res.returncode}):"
-                               f"\n{res.stdout}{res.stderr}")
-        os.replace(tmp, out)  # atomic: concurrent builds agree
+        nvcc = find_nvcc()
+        procs = {}
+        for stem, path in todo.items():
+            tmp = path.with_suffix(f".{os.getpid()}.tmp")
+            procs[stem] = (tmp, subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(source(stem))],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        failed = []
+        for stem, (tmp, proc) in procs.items():
+            log = proc.communicate()[0]
+            if proc.returncode != 0:
+                failed.append(f"nvcc {stem}.cu failed ({proc.returncode}):\n{log}")
+            else:
+                os.replace(tmp, todo[stem])  # atomic: concurrent builds agree
+        if failed:
+            raise RuntimeError("\n".join(failed))
     return out
 
 
-def library() -> ctypes.CDLL:
-    """The loaded library built from the source."""
-    global _lib
-    if _lib is None:
-        _lib = ctypes.CDLL(str(build()))
-    return _lib
+def library(stem: str) -> ctypes.CDLL:
+    """The loaded library built from ``csrc/<stem>.cu``."""
+    if stem not in _libs:
+        _libs[stem] = ctypes.CDLL(str(build((stem,))[stem]))
+    return _libs[stem]

@@ -6,14 +6,17 @@ replace: scores are dot products accumulated in float32 (an int8 row is
 multiplied by its f32 scale after the product); rows whose id is < 0
 (tombstones, padding) never surface; each query keeps its ``k`` best rows
 ordered by (score descending, id ascending); slots with no valid row hold
-``(NEG_INF, -1)``.
+``(NEG_INF, -1)``. Any ``k >= 1`` is taken; past the number of live rows
+the tail is empty slots.
 
 - ``topk_scan_bf16`` / ``topk_scan_int8`` are the wrappers the pipeline
   calls. On CUDA tensors they launch ``csrc/topk_scan.cu`` (replacing
   ``topk_pallas`` :164 and ``topk_pallas_int8`` :210) and add one to their
   ``launches`` count per call (each call launches ``scan_kernel``, then
-  ``merge_kernel``); on CPU tensors they run the plain twin. Wrong device,
-  dtype, shape or contiguity raises: there is no fallback.
+  ``merge_kernel``; for k > 128 the running lists live in a second
+  [n_blocks, Q, k] buffer in device memory); on CPU tensors they run the
+  plain twin. Wrong device, dtype, shape or contiguity raises: there is no
+  fallback.
 - ``topk_plain`` / ``topk_plain_int8`` are the plain twins: float32 scores
   over chunks of rows (never a float32 copy of the whole corpus), then a
   stable sort that keeps ties in id order.
@@ -25,10 +28,10 @@ import ctypes
 
 import torch
 
+from cmw_rag_tpu_torch.device import on_cpu
 from cmw_rag_tpu_torch.ops import cuda_build
 
 NEG_INF = -3.0e38
-MAX_K = 128
 PLAIN_CHUNK_ROWS = 65536
 
 
@@ -97,27 +100,17 @@ def quantize_rows_int8(vectors: torch.Tensor):
 
 
 def _lib() -> ctypes.CDLL:
-    lib = cuda_build.library()
+    lib = cuda_build.library("topk_scan")
     if not getattr(lib, "_typed", False):
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        tail = [i, ll, i, i, i, p, p, p, p, p]
+        tail = [i, ll, i, i, i, p, p, p, p, p, p, p]
         lib.topk_scan_bf16.argtypes = [p, p, p] + tail
         lib.topk_scan_int8.argtypes = [p, p, p, p] + tail
         for fn in ("topk_scan_bf16", "topk_scan_int8", "topk_scan_tile_rows",
-                   "topk_scan_max_blocks"):
+                   "topk_scan_max_blocks", "topk_scan_max_shared_k"):
             getattr(lib, fn).restype = ctypes.c_int
         lib._typed = True
     return lib
-
-
-def _on_cpu(*tensors: torch.Tensor) -> bool:
-    kinds = {t.device.type for t in tensors}
-    if kinds == {"cpu"}:
-        return True
-    if kinds != {"cuda"} or len({t.device for t in tensors}) != 1:
-        raise ValueError(f"inputs must share one device, got "
-                         f"{[str(t.device) for t in tensors]}")
-    return False
 
 
 def _check(name: str, t: torch.Tensor, dtype: torch.dtype, shape) -> None:
@@ -136,8 +129,8 @@ def _launch(fn_name: str, corpus, extra, ids, queries, k: int):
         raise ValueError("corpus and queries must be 2-D")
     n, d = corpus.shape
     nq = queries.shape[0]
-    if not 1 <= k <= MAX_K:
-        raise ValueError(f"k={k} outside [1, {MAX_K}]")
+    if k < 1:
+        raise ValueError(f"k={k} must be at least 1")
     if d % 8:
         raise ValueError(f"D={d} must be a multiple of 8")
     if n < 1 or nq < 1:
@@ -151,6 +144,9 @@ def _launch(fn_name: str, corpus, extra, ids, queries, k: int):
     n_blocks = max(1, min(tiles, 2 * sms, lib.topk_scan_max_blocks()))
     part_s = torch.empty((n_blocks, nq, k), dtype=torch.float32, device=dev)
     part_i = torch.empty((n_blocks, nq, k), dtype=torch.int32, device=dev)
+    alt_s = alt_i = None
+    if k > lib.topk_scan_max_shared_k():
+        alt_s, alt_i = torch.empty_like(part_s), torch.empty_like(part_i)
     out_s = torch.empty((nq, k), dtype=torch.float32, device=dev)
     out_i = torch.empty((nq, k), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
@@ -158,7 +154,9 @@ def _launch(fn_name: str, corpus, extra, ids, queries, k: int):
         err = getattr(lib, fn_name)(
             queries.data_ptr(), corpus.data_ptr(),
             *[t.data_ptr() for t in extra], ids.data_ptr(), nq, n, d, k,
-            n_blocks, part_s.data_ptr(), part_i.data_ptr(), out_s.data_ptr(),
+            n_blocks, part_s.data_ptr(), part_i.data_ptr(),
+            None if alt_s is None else alt_s.data_ptr(),
+            None if alt_i is None else alt_i.data_ptr(), out_s.data_ptr(),
             out_i.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"{fn_name} launch failed: CUDA error {err}")
@@ -169,7 +167,7 @@ def topk_scan_bf16(corpus: torch.Tensor, ids: torch.Tensor,
                    queries: torch.Tensor, k: int):
     """bf16 corpus [N, D], ids [N] int32, queries [Q, D] bf16 →
     (scores [Q, k] f32, ids [Q, k] int32)."""
-    if _on_cpu(corpus, ids, queries):
+    if on_cpu(corpus, ids, queries):
         return topk_plain(corpus, ids, queries, k)
     _check("corpus", corpus, torch.bfloat16, corpus.shape)
     out = _launch("topk_scan_bf16", corpus, (), ids, queries, k)
@@ -181,7 +179,7 @@ def topk_scan_int8(corpus: torch.Tensor, scales: torch.Tensor,
                    ids: torch.Tensor, queries: torch.Tensor, k: int):
     """int8 corpus [N, D] with f32 row scales [N], ids [N] int32, queries
     [Q, D] bf16 → (scores [Q, k] f32, ids [Q, k] int32)."""
-    if _on_cpu(corpus, scales, ids, queries):
+    if on_cpu(corpus, scales, ids, queries):
         return topk_plain_int8(corpus, scales, ids, queries, k)
     _check("corpus", corpus, torch.int8, corpus.shape)
     _check("scales", scales, torch.float32, (corpus.shape[0],))

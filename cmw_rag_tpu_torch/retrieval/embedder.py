@@ -1,6 +1,9 @@
 """Embedder: texts → unit vectors (port of ``cmw_rag_tpu/retrieval/embedder.py:50-160, 183-433``).
 
-``TorchEmbedder`` runs the dense T5 tower and, for hybrid specs
+``TorchEmbedder`` runs a dense tower, T5 (``frida-*``) or Qwen3
+(``qwen3-*``: instruction-formatted queries, last-token pooling, and the
+flash attention kernel for sequences of ``flash_min_seq`` tokens or more
+that are a multiple of 512), and, for hybrid specs
 such as ``frida-hybrid``, appends the signed-hash lexical blocks: subword
 unigrams, adjacent-subword bigrams and RU-stemmed words. Two forms of the
 hash exist, as in the JAX package:
@@ -27,6 +30,12 @@ import torch
 from cmw_rag_tpu_torch.config import EmbeddingModelSpec, get_embedding_model
 from cmw_rag_tpu_torch.device import REPO_ROOT, resolve_device
 from cmw_rag_tpu_torch.models.pooling import pool_hidden
+from cmw_rag_tpu_torch.models.qwen3 import (
+    Qwen3Config,
+    init_qwen3,
+    qwen3_hidden_states,
+    qwen3_layout,
+)
 from cmw_rag_tpu_torch.models.t5_encoder import (
     T5EncoderConfig,
     init_t5_encoder,
@@ -155,20 +164,37 @@ class TorchEmbedder:
         self.tokenizer = tokenizer
         vocab = vocab_size or max(spec.vocab_size, tokenizer.n_vocab)
         vocab = -(-vocab // 128) * 128
-        if spec.arch != "t5_encoder":  # the shipping tower; Qwen3 towers wait
-            raise NotImplementedError(f"embedding arch {spec.arch!r} is not ported")
-        self.cfg = T5EncoderConfig(
-            vocab_size=vocab, d_model=spec.d_model, d_ff=spec.d_ff,
-            num_layers=spec.num_layers, num_heads=spec.num_heads, dtype=dtype)
-        self._encode_fn = t5_encode
+        if spec.arch == "t5_encoder":
+            self.cfg = T5EncoderConfig(
+                vocab_size=vocab, d_model=spec.d_model, d_ff=spec.d_ff,
+                num_layers=spec.num_layers, num_heads=spec.num_heads,
+                dtype=dtype)
+            self._encode_fn, layout_fn, init_fn = (
+                t5_encode, t5_layout, init_t5_encoder)
+        elif spec.arch == "qwen3":
+            self.cfg = Qwen3Config(
+                vocab_size=vocab, d_model=spec.d_model, d_ff=spec.d_ff,
+                num_layers=spec.num_layers, num_heads=spec.num_heads,
+                num_kv_heads=spec.num_kv_heads, head_dim=spec.head_dim,
+                dtype=dtype)
+            self._encode_fn, layout_fn, init_fn = (
+                qwen3_hidden_states, qwen3_layout, init_qwen3)
+        else:
+            raise ValueError(f"unknown embedding arch: {spec.arch!r}")
         if checkpoint:
-            self.params = load_params_npz(t5_layout(self.cfg), checkpoint,
+            self.params = load_params_npz(layout_fn(self.cfg), checkpoint,
                                           self.device)
         elif params is not None:
             self.params = params
         else:
-            self.params = init_t5_encoder(torch.Generator().manual_seed(seed),
-                                          self.cfg, self.device)
+            self.params = init_fn(torch.Generator().manual_seed(seed),
+                                  self.cfg, self.device)
+        # the flash kernel serves the causal Qwen3 towers; T5 keeps plain
+        # attention (its relative-position bias). It takes over from this
+        # many tokens on a card (the JAX package's TPU threshold) and is off
+        # on the CPU, as the JAX package has it off away from the TPU
+        self._flash_capable = spec.arch == "qwen3"
+        self.flash_min_seq = 1024 if self.device.type == "cuda" else 0
 
         if getattr(spec, "lexical_translit_dim", 0):
             raise NotImplementedError("the translit block is not ported")
@@ -214,10 +240,21 @@ class TorchEmbedder:
         mask[len(encoded):, 0] = 1  # padding rows stay well-defined
         return ids, mask
 
-    def forward(self, ids: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    def forward(self, ids: torch.Tensor, mask: torch.Tensor,
+                use_flash: bool = False) -> torch.Tensor:
         """Dense tower + pooling on [B, L] tensors → [B, d_model] float32."""
-        hidden = self._encode_fn(self.params, self.cfg, ids, mask)
+        if self._flash_capable and use_flash:
+            hidden = self._encode_fn(self.params, self.cfg, ids, mask,
+                                     use_flash=True)
+        else:
+            hidden = self._encode_fn(self.params, self.cfg, ids, mask)
         return pool_hidden(hidden, mask, self.spec.pooling, self.spec.normalize)
+
+    def uses_flash(self, seq_len: int) -> bool:
+        """Whether a padded batch of ``seq_len`` tokens takes the flash
+        route (the JAX embedder's rule)."""
+        return bool(self._flash_capable and self.flash_min_seq
+                    and seq_len >= self.flash_min_seq and seq_len % 512 == 0)
 
     @torch.inference_mode()
     def _embed(self, texts: Sequence[str],
@@ -230,7 +267,8 @@ class TorchEmbedder:
             chunk = texts[start : start + max_batch]
             ids, mask = self.tokenize_batch(chunk)
             vecs = self.forward(torch.from_numpy(ids).to(self.device),
-                                torch.from_numpy(mask).to(self.device))
+                                torch.from_numpy(mask).to(self.device),
+                                use_flash=self.uses_flash(ids.shape[1]))
             out.append(vecs[: len(chunk)].float().cpu().numpy())
         result = np.concatenate(out, axis=0)
         if self._lex is None:

@@ -1,16 +1,24 @@
 """Rerankers: batched (query, document) scoring (port of
-``cmw_rag_tpu/retrieval/reranker.py:97-320, 323-433``).
+``cmw_rag_tpu/retrieval/reranker.py:47-480``).
 
 Two families, as in the JAX package: ``cross_encoder`` (T5 encoder over the
 pair, pooled, sigmoid of a linear score head) and ``llm_reranker`` (Qwen3
-decoder, softmax over the yes/no logits at the last real token). The
-ensemble blends members as z(cos) + Σ wᵢ·z(logit(sᵢ)) with the population
-std (``np.std``), as the host ensemble does; the fused pipeline's in-program
-blend keeps its own sample std.
+decoder, softmax over the yes/no logits at the last real token; padded
+batches of ``flash_min_seq`` tokens or more that are a multiple of 512 take
+the flash attention kernel). ``TorchReranker.rerank`` blends the vector
+score with the model score, raw (``s + w·cos``) or in z-space
+(``z(cos) + w·z(logit(s))``, plus the structural priors); the ensemble
+blends members as z(cos) + Σ wᵢ·z(logit(sᵢ)) plus the priors, with the
+population std (``np.std``), as the host ensemble does; the fused
+pipeline's in-program blend keeps its own sample std. Metadata boosts
+multiply the final score. ``IdentityReranker`` keeps the vector order;
+``create_reranker`` falls back to it, with a warning, when a model has no
+weights, as the JAX factory does.
 """
 
 from __future__ import annotations
 
+import logging
 from dataclasses import dataclass, field
 from pathlib import Path
 from typing import Any, Optional, Sequence
@@ -35,6 +43,9 @@ from cmw_rag_tpu_torch.models.t5_encoder import (
     t5_layout,
 )
 from cmw_rag_tpu_torch.models.weights import load_params_npz
+from cmw_rag_tpu_torch.retrieval.priors import apply_structural_priors
+
+log = logging.getLogger(__name__)
 
 _SEQ_BUCKETS = (64, 128, 256, 512, 1024, 2048, 4096, 8192)
 _BATCH_BUCKETS = (1, 2, 4, 8, 16, 32, 64)
@@ -57,13 +68,55 @@ class Candidate:
     score: float = 0.0          # vector-stage score in, rerank score out
 
 
+def apply_metadata_boosts(score: float, metadata: dict[str, Any],
+                          boosts: dict[str, float]) -> float:
+    """score × (1 + boost) for each matching metadata signal. Recognized
+    boost keys: ``has_code``, ``tag:<name>`` (matches the comma-joined tags
+    field), ``section:<n>``."""
+    factor = 1.0
+    for key, boost in boosts.items():
+        if key == "has_code" and metadata.get("has_code"):
+            factor *= 1.0 + boost
+        elif key.startswith("tag:"):
+            tags = str(metadata.get("tags", ""))
+            if key[4:] in [t.strip() for t in tags.split(",")]:
+                factor *= 1.0 + boost
+        elif (key.startswith("section:")
+              and str(metadata.get("section_index")) == key[8:]):
+            factor *= 1.0 + boost
+    return score * factor
+
+
+def _boosted_top(candidates, final, boosts, top_k) -> list[Candidate]:
+    out = [Candidate(c.id, c.text, dict(c.metadata),
+                     apply_metadata_boosts(float(s), c.metadata, boosts))
+           for c, s in zip(candidates, final)]
+    out.sort(key=lambda c: -c.score)
+    return out[:top_k]
+
+
+class IdentityReranker:
+    """Pass-through: keeps the vector-stage order (boosts still apply)."""
+
+    def __init__(self, boosts: Optional[dict[str, float]] = None):
+        self.boosts = boosts or {}
+
+    def rerank(self, query: str, candidates: Sequence[Candidate], top_k: int,
+               instruction: str | None = None) -> list[Candidate]:
+        return _boosted_top(candidates, [c.score for c in candidates],
+                            self.boosts, top_k)
+
+
 def score_batch(params, cfg, kind: str, pooling: str, yes_no: tuple[int, int],
-                ids: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+                ids: torch.Tensor, mask: torch.Tensor,
+                use_flash: bool = False) -> torch.Tensor:
     """Model scores in [0, 1] for [B, L] pair tokens: sigmoid of the
     cross-encoder head, or P(yes) from the yes/no logits at the last real
-    token of the decoder."""
+    token of the decoder (its attention through the flash kernel when
+    ``use_flash``)."""
     if kind == "llm_reranker":
-        hidden = qwen3_hidden_states(params, cfg, ids, mask)
+        hidden = qwen3_hidden_states(params, cfg, ids, mask,
+                                     use_flash=use_flash)
         last = (mask.sum(dim=1) - 1).clamp(min=0).long()
         h = hidden[torch.arange(hidden.shape[0], device=hidden.device), last]
         no_id, yes_id = yes_no[1], yes_no[0]
@@ -79,12 +132,14 @@ class TorchReranker:
     """Batched scorer for both reranker families."""
 
     def __init__(self, spec: RerankerModelSpec, tokenizer=None, params=None,
-                 seed: int = 0,
+                 seed: int = 0, boosts: Optional[dict[str, float]] = None,
                  dtype: torch.dtype = torch.bfloat16,
                  max_pair_tokens: int = 1024,
                  vocab_size: Optional[int] = None,
                  checkpoint: Optional[str] = None, vector_weight: float = 0.0,
                  blend: str = "raw", ce_weight: float = 0.55,
+                 current_version: str = "", prior_version_weight: float = 0.0,
+                 prior_language_weight: float = 0.0,
                  device: str | torch.device = "cuda"):
         if spec.kind not in ("cross_encoder", "llm_reranker"):
             raise ValueError(f"unsupported reranker kind: {spec.kind!r}")
@@ -92,9 +147,14 @@ class TorchReranker:
             raise ValueError(f"unknown blend: {blend!r}")
         self.spec = spec
         self.device = resolve_device(device)
+        self.boosts = boosts or {}
         self.vector_weight = float(vector_weight)
         self.blend = blend
         self.ce_weight = float(ce_weight)
+        # structural priors (retrieval/priors.py), z-blend only
+        self.current_version = current_version
+        self.prior_version_weight = float(prior_version_weight)
+        self.prior_language_weight = float(prior_language_weight)
         if tokenizer is None:
             from cmw_rag_tpu_torch.tokenizer import get_tokenizer
 
@@ -130,12 +190,25 @@ class TorchReranker:
             self.params = init_t5_encoder(gen, self.cfg, self.device)
             self.params["score_head"] = dense_init(
                 gen, self.cfg.d_model, 1, torch.float32).to(self.device)
+        # long decoder pairs take the flash kernel on a card from this many
+        # tokens (the JAX package's TPU threshold); off on the CPU, as the
+        # JAX package has it off away from the TPU; T5 keeps plain attention
+        self.flash_min_seq = (1024 if spec.kind == "llm_reranker"
+                              and self.device.type == "cuda" else 0)
+
+    def uses_flash(self, seq_len: int) -> bool:
+        """Whether a padded batch of ``seq_len`` tokens takes the flash
+        route (the JAX reranker's rule)."""
+        return bool(self.flash_min_seq and seq_len >= self.flash_min_seq
+                    and seq_len % 512 == 0)
 
     @torch.inference_mode()
-    def score_tokens(self, ids: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    def score_tokens(self, ids: torch.Tensor, mask: torch.Tensor,
+                     use_flash: bool = False) -> torch.Tensor:
         """Scores for pre-tokenized pairs [B, L] on this reranker's device."""
         return score_batch(self.params, self.cfg, self.spec.kind,
-                           self.spec.pooling, self.yes_no, ids, mask)
+                           self.spec.pooling, self.yes_no, ids, mask,
+                           use_flash=use_flash)
 
     def score_pairs(self, query: str, documents: Sequence[str],
                     instruction: str | None = None) -> np.ndarray:
@@ -161,9 +234,26 @@ class TorchReranker:
         for start in range(0, len(texts), max_batch):
             chunk = texts[start : start + max_batch]
             ids, mask = self._tokenize(chunk)
-            scores = self.score_tokens(ids, mask)
+            scores = self.score_tokens(ids, mask,
+                                       use_flash=self.uses_flash(ids.shape[1]))
             out.append(scores[: len(chunk)].float().cpu().numpy())
         return np.concatenate(out)
+
+    def rerank(self, query: str, candidates: Sequence[Candidate], top_k: int,
+               instruction: str | None = None) -> list[Candidate]:
+        if not candidates:
+            return []
+        raw = self.score_pairs(query, [c.text for c in candidates], instruction)
+        vec = np.asarray([c.score for c in candidates], np.float32)
+        if self.blend == "z" and len(candidates) > 1:
+            final = ((vec - vec.mean()) / max(float(vec.std()), 1e-6)
+                     + self.ce_weight * _zlogit(raw))
+            final = apply_structural_priors(
+                final, query, candidates, self.current_version,
+                self.prior_version_weight, self.prior_language_weight)
+        else:  # raw cascade: the model score refines the vector order
+            final = raw + self.vector_weight * vec
+        return _boosted_top(candidates, final, self.boosts, top_k)
 
     def _tokenize(self, texts: Sequence[str]):
         encoded = [self.tokenizer.encode(t, allowed_special="all")
@@ -178,13 +268,6 @@ class TorchReranker:
         mask[len(encoded):, 0] = 1
         return (torch.from_numpy(ids).to(self.device),
                 torch.from_numpy(mask).to(self.device))
-
-
-def _ranked(candidates, final, top_k) -> list[Candidate]:
-    out = [Candidate(c.id, c.text, dict(c.metadata), float(s))
-           for c, s in zip(candidates, final)]
-    out.sort(key=lambda c: -c.score)
-    return out[:top_k]
 
 
 #: bundled trained checkpoints (``checkpoints/`` at the repo root)
@@ -208,7 +291,11 @@ class EnsembleReranker:
     """Weighted z-logit ensemble: final = z(cos) + Σ wᵢ·z(logit(sᵢ))."""
 
     def __init__(self, members: Sequence[TorchReranker],
-                 weights: Optional[Sequence[float]] = None):
+                 weights: Optional[Sequence[float]] = None,
+                 boosts: Optional[dict[str, float]] = None,
+                 current_version: str = "",
+                 prior_version_weight: float = 0.0,
+                 prior_language_weight: float = 0.0):
         if not members:
             raise ValueError("ensemble needs at least one member")
         self.members = list(members)
@@ -216,7 +303,11 @@ class EnsembleReranker:
                         else [0.55] * len(self.members))
         if len(self.weights) != len(self.members):
             raise ValueError("one weight per member")
+        self.boosts = boosts or {}
         self.blend = "z"
+        self.current_version = current_version
+        self.prior_version_weight = float(prior_version_weight)
+        self.prior_language_weight = float(prior_language_weight)
 
     def score_pairs(self, query: str, documents: Sequence[str],
                     instruction: str | None = None) -> np.ndarray:
@@ -240,7 +331,10 @@ class EnsembleReranker:
         final = (vec - vec.mean()) / max(float(vec.std()), 1e-6)
         for w, m in zip(self.weights, self.members):
             final = final + w * _zlogit(m.score_pairs(query, docs, instruction))
-        return _ranked(candidates, final, top_k)
+        final = apply_structural_priors(
+            final, query, candidates, self.current_version,
+            self.prior_version_weight, self.prior_language_weight)
+        return _boosted_top(candidates, final, self.boosts, top_k)
 
 
 def _bundled_checkpoint(slug: str) -> Optional[str]:
@@ -252,27 +346,57 @@ def _bundled_checkpoint(slug: str) -> Optional[str]:
 
 
 def create_reranker(settings: Optional[Settings] = None, tokenizer=None,
-                    device: str | torch.device = "cuda",
+                    boosts: Optional[dict[str, float]] = None, seed: int = 0,
+                    params=None, device: str | torch.device = "cuda",
                     dtype: torch.dtype = torch.bfloat16):
-    """Factory over ``settings.reranker_model``: a comma-separated list of
-    slugs is a z-logit ensemble (the shipping default), one slug a single
-    ``TorchReranker``. Every member loads its bundled checkpoint; a slug
-    with none raises (random rerank weights destroy the vector ranking)."""
+    """Factory over ``settings.reranker_model`` (the JAX package's policy):
+    "identity" (or "", "none") is ``IdentityReranker``; a comma-separated
+    list of slugs a z-logit ensemble (the shipping default) whose members
+    load ``settings.reranker_checkpoint`` or their bundled checkpoint; one
+    slug a ``TorchReranker`` with ``params``, or that checkpoint. A model
+    with no weights, or an unknown slug, degrades to ``IdentityReranker``
+    with a warning: random rerank weights destroy the vector ranking."""
     settings = settings or Settings()
-    slugs = [p.strip() for p in settings.reranker_model.split(",") if p.strip()]
-    if not slugs:
-        raise ValueError("no reranker configured")
-    members = []
-    for slug in slugs:
-        ckpt = _bundled_checkpoint(slug)
-        if ckpt is None:
-            raise ValueError(f"no bundled checkpoint for reranker {slug!r}")
-        members.append(TorchReranker(
-            get_reranker(slug), tokenizer=tokenizer, checkpoint=ckpt, device=device, dtype=dtype,
-            vector_weight=settings.reranker_vector_weight,
-            blend=settings.reranker_blend,
-            ce_weight=settings.reranker_ce_weight))
-    if len(members) == 1:
-        return members[0]
-    return EnsembleReranker(members,
-                            weights=[settings.reranker_ce_weight] * len(members))
+    slug = settings.reranker_model
+    if slug.lower() in ("", "identity", "none"):
+        return IdentityReranker(boosts)
+    priors = dict(current_version=settings.current_product_version,
+                  prior_version_weight=settings.prior_version_weight,
+                  prior_language_weight=settings.prior_language_weight)
+    if "," in slug:
+        try:
+            members = []
+            for part in (p.strip() for p in slug.split(",") if p.strip()):
+                spec = get_reranker(part)
+                ckpt = (settings.reranker_checkpoint
+                        or _bundled_checkpoint(part))
+                if ckpt is None:
+                    raise ValueError(f"no checkpoint for ensemble member {part!r}")
+                members.append(TorchReranker(
+                    spec, tokenizer=tokenizer, seed=seed, checkpoint=ckpt,
+                    device=device, dtype=dtype))
+            return EnsembleReranker(
+                members, weights=[settings.reranker_ce_weight] * len(members),
+                boosts=boosts, **priors)
+        except (KeyError, ValueError, OSError) as e:
+            log.warning("ensemble %r unavailable (%s); identity", slug, e)
+            return IdentityReranker(boosts)
+    try:
+        spec = get_reranker(slug)
+        if spec.kind == "identity":
+            return IdentityReranker(boosts)
+        checkpoint = settings.reranker_checkpoint or _bundled_checkpoint(slug)
+        if params is None and checkpoint is None:
+            log.warning("reranker %r has no checkpoint: serving the identity "
+                        "reranker instead of random weights", slug)
+            return IdentityReranker(boosts)
+        return TorchReranker(
+            spec, tokenizer=tokenizer, boosts=boosts, seed=seed, params=params,
+            checkpoint=checkpoint, vector_weight=settings.reranker_vector_weight,
+            blend=settings.reranker_blend or "raw",
+            ce_weight=settings.reranker_ce_weight, device=device, dtype=dtype,
+            **priors)
+    except (KeyError, ValueError, OSError) as e:
+        log.warning("reranker %r unavailable (%s); falling back to identity",
+                    slug, e)
+        return IdentityReranker(boosts)

@@ -8,7 +8,9 @@ on their bundled checkpoints, top_k_retrieve 20, cap 60, rerank 20, top 10,
 rows with random chunk tokens, made on the card a slice at a time (one
 float32 draw would be a 20 GB transient), in which 8 bilingual chunk texts
 are planted at known slots, so that each of them, used as a query, has a
-known answer.
+known answer. ``small_pipeline`` builds the same path over the checkout's
+markdown in chunks plus the planted texts, on any device, so that a card's
+answers can be held against its CPU's on identical rows.
 """
 
 from __future__ import annotations
@@ -125,3 +127,38 @@ class ShippingPath:
                              **PIPELINE_KW)
         pipe.set_corpus_arrays(rows, self.ext_ids, self.toks, self.lens)
         return pipe
+
+
+def small_corpus(tokenizer) -> tuple[list[str], list[int]]:
+    """Chunk texts of the long-context corpus files in consecutive windows of
+    ``CHUNK_TOKENS`` tokens, then the planted texts; → (texts, the planted
+    texts' slots)."""
+    from cmw_rag_tpu_torch.device import REPO_ROOT
+    from cmw_rag_tpu_torch.scripts.long_context import markdown_files
+
+    texts = []
+    for path in markdown_files(REPO_ROOT):
+        toks = tokenizer.encode(path.read_text(encoding="utf-8"))
+        texts += [tokenizer.decode(toks[a : a + CHUNK_TOKENS])
+                  for a in range(0, len(toks), CHUNK_TOKENS)]
+    slots = list(range(len(texts), len(texts) + len(PLANTED_TEXTS)))
+    return texts + PLANTED_TEXTS, slots
+
+
+def small_pipeline(device, vecs=None):
+    """The shipping path (bf16 corpus) on ``device`` over ``small_corpus``:
+    real chunk texts, so that the vector stage ranks by clear margins, with
+    their own tokens. ``vecs`` gives the rows (default: this device's
+    embedder's); pass the same ones to hold two devices to identical rows.
+    → (pipeline, vecs, planted slots)."""
+    from cmw_rag_tpu_torch.retrieval.embedder import create_embedder
+    from cmw_rag_tpu_torch.retrieval.fused import FusedPipeline
+    from cmw_rag_tpu_torch.retrieval.reranker import create_reranker
+
+    emb = create_embedder("frida-hybrid", device=device)
+    texts, slots = small_corpus(emb.tokenizer)
+    if vecs is None:
+        vecs = emb.embed_documents(texts)
+    pipe = FusedPipeline(emb, create_reranker(device=device), **PIPELINE_KW)
+    pipe.build(texts, vecs=vecs)
+    return pipe, vecs, slots

@@ -1,8 +1,9 @@
 """The card's machine has torch, numpy and the standard library, and no jax,
 pydantic or yaml. This stands in for it: a subprocess whose import system
 refuses jax, jaxlib, pydantic, yaml and cmw_rag_tpu imports every module of
-cmw_rag_tpu_torch and chip_smoke, and answers a query with a tiny CPU
-FusedPipeline."""
+cmw_rag_tpu_torch and chip_smoke, answers a query with a tiny CPU
+FusedPipeline, and one through the Retriever over a TorchVectorStore with a
+qwen3-arch embedder and LLM reranker on their flash route."""
 
 import ast
 import os
@@ -60,6 +61,33 @@ CHILD = textwrap.dedent("""
                 "kanban board columns", "webhook retries"])
     out = pipe.query(["database backup", "принтер"])
     assert out["ids"].shape == (2, 3) and (out["ids"] >= 0).all(), out
+
+    from cmw_rag_tpu_torch.index.tpu_store import TorchVectorStore
+    from cmw_rag_tpu_torch.ops import flash_attention as FA
+    from cmw_rag_tpu_torch.retrieval import retriever as R
+
+    twin, flash_calls = FA.flash_attention_plain, []
+    FA.flash_attention_plain = lambda *a, **k: (flash_calls.append(1),
+                                                twin(*a, **k))[1]
+
+    tiny = dict(d_model=32, d_ff=64, num_layers=1, num_heads=2,
+                num_kv_heads=1, head_dim=16)
+    qemb = TorchEmbedder(EmbeddingModelSpec(
+        slug="tiny-q", arch="qwen3", dimensions=32, max_tokens=2048,
+        pooling="last_token", instruction_template="Q: {{task}} {{query}}",
+        default_task="find", **tiny), device="cpu")
+    qrr = TorchReranker(RerankerModelSpec(
+        slug="tiny-rr", kind="llm_reranker", arch="qwen3", max_tokens=2048,
+        template_user="{{query}} {{document}}", **tiny), device="cpu", blend="z")
+    qemb.flash_min_seq = qrr.flash_min_seq = 1024
+    texts = [" ".join([w] * 600) for w in ("backup", "printer", "export")]
+    store = TorchVectorStore(dim=32, device="cpu")
+    store.add(texts, [{{"kbId": str(100 + i)}} for i in range(3)],
+              ["c%d" % i for i in range(3)], qemb.embed_documents(texts))
+    arts = R.Retriever(qemb, store, qrr, rerank_score_threshold=-10.0
+                       ).retrieve("database backup", top_k=2)
+    assert len(arts) == 2 and arts[0].score >= arts[1].score, arts
+    assert len(flash_calls) == 2, flash_calls  # documents, then pairs
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in REFUSED)
     assert not leaked, leaked
     print("ok", len(mods))
@@ -74,7 +102,7 @@ def test_port_runs_without_jax_pydantic_yaml_or_the_jax_package():
                          env=env, capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr[-4000:]
     assert res.stdout.split()[0] == "ok"
-    assert int(res.stdout.split()[1]) >= 15  # every module was walked
+    assert int(res.stdout.split()[1]) >= 34  # every module was walked
 
 
 def _imported_modules(path: Path) -> list[str]:

@@ -132,3 +132,42 @@ def test_wrappers_take_the_plain_twin_for_cpu_tensors(int8):
     assert (T.topk_scan_bf16.launches, T.topk_scan_int8.launches) == before
     with pytest.raises(ValueError, match="one device"):
         T.topk_scan_bf16(tc.to("meta"), tids, tq, 7)
+
+
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("k", [129, 300, 384, 500])
+def test_plain_large_k_matches_xla_and_pallas(int8, k):
+    """Any k: past 128 (the CUDA kernels' shared-memory limit), at the
+    corpus size, and past it, where the tail is (NEG_INF, -1). The Pallas
+    kernel (interpret mode) is held at k = 129 only: its merge rounds run
+    once per k, which takes tens of seconds per case in interpret mode."""
+    c, ids, qs = _case(seed=3)
+    jq, tq = _bf16(qs)
+    jids, tids = jnp.asarray(ids), torch.from_numpy(ids)
+    if int8:
+        jc8, jsc = J.quantize_rows_int8(jnp.asarray(c))
+        tc8, tsc = T.quantize_rows_int8(torch.from_numpy(c))
+        xs, xi = J.topk_xla_int8(jc8, jsc, jids, jq, k)
+        pallas = lambda: J.topk_pallas_int8(jc8, jsc, jids, jq, k,  # noqa: E731
+                                            tile_n=128, interpret=True)
+        ts, ti = T.topk_scan_int8(tc8, tsc, tids, tq, k)
+    else:
+        jc, tc = _bf16(c)
+        xs, xi = J.topk_xla(jc, jids, jq, k)
+        pallas = lambda: J.topk_pallas(jc, jids, jq, k, tile_n=128,  # noqa: E731
+                                       interpret=True)
+        ts, ti = T.topk_scan_bf16(tc, tids, tq, k)
+    assert ti.shape == (qs.shape[0], k)
+    n = min(k, c.shape[0])  # lax.sort gives at most N columns
+    np.testing.assert_array_equal(ti.numpy()[:, :n], np.asarray(xi)[:, :n])
+    np.testing.assert_allclose(ts.numpy()[:, :n], np.asarray(xs)[:, :n],
+                               atol=1e-6, rtol=0)
+    live = int((ids >= 0).sum())
+    assert (ti.numpy()[:, live:] == -1).all()
+    assert (ts.numpy()[:, live:] == np.float32(T.NEG_INF)).all()
+    if k == 129:
+        ps, pi = pallas()
+        np.testing.assert_array_equal(ti.numpy(), np.asarray(pi))
+        np.testing.assert_allclose(ts.numpy(), np.asarray(ps), atol=1e-6,
+                                   rtol=0)
+
