@@ -62,8 +62,37 @@ Phases, each printed with its seconds beside the card's name and power limit:
    wherever the flash route's neighbouring scores are more than ``LC_GAP`` =
    2 x ``LC_DRIFT`` apart.
 
-Every kernel's launch count is set to 0 just before each path (3 and 5) is
-driven and read just after; each kernel of a path must have launched. The
+6. ivf-kernels - a seeded clustered corpus of 1,000,000 rows x 1024 (4,096
+   centres plus noise, 8 rows copied twice for exact ties, 1% tombstones;
+   ``cmw_rag_tpu_torch/scripts/ivf.py``) laid out by ``IVFIndex.build``
+   with ``block_n`` 1024 and the default ``nlist``, bf16 and int8 (build
+   seconds printed). The IVF path: ``IVFIndex.search`` of 32 queries at
+   k 10 and ``nprobe`` 4, 16 and 64, as one batch (union kernels) and query
+   by query (probed kernels); recall@10 against an exact bf16 scan top-k
+   over the same rows (for int8, the rows it was quantised from), and for
+   every query the union finding at least what the probed search finds of
+   the exact top-10 in the index's own arithmetic. Then each IVF kernel against its plain twin at ``nprobe``
+   64, with the phase-2 rules: probed Q 1 and Q 8 at k 20, union Q 8 and
+   Q 32 at k 20 and Q 8 at k 1000. Times: the kernel, its twin, one
+   library yardstick timed here only (``index_select`` of the probed
+   blocks' rows, ``torch.matmul``, ``torch.topk``) and the bound (the rows
+   of the distinct blocks read once, 2D + 4 bytes a row in bf16 and D + 8
+   in int8, against 2 x Q x rows scanned x D operations).
+7. segmented - ``Retriever`` with ``frida-hybrid`` and the rerank ensemble
+   over ``TorchVectorStore(kind="segmented")`` with the ``SegmentedIndex``
+   defaults: 250,000 rows in batches of 8,192 (the checkout's markdown in
+   192-token chunks, the 8 planted texts, seeded random filler), two sealed
+   segments and a tail. Each planted text must return its own article in
+   the top 10; one ``store.search`` of the 8 planted query vectors as a
+   batch runs the union kernel beside the single queries' probed kernel;
+   planted chunks deleted from a segment and from the tail never come
+   back; after ``save``/``load`` every live id and row comes back (rows
+   within one bf16 step: the load normalises and rounds again) and every
+   planted chunk not deleted is found. The top-20 overlap of the IVF stage
+   with an exact ``FlatIndex`` over the same rows is printed.
+
+Every kernel's launch count is set to 0 just before each path (3, 5, 6 and
+7) is driven and read just after; each kernel of a path must have launched. The
 script then prints one JSON line with every kernel's numbers, the card's
 ``nvidia-smi`` name and power limit, and as its last line
 ``{"ok": true, "device": {...}}``. Any failed check raises and the script
@@ -135,22 +164,34 @@ def bf16_step(x):
     return torch.where(x == 0, torch.zeros_like(x), step)
 
 
+#: the IVF wrappers and the TPU kernels they replace
+IVF_KERNELS = {"ivf_probed_scan": "cmw_rag_tpu/ops/ivf_scan.py:95",
+               "ivf_probed_scan_int8": "cmw_rag_tpu/ops/ivf_scan.py:567",
+               "ivf_union_scan": "cmw_rag_tpu/ops/ivf_scan.py:340",
+               "ivf_union_scan_int8": "cmw_rag_tpu/ops/ivf_scan.py:452"}
+
+
 def reset_counts() -> None:
     from cmw_rag_tpu_torch.ops import flash_attention as F
+    from cmw_rag_tpu_torch.ops import ivf_scan as V
     from cmw_rag_tpu_torch.ops import topk as T
 
     T.topk_scan_bf16.launches = 0
     T.topk_scan_int8.launches = 0
     F.reset_launches()
+    for name in IVF_KERNELS:
+        getattr(V, name).launches = 0
 
 
 def read_counts() -> dict:
     from cmw_rag_tpu_torch.ops import flash_attention as F
+    from cmw_rag_tpu_torch.ops import ivf_scan as V
     from cmw_rag_tpu_torch.ops import topk as T
 
     return {"topk_scan_bf16": T.topk_scan_bf16.launches,
             "topk_scan_int8": T.topk_scan_int8.launches,
-            "flash_attention_fwd": F.total_launches()}
+            "flash_attention_fwd": F.total_launches(),
+            **{name: getattr(V, name).launches for name in IVF_KERNELS}}
 
 
 # ------------------------------------------------------------------ kernels
@@ -583,6 +624,268 @@ def long_context_phase(card_line: str) -> dict:
     return result
 
 
+# ---------------------------------------------------------------- IVF path
+
+
+def library_ivf(corpus, scales, ids, queries, table, k, block_n):
+    """Yardstick only: ``index_select`` of the listed blocks' rows (table
+    [Q, P]: each query its own; [1, U]: shared), ``torch.matmul`` (bf16),
+    ``torch.topk``."""
+    import torch
+
+    qn, d = queries.shape
+    rows = (table.long()[:, :, None] * block_n
+            + torch.arange(block_n, device=table.device)).reshape(
+                table.shape[0], -1)
+    c = corpus.index_select(0, rows.reshape(-1)).to(torch.bfloat16)
+    if table.shape[0] == 1:
+        s = torch.matmul(queries, c.T).float()
+    else:
+        s = torch.matmul(c.view(qn, -1, d), queries[:, :, None])[..., 0].float()
+    if scales is not None:
+        s = s * scales[rows]
+    i = ids[rows].expand(qn, -1)
+    s = s.masked_fill(i < 0, float("-inf"))
+    ts, ti = torch.topk(s, k, dim=1)
+    return ts, i.gather(1, ti)
+
+
+def ivf_recall(idx, q, truth, own_truth, card_line: str, label: str) -> dict:
+    """The IVF path: ``IVFIndex.search`` of the queries ``q`` (float32, unit)
+    as a batch (union) and query by query (probed) at nprobe 4, 16, 64;
+    recall@10 against the exact bf16 ids ``truth``. Against ``own_truth``,
+    the exact top-10 over the index's own rows in its own arithmetic, the
+    union, which scans a superset of each query's blocks, must find at
+    least as many as the probed search."""
+    import numpy as np
+    from cmw_rag_tpu_torch.scripts import ivf as I
+
+    out = {}
+    for nprobe in (4, 16, I.NPROBE):
+        _, union = idx.search(q, 10, nprobe=nprobe)
+        probed = np.concatenate([idx.search(q[j : j + 1], 10, nprobe=nprobe)[1]
+                                 for j in range(len(q))])
+        hits_u = [len(set(u) & set(t)) for u, t in zip(union, truth)]
+        hits_p = [len(set(p) & set(t)) for p, t in zip(probed, truth)]
+        worse = [j for j, (u, p, t) in enumerate(zip(union, probed, own_truth))
+                 if len(set(u) & set(t)) < len(set(p) & set(t))]
+        if worse:
+            raise AssertionError(f"ivf {label} nprobe {nprobe}: union recall "
+                                 f"below probed for queries {worse}")
+        out[nprobe] = {"union": sum(hits_u) / (10 * len(q)),
+                       "probed": sum(hits_p) / (10 * len(q))}
+    log(f"ivf-recall-{label}", 0.0, card_line,
+        recall_at_10=json.dumps({str(p): v for p, v in out.items()}))
+    return out
+
+
+def ivf_phase(card_line: str) -> dict:
+    """Build the 1M x 1024 IVF index (bf16, int8), drive its search path,
+    and hold each IVF kernel against its plain twin."""
+    import torch
+    from cmw_rag_tpu_torch.index.ivf import IVFIndex, union_blocks
+    from cmw_rag_tpu_torch.ops import ivf_scan as V
+    from cmw_rag_tpu_torch.ops import topk as T
+    from cmw_rag_tpu_torch.scripts import ivf as I
+
+    t0 = time.time()
+    rows, ids, queries, groups = I.clustered_corpus()
+    torch.cuda.synchronize()
+    log("ivf-setup", time.time() - t0, card_line, rows=I.N_ROWS, dim=I.DIM)
+    build_s, index = {}, {}
+    for label, quantize in (("bf16", False), ("int8", True)):
+        t0 = time.time()
+        index[label] = IVFIndex.build(rows, ids, block_n=I.BLOCK_N,
+                                      quantize=quantize)
+        torch.cuda.synchronize()
+        build_s[label] = time.time() - t0
+        log(f"ivf-build-{label}", build_s[label], card_line,
+            nlist=index[label].n_blocks, block_n=I.BLOCK_N)
+    del rows
+    torch.cuda.empty_cache()
+
+    # exact top-10 over each index's own rows (outside the path's counts)
+    b, b8 = index["bf16"], index["int8"]
+    qf = queries.float()
+    qf = (qf / qf.norm(dim=1, keepdim=True)).cpu().numpy()
+    qt = torch.from_numpy(qf).cuda().bfloat16()
+    truth = {"bf16": T.topk_scan_bf16(b.corpus, b.ids, qt, 10)[1].cpu().numpy(),
+             "int8": T.topk_scan_int8(b8.corpus, b8.scales, b8.ids, qt,
+                                      10)[1].cpu().numpy()}
+    reset_counts()
+    t0 = time.time()
+    recall = {label: ivf_recall(index[label], qf, truth["bf16"], truth[label],
+                                card_line, label) for label in ("bf16", "int8")}
+    launches = read_counts()
+    for name in IVF_KERNELS:
+        if launches[name] < 1:
+            raise AssertionError(f"{name} was launched no time on the IVF path")
+    log("ivf-path", time.time() - t0, card_line, launches=json.dumps(
+        {n: launches[n] for n in IVF_KERNELS}))
+
+    cases = [("q1", "probed", 1, TOP_K), ("q8", "probed", 8, TOP_K),
+             ("q8", "union", 8, TOP_K), ("q32", "union", 32, TOP_K),
+             ("q8k1000", "union", 8, 1000)]
+    report = {}
+    d, bn = I.DIM, I.BLOCK_N
+    for label, idx in (("bf16", b), ("int8", b8)):
+        sc = idx.scales
+        for case, kind, nq, k in cases:
+            t0 = time.time()
+            q = queries[:nq].contiguous()
+            probes = idx.probe(q.float(), I.NPROBE)
+            name = f"ivf_{kind}_scan" + ("_int8" if sc is not None else "")
+            fn = getattr(V, name)
+            if kind == "union":
+                table, nu = union_blocks(probes)
+                blocks = table[: int(nu.item())]
+                args = (table, k, bn, nu)
+                plain = lambda: V.ivf_union_plain(  # noqa: E731
+                    idx.corpus, idx.ids, q, *args, scales=sc)
+                lib_table = blocks[None, :]
+                scanned = nq * blocks.numel() * bn
+            else:
+                args = (probes, k, bn)
+                plain = lambda: V.ivf_probed_plain(  # noqa: E731
+                    idx.corpus, idx.ids, q, *args, scales=sc)
+                lib_table = probes
+                blocks = torch.unique(probes)
+                scanned = probes.numel() * bn
+            if sc is None:
+                kern = lambda: fn(idx.corpus, idx.ids, q, *args)  # noqa: E731
+                row_bytes = 2 * d + 4
+            else:
+                kern = lambda: fn(idx.corpus, sc, idx.ids, q, *args)  # noqa: E731
+                row_bytes = d + 8
+            lib = lambda: library_ivf(idx.corpus, sc, idx.ids, q,  # noqa: E731
+                                      lib_table, k, bn)
+            got, want = kern(), plain()
+            torch.cuda.synchronize()
+            err = check_against_plain(f"{name} {case}", got, want, ids, [])
+            ties = sum(got[1][j, :3].tolist() == g for j, g in enumerate(groups)
+                       if j < nq)
+            nbytes = (blocks.numel() * bn * row_bytes + 2 * nq * d
+                      + 4 * lib_table.numel() + 8 * nq * k)
+            entry = {"ms": cuda_ms(kern, 20), "plain_ms": cuda_ms(plain, 3),
+                     "library_ms": cuda_ms(lib, 3), "max_abs_err": err,
+                     **bound(nbytes, 2.0 * scanned * d)}
+            log(f"kernel-{name}-{case}", time.time() - t0, card_line, Q=nq,
+                k=k, nprobe=I.NPROBE, blocks=blocks.numel(), tie_groups=ties,
+                **fmt(entry))
+            report[(name, case)] = dict(entry, shape={
+                "Q": nq, "k": k, "nprobe": I.NPROBE, "block_n": bn, "D": d,
+                "blocks_read": blocks.numel(), "N": I.N_ROWS})
+    del index, b, b8
+    torch.cuda.empty_cache()
+    return {"kernels": report, "launches": launches, "recall_at_10": recall,
+            "build_s": build_s}
+
+
+def segmented_phase(card_line: str) -> dict:
+    """The Retriever over a segmented store of 250,000 rows: planted texts,
+    batch search, deletes across segments and tail, save/load."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    from cmw_rag_tpu_torch.index.shards import SegmentedIndex
+    from cmw_rag_tpu_torch.scripts import ivf as I
+
+    t0 = time.time()
+    path = I.SegmentedPath(ROOT)
+    torch.cuda.synchronize()
+    log("segmented-setup", time.time() - t0, card_line,
+        embedder="frida-hybrid", rerankers=len(path.reranker.members),
+        markdown_chunks=len(path.md_texts))
+
+    reset_counts()
+    t0 = time.time()
+    store, flat = path.build()
+    seg = store.index
+    torch.cuda.synchronize()
+    tail = I.SEG_ROWS - len(seg.sealed) * seg.seal_threshold
+    if len(seg.sealed) != 2 or seg.fresh.n_live != tail:
+        raise AssertionError(f"segmented: {len(seg.sealed)} segments, tail "
+                             f"{seg.fresh.n_live} rows")
+    log("segmented-ingest", time.time() - t0, card_line, rows=I.SEG_ROWS,
+        segments=len(seg.sealed), tail_rows=tail,
+        seal_threshold=seg.seal_threshold)
+
+    t0 = time.time()
+    ret = path.retriever(store)
+    kb = [str(I.PLANTED_KB + j) for j in range(len(path.planted))]
+    ranks = []
+    for j, text in enumerate(path.planted):
+        got = [a.kb_id for a in ret.retrieve(text, top_k=10)]
+        if kb[j] not in got:
+            raise AssertionError(f"segmented: planted text {j} missing from "
+                                 f"its top 10 {got}")
+        ranks.append(got.index(kb[j]))
+    qv = np.asarray(path.embedder.embed_queries(path.planted), np.float32)
+    hits = store.search(qv, TOP_K)
+    for j, row in enumerate(hits):
+        if path.planted_sid(j) not in [h.id for h in row]:
+            raise AssertionError(f"segmented: batch search lost planted {j}")
+    _, i_seg = seg.search(qv, TOP_K)
+    _, i_flat = flat.search(qv, TOP_K)
+    overlap = float(np.mean([len(set(a) & set(b)) / TOP_K
+                             for a, b in zip(i_seg, i_flat)]))
+
+    gone = [0, 4, 7]                      # segment 0, segment 1, the tail
+    for j in gone:
+        store.delete_where({"kbId": kb[j]})
+    for j in gone:
+        got = [a.kb_id for a in ret.retrieve(path.planted[j], top_k=10)]
+        if kb[j] in got:
+            raise AssertionError(f"segmented: deleted planted {j} came back")
+    dead = {path.planted_sid(j) for j in gone}
+    for row in store.search(qv, TOP_K):
+        if dead & {h.id for h in row}:
+            raise AssertionError("segmented: a deleted chunk came back")
+    log("segmented-queries", time.time() - t0, card_line,
+        planted_ranks=json.dumps(ranks), top20_overlap_with_flat=overlap,
+        deleted=json.dumps(gone))
+
+    t0 = time.time()
+    hv, hi = seg.to_host()
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        seg.save(tmp)
+        loaded = SegmentedIndex.load(tmp)
+    lv, li = loaded.to_host()
+    keep_h, keep_l = hi >= 0, li >= 0
+    oh, ol = np.argsort(hi[keep_h]), np.argsort(li[keep_l])
+    if not np.array_equal(hi[keep_h][oh], li[keep_l][ol]):
+        raise AssertionError("segmented: the loaded ids differ")
+    hv, lv = hv[keep_h], lv[keep_l]
+    worst = 0.0
+    for a in range(0, len(oh), 16384):    # one bf16 step: 2^-7 relative
+        x = torch.from_numpy(hv[oh[a : a + 16384]]).cuda()
+        y = torch.from_numpy(lv[ol[a : a + 16384]]).cuda()
+        worst = max(worst, ((y - x).abs() - x.abs() / 128).max().item())
+    del hv, lv
+    if worst > 1e-7:
+        raise AssertionError(f"segmented: loaded rows off by {worst}")
+    _, i_load = loaded.search(qv, 10)
+    ints = [store._int_by_sid.get(path.planted_sid(j)) for j in range(8)]
+    for j, row in enumerate(i_load):
+        if j not in gone and ints[j] not in row:
+            raise AssertionError(f"segmented: loaded index lost planted {j}")
+    launches = read_counts()
+    for name in ("ivf_probed_scan", "ivf_union_scan", "topk_scan_bf16"):
+        if launches[name] < 1:
+            raise AssertionError(f"{name} was launched no time on the "
+                                 f"segmented path")
+    log("segmented-save-load", time.time() - t0, card_line,
+        live_rows=int(keep_h.sum()), launches=json.dumps(launches))
+    result = {"launches": launches, "planted_ranks": ranks,
+              "top20_overlap_with_flat": overlap,
+              "live_rows": int(keep_h.sum())}
+    del store, flat, seg, loaded, path
+    torch.cuda.empty_cache()
+    return result
+
+
 def main() -> int:
     import torch
 
@@ -608,8 +911,13 @@ def main() -> int:
     fused = pipeline_phase(card_line)
     card_cpu = card_vs_cpu_phase(card_line)
     long_ctx = long_context_phase(card_line)
+    t_ivf = time.time()
+    ivf = ivf_phase(card_line)
+    segmented = segmented_phase(card_line)
+    ivf_seconds = time.time() - t_ivf
 
-    by_path = {"fused": fused["launches"], "long_context": long_ctx["launches"]}
+    by_path = {"fused": fused["launches"], "long_context": long_ctx["launches"],
+               "ivf": ivf["launches"], "segmented": segmented["launches"]}
     rows = []
     for name in ("topk_scan_bf16", "topk_scan_int8"):
         main_shape = scans[(name, "main")]
@@ -635,7 +943,9 @@ def main() -> int:
         "source": "cmw_rag_tpu_torch/csrc/flash_attention.cu",
         "replaces": "cmw_rag_tpu/ops/flash_attention.py:306",
         "also_replaces": "cmw_rag_tpu/ops/flash_attention.py:92",
-        "launches": long_ctx["launches"]["flash_attention_fwd"],
+        "launches": sum(p["flash_attention_fwd"] for p in by_path.values()),
+        "launches_by_path": {p: c["flash_attention_fwd"]
+                             for p, c in by_path.items()},
         "launches_by_stage": {"embed": long_ctx["embed_flash_launches"],
                               "rerank": long_ctx["rerank_flash_launches"]},
         "max_abs_err": max(fa["max_abs_err"], flash["window"]["max_abs_err"]),
@@ -647,10 +957,35 @@ def main() -> int:
             "max_abs_err", "lse_max_abs_err", "max_err_past_one_step",
             "shape")},
     })
+    ivf_cases = {"ivf_probed_scan": ("q1", "q8"),
+                 "ivf_union_scan": ("q8", "q32", "q8k1000")}
+    for name, replaces in IVF_KERNELS.items():
+        cases = ivf_cases[name.removesuffix("_int8")]
+        main_case = ivf["kernels"][(name, cases[0])]
+        row = {"name": name, "route": "cuda",
+               "source": "cmw_rag_tpu_torch/csrc/ivf_scan.cu",
+               "replaces": replaces,
+               "launches": sum(p[name] for p in by_path.values()),
+               "launches_by_path": {p: c[name] for p, c in by_path.items()},
+               "max_abs_err": max(ivf["kernels"][(name, c)]["max_abs_err"]
+                                  for c in cases)}
+        row.update({k: main_case[k] for k in ("ms", "plain_ms", "bound_ms",
+                                              "bound_by", "library_ms",
+                                              "shape")})
+        for case in cases[1:]:
+            row[case] = {k: ivf["kernels"][(name, case)][k]
+                         for k in ("ms", "plain_ms", "library_ms", "bound_ms",
+                                   "bound_by", "max_abs_err", "shape")}
+        rows.append(row)
     print(json.dumps({"kernels": rows, "pipeline_qps": fused["qps"],
                       "card_vs_cpu": card_cpu,
                       "long_context": {k: v for k, v in long_ctx.items()
                                        if k != "launches"},
+                      "ivf": {"build_s": ivf["build_s"],
+                              "recall_at_10": ivf["recall_at_10"]},
+                      "segmented": {k: v for k, v in segmented.items()
+                                    if k != "launches"},
+                      "ivf_phases_seconds": round(ivf_seconds, 3),
                       "seconds": round(time.time() - t_all, 3),
                       "card": card_line}), flush=True)
     print(card_line, flush=True)

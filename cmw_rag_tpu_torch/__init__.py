@@ -7,8 +7,9 @@ here keeps its counterpart's name and array layout. This package imports
 
 Entry points take ``device=`` and default to ``"cuda"``; they raise when no
 card is present unless the caller asks for ``device="cpu"``. On a CUDA
-tensor the scan top-k runs the hand-written kernels of ``csrc/``; on a CPU
-tensor it runs their plain PyTorch twins.
+tensor the scan top-k, the IVF block scan and flash attention run the
+hand-written kernels of ``csrc/``; on a CPU tensor they run their plain
+PyTorch twins.
 """
 
 from cmw_rag_tpu_torch.device import REPO_ROOT, resolve_device

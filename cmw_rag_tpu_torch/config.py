@@ -190,6 +190,9 @@ class Settings:
     query_segment_tokens: int = 448
     query_segment_overlap: int = 64
     llm_query_decomposition: bool = False
+    index_kind: str = "flat"          # flat | ivf (a segmented store)
+    ivf_nlist: int = 1024
+    ivf_nprobe: int = 64
     reranker_checkpoint: str = ""
     reranker_vector_weight: float = 4.0
     reranker_blend: str = "z"

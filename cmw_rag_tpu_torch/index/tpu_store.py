@@ -1,13 +1,13 @@
 """Device-backed vector store: ``FlatIndex`` on the device, metadata on the
-host (port of ``cmw_rag_tpu/index/tpu_store.py``, ``kind="flat"``).
+host (port of ``cmw_rag_tpu/index/tpu_store.py``).
 
 Add / cosine top-k search / metadata-filter get / delete-where / count,
 keyed by string chunk ids; strings, texts and metadata stay on the host and
 the device sees int32 row ids. ``save(dir)``/``load(dir)`` keep the JAX
 store's on-disk form, ``vectors.npz`` (float32 vectors and int32 ids, live
 and tombstoned) plus ``meta.json`` (dim, next id, live rows), so an index
-saved by either package loads in the other. The segmented (IVF) kind is
-not ported: asking for it raises.
+saved by either package loads in the other; ``load`` builds a flat store,
+as the JAX store's does.
 """
 
 from __future__ import annotations
@@ -19,21 +19,25 @@ from typing import Any, Optional, Sequence
 import numpy as np
 
 from cmw_rag_tpu_torch.index.flat import FlatIndex
+from cmw_rag_tpu_torch.index.shards import SegmentedIndex
 from cmw_rag_tpu_torch.index.store import RetrievedDoc, _matches
 
 
 class TorchVectorStore:
-    """``kind="flat"``: an exact ``FlatIndex`` on one device."""
+    """``kind``: "flat" (an exact ``FlatIndex``) or "segmented" (sealed IVF
+    segments and a fresh tail, ``SegmentedIndex``), on one device;
+    ``index_kwargs`` go to the index."""
 
     def __init__(self, dim: int, mesh=None, kind: str = "flat",
                  **index_kwargs):
         self.dim = dim
         self.kind = kind
-        if kind == "segmented":
-            raise NotImplementedError("the segmented store is not ported")
-        if kind != "flat":
+        if kind == "flat":
+            self.index = FlatIndex(dim=dim, mesh=mesh, **index_kwargs)
+        elif kind == "segmented":
+            self.index = SegmentedIndex(dim=dim, mesh=mesh, **index_kwargs)
+        else:
             raise ValueError(f"unknown index kind: {kind!r}")
-        self.index = FlatIndex(dim=dim, mesh=mesh, **index_kwargs)
         self._next_int = 0
         self._by_int: dict[int, tuple[str, str, dict[str, Any]]] = {}
         self._int_by_sid: dict[str, int] = {}

@@ -6,7 +6,7 @@ has no jax; there the JAX-importing ``tests/conftest.py`` is skipped:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda_kernels.py
 
-Tolerances: scan scores to 1e-4 and ids wherever neighbouring scores differ
+Tolerances: scan and IVF scan scores to 1e-4 and ids wherever neighbouring scores differ
 by more than that (float32 sums in another order); flash attention output,
 against the twin run over the kernel's own tiles (so both round p against
 the same running maxima), to one bf16 step at its magnitude plus 2e-3 (both
@@ -19,7 +19,10 @@ import pytest
 import torch
 
 from cmw_rag_tpu_torch.index.flat import FlatIndex
+from cmw_rag_tpu_torch.index.ivf import IVFIndex
+from cmw_rag_tpu_torch.index.shards import SegmentedIndex
 from cmw_rag_tpu_torch.ops import flash_attention as F
+from cmw_rag_tpu_torch.ops import ivf_scan as V
 from cmw_rag_tpu_torch.ops import topk as T
 
 pytestmark = pytest.mark.cuda
@@ -124,3 +127,97 @@ def test_flat_index_on_the_card_matches_the_cpu(card):
         ws, wi = want_idx.search(q, k)
         _same_ranking((torch.from_numpy(gs), torch.from_numpy(gi)),
                       (torch.from_numpy(ws), torch.from_numpy(wi)))
+
+
+def _ivf_case(card, int8, block_n=192, n_blocks=16, d=64):
+    """A blocked corpus with 10% tombstones, a duplicated row (an exact tie
+    across two blocks) and queries."""
+    n = n_blocks * block_n
+    c = torch.from_numpy(_unit(n, d, 6)).to(card).bfloat16()
+    c[5 * block_n + 7] = c[2 * block_n + 3]
+    ids = torch.randperm(n, generator=torch.Generator().manual_seed(7)).to(
+        card, torch.int32)
+    ids[torch.from_numpy(np.random.default_rng(8).choice(n, n // 10, False))
+        .to(card)] = -1
+    q = torch.from_numpy(_unit(6, d, 9)).to(card).bfloat16()
+    q[0] = c[2 * block_n + 3]
+    scales = None
+    if int8:
+        c, scales = T.quantize_rows_int8(c)
+    return c, scales, ids, q
+
+
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("union", [False, True])
+@pytest.mark.parametrize("k", [1, 20, 129, 1000, 5000])
+def test_ivf_kernels_match_plain_twins(card, int8, union, k):
+    """Blocks of 192 rows (a ragged last tile), repeated blocks in a list,
+    padding past n_unique, any k up to past the rows scanned."""
+    block_n = 192
+    c, sc, ids, q = _ivf_case(card, int8, block_n)
+    if union:
+        table = torch.tensor([1, 2, 5, 9, 12, 2, 15, 0, 0, 0], dtype=torch.int32,
+                             device=card)
+        nu = torch.tensor([7], dtype=torch.int32, device=card)
+        args = (table, k, block_n, nu)
+        fn = V.ivf_union_scan_int8 if int8 else V.ivf_union_scan
+        twin = lambda *a: V.ivf_union_plain(*a, scales=sc)  # noqa: E731
+    else:
+        table = torch.tensor([[2, 5, 5, 7], [0, 1, 2, 3], [15, 14, 13, 12],
+                              [3, 9, 11, 2], [8, 8, 8, 8], [6, 4, 2, 0]],
+                             dtype=torch.int32, device=card)
+        args = (table, k, block_n)
+        fn = V.ivf_probed_scan_int8 if int8 else V.ivf_probed_scan
+        twin = lambda *a: V.ivf_probed_plain(*a, scales=sc)  # noqa: E731
+    before = fn.launches
+    got = fn(c, sc, ids, q, *args) if int8 else fn(c, ids, q, *args)
+    want = twin(c, ids, q, *args)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    assert got[1].shape == (6, k)
+    _same_ranking(got, want)
+    for row in got[1].tolist():
+        live = [i for i in row if i >= 0]
+        assert len(live) == len(set(live))        # a repeated block adds nothing
+    empty = got[1] < 0
+    assert torch.equal(empty, want[1] < 0)
+    assert (got[0][empty] == T.NEG_INF).all()
+
+
+def test_ivf_wrappers_refuse_what_the_kernel_does_not_take(card):
+    c, _, ids, q = _ivf_case(card, False, block_n=128)
+    table = torch.zeros((6, 2), dtype=torch.int32, device=card)
+    with pytest.raises(ValueError, match="multiple of block_n"):
+        V.ivf_probed_scan(c, ids, q, table, 5, block_n=100)
+    with pytest.raises(TypeError):
+        V.ivf_probed_scan(c.float(), ids, q, table, 5, block_n=128)
+    with pytest.raises(ValueError, match="shape"):
+        V.ivf_probed_scan(c, ids, q, table[:3], 5, block_n=128)
+    with pytest.raises(ValueError):
+        V.ivf_probed_scan(c, ids, q.cpu(), table, 5, block_n=128)
+
+
+@pytest.mark.parametrize("quantize", [False, True])
+def test_ivf_and_segmented_indexes_on_the_card_match_the_cpu(card, quantize):
+    """An index built on the CPU and carried to the card answers as on the
+    CPU, for one query (probed) and a batch (union); a segmented index on
+    the card finds its sealed, pending-free and tail rows."""
+    v = _unit(4096, 64, 10)
+    cpu = IVFIndex.build(v, block_n=256, device="cpu", quantize=quantize)
+    gpu = IVFIndex(cpu.corpus, cpu.ids, cpu.block_centroids, 256,
+                   scales=cpu.scales, device=card)
+    q = _unit(6, 64, 11)
+    for qq in (q[:1], q):
+        gs, gi = gpu.search(qq, 20, nprobe=4)
+        ws, wi = cpu.search(qq, 20, nprobe=4)
+        _same_ranking((torch.from_numpy(gs), torch.from_numpy(gi)),
+                      (torch.from_numpy(ws), torch.from_numpy(wi)))
+    seg = SegmentedIndex(dim=64, block_n=256, seal_threshold=1024,
+                         quantize=quantize, device=card)
+    for a in range(0, 2500, 500):     # seals at 1500 and at 2500 rows
+        seg.add(v[a : a + 500], np.arange(a, a + 500, dtype=np.int32))
+    assert len(seg.sealed) == 2 and seg.n_live == 2500
+    assert seg.delete([3, 2400]) == 2
+    s, i = seg.search(v[[10, 1500, 2450, 3]], 5)
+    assert i[:3, 0].tolist() == [10, 1500, 2450] and (s[:3, 0] > 0.99).all()
+    assert 3 not in i[3]

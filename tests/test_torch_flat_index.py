@@ -177,10 +177,14 @@ def test_snapshot_is_not_torn_by_a_later_add():
 
 
 def test_refuses_a_mesh_and_the_segmented_kind():
+    """The sharded indexes are not ported: a mesh is refused by either kind
+    (the segmented kind itself is ported, ``test_torch_segmented.py``)."""
     with pytest.raises(NotImplementedError):
         FlatIndex(dim=D, mesh=object(), device="cpu")
     with pytest.raises(NotImplementedError):
-        TorchVectorStore(dim=D, kind="segmented", device="cpu")
+        TorchVectorStore(dim=D, kind="segmented", mesh=object(), device="cpu")
+    with pytest.raises(ValueError, match="unknown index kind"):
+        TorchVectorStore(dim=D, kind="hnsw", device="cpu")
 
 
 def _fill(store, n=60, seed=5):

@@ -3,7 +3,8 @@ pydantic or yaml. This stands in for it: a subprocess whose import system
 refuses jax, jaxlib, pydantic, yaml and cmw_rag_tpu imports every module of
 cmw_rag_tpu_torch and chip_smoke, answers a query with a tiny CPU
 FusedPipeline, and one through the Retriever over a TorchVectorStore with a
-qwen3-arch embedder and LLM reranker on their flash route."""
+qwen3-arch embedder and LLM reranker on their flash route, over a flat and
+then a segmented (IVF) store."""
 
 import ast
 import os
@@ -88,6 +89,15 @@ CHILD = textwrap.dedent("""
                        ).retrieve("database backup", top_k=2)
     assert len(arts) == 2 and arts[0].score >= arts[1].score, arts
     assert len(flash_calls) == 2, flash_calls  # documents, then pairs
+
+    seg = TorchVectorStore(dim=32, kind="segmented", block_n=2,
+                           seal_threshold=2, device="cpu")
+    seg.add(texts, [{{"kbId": str(100 + i)}} for i in range(3)],
+            ["c%d" % i for i in range(3)], qemb.embed_documents(texts))
+    assert len(seg.index.sealed) == 1 and seg.index.fresh.n_live == 1
+    arts = R.Retriever(qemb, seg, qrr, rerank_score_threshold=-10.0
+                       ).retrieve("database backup", top_k=2)
+    assert len(arts) == 2 and arts[0].score >= arts[1].score, arts
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in REFUSED)
     assert not leaked, leaked
     print("ok", len(mods))
