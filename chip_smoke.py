@@ -91,8 +91,42 @@ Phases, each printed with its seconds beside the card's name and power limit:
    planted chunk not deleted is found. The top-20 overlap of the IVF stage
    with an exact ``FlatIndex`` over the same rows is printed.
 
-Every kernel's launch count is set to 0 just before each path (3, 5, 6 and
-7) is driven and read just after; each kernel of a path must have launched. The
+8. local-llm - the three paged decode attention kernels against their
+   plain twins at qwen3guard-0.6b's attention shapes (Hq 16, Hkv 8, Dh 128,
+   page 64) over 28-layer pools read a layer at a time in turn: 4 slots x
+   2048 (the serving settings), 8 slots with a 256-token prompt in a
+   1024-token context (the decode bench shape) and 32 slots x 1024, ragged
+   lengths covering 1, 63, 64, 65 and 2047 and one idle slot on the null
+   page. Outputs within one bf16 step of the twin's plus ``PAGED_TOL`` (bf16
+   pages: float32 sums in another order) or ``PAGED_INT8_TOL`` (int8 pages:
+   the twin, as JAX's golden, rounds dequantized K and V to bf16, the
+   kernel does not); the scatter leaves the twin's pools bit for bit. Device
+   times (the union of a call's kernels under ``torch.profiler``: a few
+   microseconds of kernel are shorter than the wrapper's Python, which
+   events around back-to-back calls would time; that call time is printed
+   beside them): kernel, twin, a composite library yardstick timed here only
+   (the context gathered by index, then ``scaled_dot_product_attention``
+   with the length mask) and the bound (K and V of the real positions, q
+   and out, over 3.35 TB/s). Then the engine (``cmw_rag_tpu_torch/scripts/local_llm.py``)
+   at full width and depth with seeded random weights (vocabulary 151,680),
+   4 slots, context 2048, page 64: 6 ChatML requests of 32 greedy tokens,
+   through the gather golden, the scatter kernel, the plain kernel
+   (``scatter_fused=False``), int8 KV (golden and kernel) and chunked
+   prefill (256): every request finishes; each kernel run launches its
+   kernel exactly 28 times a decode step; while a request has been fed the
+   same ids as in its reference run, its logits agree within ``LLM_DRIFT``
+   at every step and its greedy id is equal unless the reference's top-2
+   gap there is under ``LLM_GAP`` = 2 x ``LLM_DRIFT``, where the walk stops
+   (``LLM_DRIFT`` is twice the model's bf16 noise floor on random weights:
+   the bucketed and chunked prefills, which run no kernel, differ by about
+   0.05 in the logits); one decode step at 4 active slots is profiled
+   (device busy, idle share, the paged kernel's share). Last, the
+   engine transport over an ``EngineLoop`` at full width with the
+   tokenizer's vocabulary: a JSON and an SSE chat sent together, their
+   wire shapes and usage counts checked.
+
+Every kernel's launch count is set to 0 just before each path (3, 5, 6, 7
+and 8) is driven and read just after; each kernel of a path must have launched. The
 script then prints one JSON line with every kernel's numbers, the card's
 ``nvidia-smi`` name and power limit, and as its last line
 ``{"ok": true, "device": {...}}``. Any failed check raises and the script
@@ -119,6 +153,14 @@ CPU_GAP = 2 * CPU_DRIFT
 LC_COS = 0.99
 LC_DRIFT = 0.05
 LC_GAP = 2 * LC_DRIFT
+PAGED_TOL = 1e-5
+PAGED_INT8_TOL = 2e-2
+# the full-width model on random weights turns any one bf16 rounding that
+# lands otherwise into a logit drift of about 0.05: two kernel-free
+# computations of the same prompt's logits (bucketed and chunked prefill)
+# differ by 0.054 on the card, so the engine checks allow twice that floor
+LLM_DRIFT = 0.1
+LLM_GAP = 2 * LLM_DRIFT
 
 
 def log(phase: str, seconds: float, card_line: str, **fields) -> None:
@@ -148,6 +190,24 @@ def cuda_ms(fn, iters: int, warmup: int = 1) -> float:
     return start.elapsed_time(stop) / iters
 
 
+def device_ms(fn, iters: int) -> float:
+    """Device time of one ``fn()``: the union of its CUDA kernels'
+    intervals under ``torch.profiler``, over ``iters`` calls, after one
+    warm-up. Events around back-to-back calls would time the host once a
+    kernel is shorter than its wrapper's Python."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from cmw_rag_tpu_torch.scripts.profile_query import _busy_us
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return _busy_us(prof.events()) / 1e3 / iters
+
+
 def bound(nbytes: float, ops: float) -> dict:
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / BF16_OPS_PER_S
     return {"bound_ms": 1e3 * max(t_bytes, t_ops),
@@ -171,9 +231,19 @@ IVF_KERNELS = {"ivf_probed_scan": "cmw_rag_tpu/ops/ivf_scan.py:95",
                "ivf_union_scan_int8": "cmw_rag_tpu/ops/ivf_scan.py:452"}
 
 
+#: the paged attention wrappers and the TPU kernels they replace
+PAGED_KERNELS = {
+    "paged_decode_attention_dma": "cmw_rag_tpu/ops/paged_attention.py:469",
+    "paged_decode_attention_dma_scatter":
+        "cmw_rag_tpu/ops/paged_attention.py:559",
+    "paged_decode_attention_dma_kv_int8":
+        "cmw_rag_tpu/ops/paged_attention.py:858"}
+
+
 def reset_counts() -> None:
     from cmw_rag_tpu_torch.ops import flash_attention as F
     from cmw_rag_tpu_torch.ops import ivf_scan as V
+    from cmw_rag_tpu_torch.ops import paged_attention as PA
     from cmw_rag_tpu_torch.ops import topk as T
 
     T.topk_scan_bf16.launches = 0
@@ -181,17 +251,20 @@ def reset_counts() -> None:
     F.reset_launches()
     for name in IVF_KERNELS:
         getattr(V, name).launches = 0
+    PA.reset_launches()
 
 
 def read_counts() -> dict:
     from cmw_rag_tpu_torch.ops import flash_attention as F
     from cmw_rag_tpu_torch.ops import ivf_scan as V
+    from cmw_rag_tpu_torch.ops import paged_attention as PA
     from cmw_rag_tpu_torch.ops import topk as T
 
     return {"topk_scan_bf16": T.topk_scan_bf16.launches,
             "topk_scan_int8": T.topk_scan_int8.launches,
             "flash_attention_fwd": F.total_launches(),
-            **{name: getattr(V, name).launches for name in IVF_KERNELS}}
+            **{name: getattr(V, name).launches for name in IVF_KERNELS},
+            **{name: getattr(PA, name).launches for name in PAGED_KERNELS}}
 
 
 # ------------------------------------------------------------------ kernels
@@ -886,6 +959,423 @@ def segmented_phase(card_line: str) -> dict:
     return result
 
 
+# ------------------------------------------------------------- local LLM
+
+
+def paged_inputs(s: int, maxp: int, lens: list, layers: int, seed: int):
+    """qwen3guard-0.6b's attention shapes (Hq 16, Hkv 8, Dh 128, page 64):
+    pools of ``layers`` layers, distinct random pages per slot, the active
+    slots' ``lens`` and, as the last slot, one idle slot on the null page
+    (table all 0, length 1)."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    hq, hkv, dh, page = 16, 8, 128, 64
+    n_pages = 1 + s * maxp
+    shape = (layers, n_pages, page, hkv, dh)
+    kp = torch.randn(shape, generator=gen, device="cuda", dtype=torch.bfloat16)
+    vp = torch.randn(shape, generator=gen, device="cuda", dtype=torch.bfloat16)
+    q = torch.randn((s, hq, dh), generator=gen, device="cuda",
+                    dtype=torch.bfloat16)
+    perm = torch.randperm(n_pages - 1, generator=gen, device="cuda") + 1
+    tables = perm.reshape(s, maxp).to(torch.int32)
+    tables[-1] = 0
+    lens_t = torch.tensor(list(lens) + [1], dtype=torch.int32, device="cuda")
+    k_new = torch.randn((s, hkv, dh), generator=gen, device="cuda",
+                        dtype=torch.bfloat16)
+    v_new = torch.randn((s, hkv, dh), generator=gen, device="cuda",
+                        dtype=torch.bfloat16)
+    pos = (lens_t - 1).long()
+    page_idx = tables.long().gather(1, (pos // page)[:, None])[:, 0]
+    return {"q": q, "kp": kp, "vp": vp, "tables": tables, "lens": lens_t,
+            "k_new": k_new, "v_new": v_new,
+            "page_idx": page_idx.to(torch.int32),
+            "off": (pos % page).to(torch.int32)}
+
+
+def library_paged(q, kl, vl, tables, lens, ks=None, vs=None):
+    """Yardstick only, a composite: the context gathered by index (and
+    dequantized for int8 pages), then ``scaled_dot_product_attention`` with
+    the length mask."""
+    import torch
+    import torch.nn.functional as Fn
+
+    s, hq, dh = q.shape
+    _, page, hkv, _ = kl.shape
+    m = tables.shape[1] * page
+    t = tables.long()
+    k, v = kl[t], vl[t]
+    if ks is not None:
+        k = (k.float() * ks[t][:, :, None, :, None]).to(q.dtype)
+        v = (v.float() * vs[t][:, :, None, :, None]).to(q.dtype)
+    k = k.reshape(s, m, hkv, dh).transpose(1, 2)
+    v = v.reshape(s, m, hkv, dh).transpose(1, 2)
+    keep = (torch.arange(m, device=q.device)[None, :]
+            < lens[:, None])[:, None, None, :]
+    return Fn.scaled_dot_product_attention(q[:, :, None, :], k, v,
+                                           attn_mask=keep, enable_gqa=True)[:, :, 0]
+
+
+def cycling(call, layers: int):
+    """``call(layer)`` over the layers in turn, as the engine's 28 calls a
+    step read 28 different pools (so repeats do not find them in L2)."""
+    import itertools
+
+    it = itertools.count()
+    return lambda: call(next(it) % layers)
+
+
+def paged_kernel_phase(card_line: str) -> dict:
+    """Hold the three paged attention kernels against their plain twins at
+    the serving shape (4 slots x 2048), the decode bench shape (8 slots, a
+    256-token prompt in a 1024-token context) and 32 slots x 1024, with an
+    idle slot on the null page; time each, its twin and the composite
+    yardstick."""
+    import torch
+    from cmw_rag_tpu_torch.ops import paged_attention as PA
+
+    layers = 28
+    cases = [("serving", 4, 32, [1, 63, 2047]),
+             ("bench", 8, 16, [64, 65, 257, 263, 270, 280, 288]),
+             ("s32", 32, 16, [1 + 33 * i for i in range(31)])]
+    report = {}
+    for case, s, maxp, lens in cases:
+        x = paged_inputs(s, maxp, lens, layers, seed=s)
+        q, kp, vp, tables, lens_t = (x[k] for k in ("q", "kp", "vp", "tables",
+                                                    "lens"))
+        kq, ks = PA.quantize_kv_page(kp)
+        vq, vs = PA.quantize_kv_page(vp)
+        hq, dh, hkv = q.shape[1], q.shape[2], kp.shape[3]
+        pos = int(lens_t.sum().item())
+        act = slice(0, s - 1)
+        for name in PAGED_KERNELS:
+            t0 = time.time()
+            int8 = name.endswith("int8")
+            layer = 5
+            if int8:
+                def kern(li):
+                    return PA.paged_decode_attention_dma_kv_int8(
+                        q, kq, ks, vq, vs, tables, lens_t, layer=li)
+
+                def plain(li):
+                    return PA.paged_decode_attention_xla_kv_int8(
+                        q, kq[li], ks[li], vq[li], vs[li], tables, lens_t)
+
+                def lib(li):
+                    return library_paged(q, kq[li], vq[li], tables, lens_t,
+                                         ks[li], vs[li])
+                got, want = kern(layer), plain(layer)
+                tol = PAGED_INT8_TOL
+            elif name.endswith("scatter"):
+                pi, off = x["page_idx"], x["off"]
+                kn, vn = x["k_new"], x["v_new"]
+
+                def kern(li):
+                    return PA.paged_decode_attention_dma_scatter(
+                        q, kn, vn, pi, off, kp, vp, tables, lens_t,
+                        layer=li)[0]
+
+                def plain(li):
+                    kp[li, pi.long(), off.long()] = kn
+                    vp[li, pi.long(), off.long()] = vn
+                    return PA.paged_decode_attention_xla(q, kp[li], vp[li],
+                                                         tables, lens_t)
+
+                def lib(li):
+                    kp[li, pi.long(), off.long()] = kn
+                    vp[li, pi.long(), off.long()] = vn
+                    return library_paged(q, kp[li], vp[li], tables, lens_t)
+                k_want, v_want = kp[layer].clone(), vp[layer].clone()
+                k_want[pi.long(), off.long()] = kn
+                v_want[pi.long(), off.long()] = vn
+                want = PA.paged_decode_attention_xla(q, k_want, v_want, tables,
+                                                     lens_t)
+                got = kern(layer)
+                torch.cuda.synchronize()
+                if not (torch.equal(kp[layer], k_want)
+                        and torch.equal(vp[layer], v_want)):
+                    raise AssertionError(f"{name} {case}: the pools differ "
+                                         f"from the twin's")
+                tol = PAGED_TOL
+            else:
+                def kern(li):
+                    return PA.paged_decode_attention_dma(q, kp, vp, tables,
+                                                         lens_t, layer=li)
+
+                def plain(li):
+                    return PA.paged_decode_attention_xla(q, kp[li], vp[li],
+                                                         tables, lens_t)
+
+                def lib(li):
+                    return library_paged(q, kp[li], vp[li], tables, lens_t)
+                got, want = kern(layer), plain(layer)
+                tol = PAGED_TOL
+            torch.cuda.synchronize()
+            err = (got[act].float() - want[act].float()).abs()
+            step = bf16_step(want[act])
+            excess = (err - step).max().item()
+            if not bool((err <= step + tol).all()):
+                raise AssertionError(f"{name} {case}: differs from the twin by "
+                                     f"{err.max().item()}, {excess} past one "
+                                     f"bf16 step (tolerance {tol})")
+            elem = 1 if int8 else 2
+            nbytes = (2 * pos * hkv * dh * elem + 2 * 2 * q.numel()
+                      + tables.numel() * 4 + 4 * s)
+            if int8:
+                pages_used = sum(-(-n // 64) for n in lens) + 1
+                nbytes += 2 * 4 * pages_used * hkv
+            if name.endswith("scatter"):
+                nbytes += 2 * 2 * x["k_new"].numel() * 2
+            entry = {"ms": device_ms(cycling(kern, layers), 56),
+                     "plain_ms": device_ms(cycling(plain, layers), 5),
+                     "library_ms": device_ms(cycling(lib, layers), 5),
+                     "call_ms": cuda_ms(cycling(kern, layers), 56),
+                     "max_abs_err": err.max().item(),
+                     "max_err_past_one_step": excess, "tolerance": tol,
+                     **bound(nbytes, 4.0 * hq * dh * pos)}
+            log(f"kernel-{name}-{case}", time.time() - t0, card_line, S=s,
+                maxp=maxp, page=64, positions=pos, **fmt(entry))
+            report[(name, case)] = dict(entry, shape={
+                "S": s, "Hq": hq, "Hkv": hkv, "Dh": dh, "page": 64,
+                "maxp": maxp, "lens": lens + [1], "layers": layers})
+        del x, q, kp, vp, kq, vq, ks, vs
+        torch.cuda.empty_cache()
+    return report
+
+
+def recording_engine():
+    """A ``PagedLLMEngine`` that keeps, per request, the logits of every
+    step it samples."""
+    from cmw_rag_tpu_torch.models.engine import PagedLLMEngine
+
+    class Recording(PagedLLMEngine):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            self.trace: dict = {}
+
+        def _sample_row(self, logits_row, req):
+            self.trace.setdefault(req.rid, []).append(logits_row.copy())
+            return super()._sample_row(logits_row, req)
+
+    return Recording
+
+
+def compare_runs(ref, test, label: str) -> dict:
+    """Request by request, walk the steps while both runs have fed the
+    model the same ids: the logits must agree within ``LLM_DRIFT`` at every
+    such step, and the greedy ids must be equal unless the reference's
+    top-2 gap there is under ``LLM_GAP`` = 2 x ``LLM_DRIFT`` (two logits
+    that each move by at most the drift can swap only there); the walk stops
+    at such a near tie. → steps compared, the largest drift at each step
+    index over the requests, and the near-tie swaps."""
+    import numpy as np
+
+    by_step: dict = {}
+    compared, ties = 0, []
+    for rid in sorted(ref.trace):
+        a, b = ref.trace[rid], test.trace[rid]
+        for i in range(min(len(a), len(b))):
+            d = float(np.abs(a[i] - b[i]).max())
+            by_step[i] = max(by_step.get(i, 0.0), d)
+            if not d <= LLM_DRIFT:
+                raise AssertionError(f"{label}: request {rid} step {i}: "
+                                     f"logits drift {d} > {LLM_DRIFT}")
+            compared += 1
+            if int(a[i].argmax()) != int(b[i].argmax()):
+                top2 = np.partition(a[i], -2)[-2:]
+                gap = float(top2[1] - top2[0])
+                if not gap < LLM_GAP:
+                    raise AssertionError(f"{label}: request {rid} step {i}: "
+                                         f"ids differ at a top-2 gap of {gap}")
+                ties.append((rid, i, gap))
+                break
+        else:
+            if len(a) != len(b):
+                raise AssertionError(f"{label}: request {rid} ran {len(b)} "
+                                     f"steps, the reference {len(a)}")
+    drift = [round(by_step[i], 6) for i in sorted(by_step)]
+    return {"steps_compared": compared, "max_logit_drift": max(drift),
+            "drift_by_step": drift, "near_tie_swaps": ties}
+
+
+def engine_phase(card_line: str) -> dict:
+    """The full-width engine: native KV through the scatter kernel, then
+    through the plain kernel, int8 KV, and chunked prefill, each against
+    its reference run (the gather golden on the card; the bucketed
+    prefill)."""
+    import torch
+    from cmw_rag_tpu_torch.ops import paged_attention as PA
+    from cmw_rag_tpu_torch.scripts import local_llm as LL
+
+    t0 = time.time()
+    cfg = LL.config()
+    params = LL.build_params(cfg, seed=0, device="cuda")
+    prompts = LL.chat_prompts()
+    torch.cuda.synchronize()
+    log("llm-setup", time.time() - t0, card_line, spec=LL.SPEC,
+        layers=cfg.num_layers, d_model=cfg.d_model, vocab=cfg.vocab_size,
+        requests=len(prompts))
+    Rec = recording_engine()
+    runs = [("golden", "native", dict(use_kernel=False), None),
+            ("scatter", "native", dict(), "paged_decode_attention_dma_scatter"),
+            ("dma", "native", dict(scatter_fused=False),
+             "paged_decode_attention_dma"),
+            ("golden-int8", "int8", dict(use_kernel=False, kv_dtype="int8"),
+             None),
+            ("int8", "int8", dict(kv_dtype="int8"),
+             "paged_decode_attention_dma_kv_int8"),
+            ("chunked", "chunked", dict(prefill_chunk=256),
+             "paged_decode_attention_dma_scatter")]
+    engines, result = {}, {"runs": {}}
+    for label, _, kw, kernel in runs:
+        t0 = time.time()
+        eng = LL.build_engine(params, cfg, engine_cls=Rec, **kw)
+        n0 = read_counts()
+        reqs = LL.run_requests(eng, prompts)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        n1 = read_counts()
+        bad = [(r.rid, r.finish_reason) for r in reqs
+               if not r.done or r.finish_reason not in ("length", "stop")]
+        if bad:
+            raise AssertionError(f"llm {label}: unfinished requests {bad}")
+        launches = {k: n1[k] - n0[k] for k in PAGED_KERNELS}
+        want = {k: (cfg.num_layers * eng.decode_steps if k == kernel else 0)
+                for k in PAGED_KERNELS}
+        if launches != want:
+            raise AssertionError(f"llm {label}: launches {launches}, want "
+                                 f"{want} ({eng.decode_steps} decode steps)")
+        tokens = sum(len(r.out) for r in reqs)
+        run = {"decode_steps": eng.decode_steps, "tokens": tokens,
+               "wall_s": wall, "ms_per_step": 1e3 * wall / eng.decode_steps,
+               "tokens_per_s": tokens / wall,
+               "finish": sorted({r.finish_reason for r in reqs}),
+               "kernel_launches": sum(launches.values())}
+        engines[label] = eng
+        ref = {"scatter": "golden", "dma": "golden", "int8": "golden-int8",
+               "chunked": "scatter"}.get(label)
+        if ref is not None:
+            run.update(compare_runs(engines[ref], eng, f"llm {label}"))
+        log(f"llm-{label}", wall, card_line, **fmt(
+            {k: v for k, v in run.items() if k != "drift_by_step"}),
+            drift_by_step=json.dumps(run.get("drift_by_step", [])))
+        result["runs"][label] = run
+    # where a decode step spends its time: 4 active slots, short contexts
+    t0 = time.time()
+    eng = LL.build_engine(params, cfg)
+    for p in prompts[:4]:
+        eng.submit(p, max_new_tokens=64)
+    for _ in range(16):
+        eng.step()
+    profile = LL.profile_decode(eng)
+    log("llm-decode-profile", time.time() - t0, card_line,
+        **fmt({k: v for k, v in profile.items()
+               if not isinstance(v, (list, dict))}))
+    result["decode_profile"] = profile
+    del engines, eng, params
+    torch.cuda.empty_cache()
+    return result
+
+
+def transport_phase(card_line: str) -> dict:
+    """EngineLoop + the engine transport at full width with the tokenizer's
+    vocabulary: two chats sent together, one for a JSON body and one for an
+    SSE stream."""
+    import threading
+
+    import torch
+    from cmw_rag_tpu_torch.llm.local_transport import (
+        create_local_llm_transport, format_chatml)
+    from cmw_rag_tpu_torch.scripts import local_llm as LL
+    from cmw_rag_tpu_torch.tokenizer import get_tokenizer
+
+    t0 = time.time()
+    tok = get_tokenizer()
+    llm = create_local_llm_transport(
+        spec=LL.spec_with_tokenizer_vocab(), tokenizer=tok,
+        continuous_batching=True, page_size=LL.PAGE, device="cuda")
+    chats = {False: [{"role": "user", "content": LL.PLANTED_TEXTS[1]}],
+             True: [{"role": "system", "content": "Answer briefly."},
+                    {"role": "user", "content": LL.PLANTED_TEXTS[2]}]}
+    max_tokens, replies = 24, {}
+
+    def ask(stream: bool):
+        body = json.dumps({"messages": chats[stream], "max_tokens": max_tokens,
+                           "stream": stream}).encode()
+        resp = llm.transport("local", body, {}, 60.0, stream)
+        replies[stream] = ((resp._req, list(resp)) if stream
+                           else json.loads(resp.read()))
+
+    try:
+        threads = [threading.Thread(target=ask, args=(st,))
+                   for st in (False, True)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=300)
+    finally:
+        llm.engine_loop.stop()
+    if llm.engine_loop.fatal is not None or len(replies) != 2:
+        raise AssertionError(f"transport: loop failed {llm.engine_loop.fatal}")
+    n_prompt = {st: len(tok.encode(format_chatml(m), allowed_special="all"))
+                for st, m in chats.items()}
+
+    def usage_ok(u, stream):
+        return (u["prompt_tokens"] == n_prompt[stream]
+                and 0 < u["completion_tokens"] <= max_tokens
+                and u["total_tokens"] == u["prompt_tokens"]
+                + u["completion_tokens"])
+
+    body = replies[False]
+    choice = body["choices"][0]
+    if (set(body) != {"id", "model", "choices", "usage"}
+            or body["model"] != "local-tpu"
+            or choice["message"]["role"] != "assistant"
+            or not isinstance(choice["message"]["content"], str)
+            or choice["finish_reason"] not in ("stop", "length")
+            or not usage_ok(body["usage"], False)):
+        raise AssertionError(f"transport: bad JSON body {body}")
+    req, chunks = replies[True]
+    lines = [c.decode() for c in chunks]
+    if lines[-1] != "data: [DONE]\n\n" or not all(
+            c.startswith("data: ") and c.endswith("\n\n") for c in lines):
+        raise AssertionError(f"transport: bad SSE stream {lines[-3:]}")
+    events = [json.loads(c[6:]) for c in lines[:-1]]
+    text = "".join(e["choices"][0]["delta"].get("content", "")
+                   for e in events[:-1])
+    last = events[-1]
+    if (not usage_ok(last["usage"], True)
+            or last["usage"]["completion_tokens"] != len(req.out)
+            or last["choices"][0]["finish_reason"] not in ("stop", "length")
+            or text != tok.decode(req.out)):
+        raise AssertionError(f"transport: bad SSE stream {events[-2:]}")
+    result = {"vocab": llm.cfg.vocab_size, "sse_events": len(events),
+              "json_usage": body["usage"], "sse_usage": last["usage"],
+              "finish_reasons": [choice["finish_reason"],
+                                 last["choices"][0]["finish_reason"]]}
+    log("llm-transport", time.time() - t0, card_line, vocab=result["vocab"],
+        sse_events=len(events), json_usage=json.dumps(body["usage"]),
+        sse_usage=json.dumps(last["usage"]))
+    del llm
+    torch.cuda.empty_cache()
+    return result
+
+
+def local_llm_phase(card_line: str) -> dict:
+    """Phase 8: the kernels against their twins, then the main path (the
+    engine runs and the transport) with every count set to 0 before it."""
+    kernels = paged_kernel_phase(card_line)
+    reset_counts()
+    engine = engine_phase(card_line)
+    transport = transport_phase(card_line)
+    launches = read_counts()
+    for name in PAGED_KERNELS:
+        if launches[name] < 1:
+            raise AssertionError(f"{name} was launched no time on the LLM path")
+    return {"kernels": kernels, "engine": engine, "transport": transport,
+            "launches": launches}
+
+
 def main() -> int:
     import torch
 
@@ -915,9 +1405,13 @@ def main() -> int:
     ivf = ivf_phase(card_line)
     segmented = segmented_phase(card_line)
     ivf_seconds = time.time() - t_ivf
+    t_llm = time.time()
+    llm = local_llm_phase(card_line)
+    llm_seconds = time.time() - t_llm
 
     by_path = {"fused": fused["launches"], "long_context": long_ctx["launches"],
-               "ivf": ivf["launches"], "segmented": segmented["launches"]}
+               "ivf": ivf["launches"], "segmented": segmented["launches"],
+               "local_llm": llm["launches"]}
     rows = []
     for name in ("topk_scan_bf16", "topk_scan_int8"):
         main_shape = scans[(name, "main")]
@@ -977,6 +1471,26 @@ def main() -> int:
                          for k in ("ms", "plain_ms", "library_ms", "bound_ms",
                                    "bound_by", "max_abs_err", "shape")}
         rows.append(row)
+    runs = llm["engine"]["runs"]
+    for name, replaces in PAGED_KERNELS.items():
+        main_case = llm["kernels"][(name, "serving")]
+        row = {"name": name, "route": "cuda",
+               "source": "cmw_rag_tpu_torch/csrc/paged_attention.cu",
+               "replaces": replaces,
+               "launches": sum(p[name] for p in by_path.values()),
+               "launches_by_path": {p: c[name] for p, c in by_path.items()},
+               "decode_steps_by_run": {r: v["decode_steps"]
+                                       for r, v in runs.items()},
+               "max_abs_err": max(llm["kernels"][(name, c)]["max_abs_err"]
+                                  for c in ("serving", "bench", "s32"))}
+        row.update({k: main_case[k] for k in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "max_err_past_one_step", "tolerance", "shape")})
+        for case in ("bench", "s32"):
+            row[case] = {k: llm["kernels"][(name, case)][k] for k in (
+                "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+                "max_abs_err", "shape")}
+        rows.append(row)
     print(json.dumps({"kernels": rows, "pipeline_qps": fused["qps"],
                       "card_vs_cpu": card_cpu,
                       "long_context": {k: v for k, v in long_ctx.items()
@@ -986,6 +1500,9 @@ def main() -> int:
                       "segmented": {k: v for k, v in segmented.items()
                                     if k != "launches"},
                       "ivf_phases_seconds": round(ivf_seconds, 3),
+                      "local_llm": {"engine": llm["engine"],
+                                    "transport": llm["transport"]},
+                      "local_llm_phase_seconds": round(llm_seconds, 3),
                       "seconds": round(time.time() - t_all, 3),
                       "card": card_line}), flush=True)
     print(card_line, flush=True)

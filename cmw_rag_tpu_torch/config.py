@@ -4,10 +4,10 @@ Plain dataclasses holding the values of ``cmw_rag_tpu/config/models.yaml``
 (``frida-hybrid`` :50-69; ``qwen3-mini`` :86-101; ``qwen3-embedding-0.6b``
 :102-117; ``identity``, ``qwen3-reranker-0.6b`` :153-173;
 ``qwen3-reranker-micro``, ``cross-encoder-micro``, ``cross-encoder-micro-r3``,
-``cross-encoder-small-r3`` :193-273) and of ``config/settings.py:47-81,
-164-166``. Field names and ``format_*`` methods match the
-JAX package's spec classes (``config/registry.py``), so code written against
-either reads the same. No yaml, no pydantic: the values are written out.
+``cross-encoder-small-r3`` :193-273; the local LLM ``qwen3guard-0.6b``
+:310-331) and of ``config/settings.py:47-81, 125-132, 164-166``. Field
+names and ``format_*`` methods match the JAX package's spec classes
+(``config/registry.py``), so code written against either reads the same. No yaml, no pydantic: the values are written out.
 """
 
 from __future__ import annotations
@@ -155,6 +155,29 @@ RERANKERS: dict[str, RerankerModelSpec] = {
 }
 
 
+@dataclass(frozen=True)
+class GuardModelSpec:
+    """A Qwen3-class decoder spec; ``create_local_llm_transport`` serves
+    ``qwen3guard-0.6b`` by default. ``vocab_size`` 0 means the tokenizer's."""
+
+    slug: str
+    arch: str
+    max_tokens: int = 4096
+    d_model: int = 0
+    d_ff: int = 0
+    num_layers: int = 0
+    num_heads: int = 0
+    num_kv_heads: int = 0
+    head_dim: int = 0
+    vocab_size: int = 0
+
+
+GUARD_MODELS: dict[str, GuardModelSpec] = {
+    "qwen3guard-0.6b": GuardModelSpec(
+        slug="qwen3guard-0.6b", arch="qwen3", max_tokens=4096, **_QWEN3_06B),
+}
+
+
 def get_embedding_model(slug: str) -> EmbeddingModelSpec:
     try:
         return EMBEDDING_MODELS[slug.lower()]
@@ -171,9 +194,18 @@ def get_reranker(slug: str) -> RerankerModelSpec:
                        f"(have: {sorted(RERANKERS)})") from None
 
 
+def get_guard_model(slug: str) -> GuardModelSpec:
+    try:
+        return GUARD_MODELS[slug.lower()]
+    except KeyError:
+        raise KeyError(f"unknown guard model: {slug!r} "
+                       f"(have: {sorted(GUARD_MODELS)})") from None
+
+
 @dataclass(frozen=True)
 class Settings:
-    """The shipping retrieval shape (``config/settings.py`` defaults)."""
+    """The shipping retrieval shape and the local LLM's settings
+    (``config/settings.py`` defaults)."""
 
     embedding_model: str = "frida-hybrid"
     reranker_model: str = ("cross-encoder-micro,cross-encoder-micro-r3,"
@@ -200,3 +232,12 @@ class Settings:
     current_product_version: str = ""
     prior_version_weight: float = 0.4
     prior_language_weight: float = 0.0
+    # the in-process LLM of /v1/chat/completions (the reference's vLLM role)
+    serve_local_llm: bool = False
+    local_llm_continuous_batching: bool = True
+    local_llm_slots: int = 4
+    local_llm_max_ctx: int = 2048
+    local_llm_checkpoint: str = ""       # npz params; "" = random init
+    local_llm_weights: str = "native"    # native | int8 (not ported yet)
+    local_llm_kv_dtype: str = "native"   # native | int8 KV pages
+    local_llm_layer_fused: bool | None = None  # needs int8 weights

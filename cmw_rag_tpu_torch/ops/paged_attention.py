@@ -1,0 +1,344 @@
+"""Paged decode attention: one query token per slot over a paged KV pool
+(port of ``cmw_rag_tpu/ops/paged_attention.py``).
+
+Each serving slot holds a block table of page indices into a pool
+``[L, P, page, Hkv, Dh]`` (one layer of it ``[P, page, Hkv, Dh]``); slot s
+attends over positions ``pos < lens[s]``, position ``pos`` living in page
+``tables[s, pos // page]`` at row ``pos % page``; query head h reads KV head
+``h // (Hq // Hkv)``. Scores are float32 products scaled by 1/sqrt(Dh),
+softmaxed in float32, the value product is float32, and the output is cast
+to q's dtype. int8 pools carry page-granular float32 scales ``[L, P, Hkv]``.
+
+- ``paged_decode_attention_xla`` is the gather golden (JAX :36) and the plain
+  twin of the bf16 kernel; ``paged_decode_attention_xla_kv_int8`` (:275), which
+  dequantizes to q's dtype first, is the twin of the int8 one.
+- ``paged_decode_attention_dma`` (:469), ``paged_decode_attention_dma_scatter``
+  (:559) and ``paged_decode_attention_dma_kv_int8`` (:858) are the wrappers
+  the engine calls. ``paged_decode_attention`` (:641, one layer's pool) and
+  ``paged_decode_attention_pooled`` (:187) are two TPU schedules of the same
+  function and here thin aliases over the same kernel. On CUDA tensors each
+  launches ``csrc/paged_attention.cu`` (bf16 q; bf16 pages, with the K/V row
+  write fused in for the scatter wrapper, or int8 pages; Dh 64 or 128,
+  Hq / Hkv in 1, 2, 4, 8, page at most 256) and adds one to its own
+  ``launches`` count; on CPU tensors it runs its plain twin. Wrong device,
+  dtype, shape or contiguity raises: there is no fallback.
+- The wrappers keep the JAX signature's ``worklist=`` and ``chunk=``; the
+  kernel reads ``tables`` and ``lens`` itself, so they change nothing.
+  ``make_decode_worklist`` (:292) stays for callers of that signature.
+
+The slot-major kernel (:1024) belongs to the int8-weights configuration and
+the batched one (:1241) to the opt-in ``attn_batched``; both raise
+``NotImplementedError`` (``ROADMAP.md`` Queue 2 #5 and #9).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import math
+
+import torch
+
+from cmw_rag_tpu_torch.device import on_cpu
+from cmw_rag_tpu_torch.ops import cuda_build
+
+NEG_INF = -3.0e38
+KV_HEADROOM = 1.25   # a page's scale is set by its FIRST token; later tokens
+                     # clip at ±127, and the headroom keeps that rare
+
+
+# ------------------------------------------------------------------- twins
+
+
+def paged_decode_attention_xla(q: torch.Tensor, k_pool: torch.Tensor,
+                               v_pool: torch.Tensor, tables: torch.Tensor,
+                               lens: torch.Tensor) -> torch.Tensor:
+    """Golden: gather the slot's pages into a dense context and attend.
+    q [S, Hq, Dh]; pools [P, page, Hkv, Dh]; tables [S, maxp]; lens [S]
+    (including the new token) → [S, Hq, Dh] in q.dtype."""
+    s, hq, dh = q.shape
+    _, page, hkv, _ = k_pool.shape
+    maxp = tables.shape[1]
+    rep = hq // hkv
+    t = tables.long()
+    k_ctx = k_pool[t].reshape(s, maxp * page, hkv, dh)
+    v_ctx = v_pool[t].reshape(s, maxp * page, hkv, dh)
+    if rep > 1:
+        k_ctx = torch.repeat_interleave(k_ctx, rep, dim=2)
+        v_ctx = torch.repeat_interleave(v_ctx, rep, dim=2)
+    scores = torch.einsum("shd,smhd->shm", q.float(), k_ctx.float())
+    scores = scores / math.sqrt(dh)
+    pos = torch.arange(maxp * page, device=q.device)[None, None, :]
+    scores = torch.where(pos < lens.long()[:, None, None], scores,
+                         torch.full_like(scores, NEG_INF))
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("shm,smhd->shd", probs, v_ctx.float())
+    return out.to(q.dtype)
+
+
+def quantize_kv_page(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-(page, head) symmetric int8: x [..., page, Hkv, Dh] → (int8 of the
+    same shape, float32 scales [..., Hkv])."""
+    xf = x.float()
+    absmax = xf.abs().amax(dim=(-3, -1))
+    scale = torch.clamp(absmax, min=1e-8) * (KV_HEADROOM / 127.0)
+    q = torch.clamp(torch.round(xf / scale[..., None, :, None]), -127, 127)
+    return q.to(torch.int8), scale.float()
+
+
+def quantize_kv_token(x: torch.Tensor, page_scale: torch.Tensor) -> torch.Tensor:
+    """Quantize ONE token's K/V [S, Hkv, Dh] against its page's scale
+    [S, Hkv] (clipping at ±127)."""
+    q = torch.clamp(torch.round(x.float() / page_scale[..., None]), -127, 127)
+    return q.to(torch.int8)
+
+
+def paged_decode_attention_xla_kv_int8(q, k_pool_q, k_scale, v_pool_q, v_scale,
+                                       tables, lens) -> torch.Tensor:
+    """Golden for int8 pages [P, page, Hkv, Dh] with scales [P, Hkv]:
+    dequantize to q's dtype, then attend."""
+    k_pool = (k_pool_q.float() * k_scale[:, None, :, None]).to(q.dtype)
+    v_pool = (v_pool_q.float() * v_scale[:, None, :, None]).to(q.dtype)
+    return paged_decode_attention_xla(q, k_pool, v_pool, tables, lens)
+
+
+def make_decode_worklist(tables: torch.Tensor, lens: torch.Tensor, page: int,
+                         chunk: int = 1):
+    """Slot-major compacted (slot, physical page, logical page) worklist of
+    the TPU kernels: each slot's entries padded to a ``chunk`` multiple
+    (padding: page 0, logical page ``maxp``), then sentinel entries of slot S.
+    → (wl_slot, wl_page, wl_j, wl_n) int32. Requires ``maxp % chunk == 0``."""
+    s, maxp = tables.shape
+    if maxp % chunk:
+        raise ValueError(f"maxp={maxp} must be a multiple of chunk={chunk}")
+    dev = tables.device
+    lens = lens.long()
+    used = (lens + page - 1) // page
+    used_pad = ((used + chunk - 1) // chunk) * chunk
+    j_idx = torch.arange(maxp, device=dev)[None, :]
+    real = j_idx < used[:, None]
+    occupied = j_idx < used_pad[:, None]
+    s_idx = torch.arange(s, device=dev)[:, None].expand(s, maxp)
+    order = torch.argsort((~occupied).reshape(-1).to(torch.int32), stable=True)
+    wl_slot = torch.where(occupied, s_idx, s).reshape(-1)[order].to(torch.int32)
+    wl_page = torch.where(real, tables.long(), 0).reshape(-1)[order].to(torch.int32)
+    wl_j = torch.where(real, j_idx, maxp).reshape(-1)[order].to(torch.int32)
+    wl_slot = torch.cat([wl_slot, torch.full((chunk,), s, dtype=torch.int32,
+                                             device=dev)])
+    wl_n = occupied.sum().to(torch.int32)[None]
+    return wl_slot, wl_page, wl_j, wl_n
+
+
+# ------------------------------------------------------------------ kernel
+
+
+def _lib() -> ctypes.CDLL:
+    lib = cuda_build.library("paged_attention")
+    if not getattr(lib, "_typed", False):
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.paged_attention_bf16.argtypes = [p] * 9 + [i] * 7 + [p, p, p]
+        lib.paged_attention_bf16.restype = ctypes.c_int
+        lib.paged_attention_int8.argtypes = [p] * 7 + [i] * 7 + [p, p, p]
+        lib.paged_attention_int8.restype = ctypes.c_int
+        lib._typed = True
+    return lib
+
+
+def _need(t: torch.Tensor, name: str, dtype: torch.dtype, shape) -> None:
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected "
+                         f"{tuple(shape)}")
+    if not t.is_contiguous() or t.data_ptr() % 16:
+        raise ValueError(f"{name} must be contiguous and 16-byte aligned")
+
+
+def _layer(pools: torch.Tensor, layer: int) -> torch.Tensor:
+    if pools.dim() != 5 or not 0 <= layer < pools.shape[0]:
+        raise ValueError(f"layer {layer} of a pool shaped {tuple(pools.shape)}")
+    return pools[layer]
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def pages_per_split(s: int, hkv: int, maxp: int, device: torch.device) -> int:
+    """Pages of each block's range: ranges are added until the launch has
+    about two blocks per SM (one (KV head, slot) pair each at most)."""
+    n_split = max(1, min(maxp, -(-2 * _sm_count(device) // (s * hkv))))
+    return -(-maxp // n_split)
+
+
+def _launch(q, k_pool, v_pool, tables, lens, k_scale=None, v_scale=None,
+            k_new=None, v_new=None, page_idx=None, off=None) -> torch.Tensor:
+    """One layer's pools [P, page, Hkv, Dh] (bf16, or int8 with scales
+    [P, Hkv]); the fused write when ``k_new`` is given."""
+    if q.dim() != 3 or k_pool.dim() != 4:
+        raise ValueError("q must be [S, Hq, Dh] and a layer's pool "
+                         "[P, page, Hkv, Dh]")
+    s, hq, dh = q.shape
+    n_pages, page, hkv, _ = k_pool.shape
+    maxp = tables.shape[-1]
+    int8 = k_scale is not None
+    pool_dtype = torch.int8 if int8 else torch.bfloat16
+    _need(q, "q", torch.bfloat16, (s, hq, dh))
+    _need(k_pool, "k_pool", pool_dtype, (n_pages, page, hkv, dh))
+    _need(v_pool, "v_pool", pool_dtype, (n_pages, page, hkv, dh))
+    _need(tables, "tables", torch.int32, (s, maxp))
+    _need(lens, "lens", torch.int32, (s,))
+    if int8:
+        _need(k_scale, "k_scale", torch.float32, (n_pages, hkv))
+        _need(v_scale, "v_scale", torch.float32, (n_pages, hkv))
+    if k_new is not None:
+        for name, t in (("k_new", k_new), ("v_new", v_new)):
+            _need(t, name, torch.bfloat16, (s, hkv, dh))
+        _need(page_idx, "page_idx", torch.int32, (s,))
+        _need(off, "off", torch.int32, (s,))
+    if hkv < 1 or hq % hkv or hq // hkv not in (1, 2, 4, 8):
+        raise ValueError(f"Hq={hq} over Hkv={hkv}: the kernel takes a ratio "
+                         f"of 1, 2, 4 or 8")
+    if dh not in (64, 128):
+        raise ValueError(f"head dim {dh} not in (64, 128)")
+    if not 1 <= page <= 256:
+        raise ValueError(f"page {page} not in [1, 256]")
+    pps = pages_per_split(s, hkv, maxp, q.device)
+    n_split = -(-maxp // pps)
+    out = torch.empty_like(q)
+    partial = (torch.empty((s, hkv, n_split, hq // hkv, dh + 2),
+                           dtype=torch.float32, device=q.device)
+               if n_split > 1 else None)
+    lib = _lib()
+    ptr = (lambda t: None if t is None else t.data_ptr())  # noqa: E731
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        if int8:
+            err = lib.paged_attention_int8(
+                q.data_ptr(), k_pool.data_ptr(), k_scale.data_ptr(),
+                v_pool.data_ptr(), v_scale.data_ptr(), tables.data_ptr(),
+                lens.data_ptr(), s, hq, hkv, dh, page, maxp, pps,
+                ptr(partial), out.data_ptr(), stream)
+        else:
+            err = lib.paged_attention_bf16(
+                q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+                tables.data_ptr(), lens.data_ptr(), ptr(k_new), ptr(v_new),
+                ptr(page_idx), ptr(off), s, hq, hkv, dh, page, maxp, pps,
+                ptr(partial), out.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"paged attention launch failed: CUDA error {err}")
+    return out
+
+
+# ---------------------------------------------------------------- wrappers
+
+
+def paged_decode_attention_dma(q: torch.Tensor, k_pools: torch.Tensor,
+                               v_pools: torch.Tensor, tables: torch.Tensor,
+                               lens: torch.Tensor, layer: int, worklist=None,
+                               chunk: int = 1) -> torch.Tensor:
+    """Paged decode attention over layer ``layer`` of the stacked pools
+    [L, P, page, Hkv, Dh] → [S, Hq, Dh]."""
+    if on_cpu(q, k_pools, v_pools, tables, lens):
+        return paged_decode_attention_xla(q, _layer(k_pools, layer),
+                                          _layer(v_pools, layer), tables, lens)
+    out = _launch(q, _layer(k_pools, layer), _layer(v_pools, layer), tables,
+                  lens)
+    paged_decode_attention_dma.launches += 1
+    return out
+
+
+def paged_decode_attention_dma_scatter(q, k_new, v_new, page_idx, off,
+                                       k_pools, v_pools, tables, lens,
+                                       layer: int, worklist=None,
+                                       chunk: int = 1, batched: bool = False):
+    """Write this step's rows k_new/v_new [S, Hkv, Dh] at (page_idx[s],
+    off[s]) of layer ``layer``, then attend as ``paged_decode_attention_dma``;
+    → (out [S, Hq, Dh], k_pools, v_pools). The pools are updated IN PLACE,
+    as the JAX kernel aliases them. (page_idx[s], off[s]) must be position
+    lens[s] - 1 of slot s, and active slots must write distinct rows (the
+    engine's idle slots all write row 0 of the null page 0, which only they
+    read): the kernel's block for slot s takes that row from k_new/v_new."""
+    if batched:
+        raise NotImplementedError(
+            "batched=True (cross-slot iterations, the opt-in attn_batched) is "
+            "not ported: ROADMAP.md Queue 2 #9")
+    if on_cpu(q, k_new, v_new, page_idx, off, k_pools, v_pools, tables, lens):
+        kp, vp = _layer(k_pools, layer), _layer(v_pools, layer)
+        kp[page_idx.long(), off.long()] = k_new.to(kp.dtype)
+        vp[page_idx.long(), off.long()] = v_new.to(vp.dtype)
+        return paged_decode_attention_xla(q, kp, vp, tables, lens), k_pools, v_pools
+    out = _launch(q, _layer(k_pools, layer), _layer(v_pools, layer), tables,
+                  lens, k_new=k_new, v_new=v_new, page_idx=page_idx, off=off)
+    paged_decode_attention_dma_scatter.launches += 1
+    return out, k_pools, v_pools
+
+
+def paged_decode_attention_dma_kv_int8(q, k_pools_q, k_scales, v_pools_q,
+                                       v_scales, tables, lens, layer: int,
+                                       worklist=None,
+                                       chunk: int = 1) -> torch.Tensor:
+    """Paged decode attention over int8 pools [L, P, page, Hkv, Dh] with
+    page-granular scales [L, P, Hkv] → [S, Hq, Dh]."""
+    if on_cpu(q, k_pools_q, k_scales, v_pools_q, v_scales, tables, lens):
+        return paged_decode_attention_xla_kv_int8(
+            q, _layer(k_pools_q, layer), k_scales[layer],
+            _layer(v_pools_q, layer), v_scales[layer], tables, lens)
+    out = _launch(q, _layer(k_pools_q, layer), _layer(v_pools_q, layer),
+                  tables, lens, k_scale=k_scales[layer],
+                  v_scale=v_scales[layer])
+    paged_decode_attention_dma_kv_int8.launches += 1
+    return out
+
+
+def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
+                           v_pool: torch.Tensor, tables: torch.Tensor,
+                           lens: torch.Tensor) -> torch.Tensor:
+    """Alias over one layer's pool [P, page, Hkv, Dh] (the TPU's
+    (slot, page) grid schedule of the same function)."""
+    if on_cpu(q, k_pool, v_pool, tables, lens):
+        return paged_decode_attention_xla(q, k_pool, v_pool, tables, lens)
+    out = _launch(q, k_pool, v_pool, tables, lens)
+    paged_decode_attention.launches += 1
+    return out
+
+
+def paged_decode_attention_pooled(q: torch.Tensor, k_pools: torch.Tensor,
+                                  v_pools: torch.Tensor, tables: torch.Tensor,
+                                  lens: torch.Tensor,
+                                  layer: int) -> torch.Tensor:
+    """Alias over layer ``layer`` of the stacked pools (the TPU's worklist
+    schedule of the same function)."""
+    if on_cpu(q, k_pools, v_pools, tables, lens):
+        return paged_decode_attention_xla(q, _layer(k_pools, layer),
+                                          _layer(v_pools, layer), tables, lens)
+    out = _launch(q, _layer(k_pools, layer), _layer(v_pools, layer), tables,
+                  lens)
+    paged_decode_attention_pooled.launches += 1
+    return out
+
+
+def paged_decode_attention_dma_slot(*args, **kwargs):
+    raise NotImplementedError(
+        "the slot-major kernel runs with int8 weights, which are not ported: "
+        "ROADMAP.md Queue 2 #5")
+
+
+def paged_decode_attention_dma_batched(*args, **kwargs):
+    raise NotImplementedError(
+        "cross-slot batched attention (attn_batched) is not ported: "
+        "ROADMAP.md Queue 2 #9")
+
+
+WRAPPERS = (paged_decode_attention_dma, paged_decode_attention_dma_scatter,
+            paged_decode_attention_dma_kv_int8, paged_decode_attention,
+            paged_decode_attention_pooled)
+
+
+def reset_launches() -> None:
+    for fn in WRAPPERS:
+        fn.launches = 0
+
+
+reset_launches()

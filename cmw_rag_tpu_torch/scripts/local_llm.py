@@ -1,0 +1,190 @@
+"""The local LLM serving path, as ``chip_smoke.py`` drives it.
+
+    python -m cmw_rag_tpu_torch.scripts.local_llm [--kv-dtype int8]
+        [--prefill-chunk 256] [--reference] [--device cuda]
+
+Model: ``qwen3guard-0.6b`` (``cmw_rag_tpu/config/models.yaml:310-331``), the
+spec the JAX package's ``create_local_llm_manager`` serves by default, at
+full width and depth (d 1024, d_ff 3072, 28 layers, 16 query and 8 KV heads
+of 128, vocabulary 151,680, tied embeddings), bf16, with random weights from
+a seeded CPU generator: the repository holds no converted checkpoint, so
+runs read token ids and never quality.
+
+Serving shape: the port's ``Settings`` (``config/settings.py:125-132``): 4
+slots, a 2,048-token context, 64-token pages (``local_transport.py:162``),
+native weights and KV pages. Requests: ChatML (``format_chatml``) of the 8
+bilingual texts that the shipping path plants (``scripts/shipping.py``),
+greedy, 32 new tokens each; with more requests than slots, later ones are
+admitted mid-flight.
+
+With random weights at the full vocabulary, greedy ids reach rows the
+bundled 16k BPE cannot decode, as in the JAX package, whose tokenizer raises
+``KeyError`` there: so this path reads ids, and the transport run uses the
+tokenizer's vocabulary instead (``spec_with_tokenizer_vocab``).
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import time
+from collections import defaultdict
+
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+from cmw_rag_tpu_torch.config import Settings, get_guard_model
+from cmw_rag_tpu_torch.device import resolve_device
+from cmw_rag_tpu_torch.llm.local_transport import format_chatml
+from cmw_rag_tpu_torch.models.engine import (PagedLLMEngine, Request,
+                                             _paged_decode)
+from cmw_rag_tpu_torch.models.qwen3 import Qwen3Config, init_qwen3
+from cmw_rag_tpu_torch.scripts.profile_query import _busy_us, _is_kernel
+from cmw_rag_tpu_torch.scripts.shipping import PLANTED_TEXTS
+from cmw_rag_tpu_torch.tokenizer import get_tokenizer
+
+SPEC = "qwen3guard-0.6b"
+PAGE = 64
+N_REQUESTS = 6
+MAX_NEW_TOKENS = 32
+TIMED_STEPS = 20
+PROFILED_STEPS = 5
+#: device-side names of the paged attention kernel and its combine pass
+PAGED_KERNEL_NAMES = ("paged_decode_kernel", "combine_kernel")
+
+
+def spec_with_tokenizer_vocab(slug: str = SPEC):
+    """The spec with ``vocab_size`` 0: ``create_local_llm_transport`` then
+    takes the tokenizer's vocabulary, rounded up to 128 (as the JAX
+    package's own tests of ``create_local_llm_manager`` do)."""
+    return dataclasses.replace(get_guard_model(slug), vocab_size=0)
+
+
+def config(slug: str = SPEC) -> Qwen3Config:
+    spec = get_guard_model(slug)
+    return Qwen3Config(vocab_size=spec.vocab_size, d_model=spec.d_model,
+                       d_ff=spec.d_ff, num_layers=spec.num_layers,
+                       num_heads=spec.num_heads,
+                       num_kv_heads=spec.num_kv_heads,
+                       head_dim=spec.head_dim, dtype=torch.bfloat16)
+
+
+def build_params(cfg: Qwen3Config, seed: int = 0, device="cuda"):
+    """Random parameters drawn from a seeded CPU generator, on ``device``."""
+    return init_qwen3(torch.Generator().manual_seed(seed), cfg,
+                      device=resolve_device(device))
+
+
+def chat_prompts(n: int = N_REQUESTS) -> list[str]:
+    return [format_chatml([{"role": "user", "content": t}])
+            for t in PLANTED_TEXTS[:n]]
+
+
+def build_engine(params, cfg: Qwen3Config, device="cuda", engine_cls=None,
+                 **engine_kw) -> PagedLLMEngine:
+    """An engine at the serving settings; ``engine_kw`` overrides
+    (``use_kernel``, ``kv_dtype``, ``prefill_chunk``, ``scatter_fused``)."""
+    s = Settings()
+    kw = dict(max_slots=s.local_llm_slots, page_size=PAGE,
+              max_ctx=s.local_llm_max_ctx, kv_dtype=s.local_llm_kv_dtype,
+              device=device)
+    kw.update(engine_kw)
+    return (engine_cls or PagedLLMEngine)(params, cfg, get_tokenizer(), **kw)
+
+
+def run_requests(engine: PagedLLMEngine, prompts: list[str],
+                 max_new_tokens: int = MAX_NEW_TOKENS) -> list[Request]:
+    """Submit every prompt (greedy) and step until all are done."""
+    reqs = [engine.submit(p, max_new_tokens=max_new_tokens) for p in prompts]
+    engine.run_until_done(reqs)
+    return reqs
+
+
+@torch.no_grad()
+def profile_decode(engine: PagedLLMEngine) -> dict:
+    """Where one decode step of ``engine``'s current state spends its time,
+    on a card: the step is repeated as it stands (it writes the same rows
+    each time), ``TIMED_STEPS`` times without the profiler and
+    ``PROFILED_STEPS`` under ``torch.profiler``. → host wall per step
+    without and with the profiler, device busy (union of kernel intervals)
+    and idle share, the paged attention kernel's device time and launches
+    per step, and the kernels that took the most device time."""
+    active = engine._active_mask()
+    tables, lens = engine._dev(engine.tables), engine._dev(engine.lens)
+    cur, act = engine._dev(engine.cur_ids), engine._dev(active)
+
+    def step():
+        return _paged_decode(
+            engine.params, engine.k_pool, engine.v_pool, engine.k_scale,
+            engine.v_scale, tables, lens, cur, act, engine.cfg,
+            engine.use_kernel, engine._rope, kv_int8=engine.kv_int8,
+            scatter_fused=engine.scatter_fused)
+
+    step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(TIMED_STEPS):
+        step()
+    torch.cuda.synchronize()
+    plain_ms = 1e3 * (time.perf_counter() - t0) / TIMED_STEPS
+    n = PROFILED_STEPS
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            step()
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0) / n
+    events = prof.events()
+    kernels: dict[str, float] = defaultdict(float)
+    launches = 0
+    for e in events:
+        if _is_kernel(e):
+            kernels[e.name] += (e.time_range.end - e.time_range.start) / 1e3 / n
+            launches += 1
+    busy_ms = _busy_us(events) / 1e3 / n
+    paged = {k: v for k, v in kernels.items()
+             if any(p in k for p in PAGED_KERNEL_NAMES)}
+    return {
+        "active_slots": int(active.sum()),
+        "context_lens": [int(x) for x in engine.lens[active]],
+        "wall_ms_per_step_unprofiled": plain_ms,
+        "wall_ms_per_step": wall_ms, "device_busy_ms_per_step": busy_ms,
+        "idle_share": 1.0 - busy_ms / wall_ms,
+        "paged_kernel_ms_per_step": sum(paged.values()),
+        "paged_share_of_busy": sum(paged.values()) / busy_ms,
+        "kernel_launches_per_step": launches / n,
+        "top_kernels_ms_per_step":
+            sorted(kernels.items(), key=lambda kv: -kv[1])[:10]}
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", default="cuda")
+    ap.add_argument("--kv-dtype", default="native", choices=("native", "int8"))
+    ap.add_argument("--prefill-chunk", type=int, default=0)
+    ap.add_argument("--reference", action="store_true",
+                    help="the gather golden instead of the paged kernel")
+    ap.add_argument("--max-new-tokens", type=int, default=MAX_NEW_TOKENS)
+    args = ap.parse_args()
+    cfg = config()
+    params = build_params(cfg, args.seed, args.device)
+    engine = build_engine(params, cfg, args.device, kv_dtype=args.kv_dtype,
+                          prefill_chunk=args.prefill_chunk,
+                          use_kernel=False if args.reference else None)
+    t0 = time.perf_counter()
+    reqs = run_requests(engine, chat_prompts(), args.max_new_tokens)
+    if engine.device.type == "cuda":
+        torch.cuda.synchronize(engine.device)
+    wall = time.perf_counter() - t0
+    for r in reqs:
+        print(f"request {r.rid}: {r.finish_reason}, prompt {r.prompt_len} "
+              f"tokens, ids {r.out}")
+    n_out = sum(len(r.out) for r in reqs)
+    print(f"decode steps {engine.decode_steps}, {n_out} tokens in {wall:.3f} s "
+          f"(host clock, prefill included)")
+
+
+if __name__ == "__main__":
+    main()

@@ -80,6 +80,10 @@ class BPETokenizer:
     def n_vocab(self) -> int:
         return max(self._decoder) + 1
 
+    @property
+    def special_tokens(self) -> dict[str, int]:
+        return dict(self._special)
+
     def _encode_piece_uncached(self, piece: bytes) -> tuple[int, ...]:
         tok = self._ranks.get(piece)
         if tok is not None:
@@ -113,8 +117,15 @@ class BPETokenizer:
         return out
 
     def decode(self, ids: Iterable[int]) -> str:
-        return b"".join(self._decoder[i] for i in ids).decode(
-            "utf-8", errors="replace")
+        return self.decode_bytes(ids).decode("utf-8", errors="replace")
+
+    def decode_bytes(self, ids: Iterable[int]) -> bytes:
+        return b"".join(self._decoder[i] for i in ids)
+
+    def count(self, text: str) -> int:
+        """Exact token count of ``text`` encoded as ordinary text."""
+        return sum(len(self._encode_piece(m.group().encode("utf-8")))
+                   for m in self._pattern.finditer(text))
 
     @classmethod
     def load(cls, path: str | Path) -> "BPETokenizer":

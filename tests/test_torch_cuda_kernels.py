@@ -11,7 +11,12 @@ by more than that (float32 sums in another order); flash attention output,
 against the twin run over the kernel's own tiles (so both round p against
 the same running maxima), to one bf16 step at its magnitude plus 2e-3 (both
 round the output to bf16, so values a hair apart may round one step apart),
-its log-sum-exp to 1e-4 (float32 on both sides).
+its log-sum-exp to 1e-4 (float32 on both sides); paged decode attention
+over bf16 pages to one bf16 step at the twin's magnitude plus 1e-5 (float32
+sums in another order, then both round to bf16), over int8 pages to one
+step plus 2e-2 (the twin, as JAX's golden, rounds the dequantized K and V to
+bf16 before attending; the kernel keeps them in float32), with the scatter
+wrapper's pools equal to the twin's bit for bit.
 """
 
 import numpy as np
@@ -23,6 +28,7 @@ from cmw_rag_tpu_torch.index.ivf import IVFIndex
 from cmw_rag_tpu_torch.index.shards import SegmentedIndex
 from cmw_rag_tpu_torch.ops import flash_attention as F
 from cmw_rag_tpu_torch.ops import ivf_scan as V
+from cmw_rag_tpu_torch.ops import paged_attention as PA
 from cmw_rag_tpu_torch.ops import topk as T
 
 pytestmark = pytest.mark.cuda
@@ -221,3 +227,153 @@ def test_ivf_and_segmented_indexes_on_the_card_match_the_cpu(card, quantize):
     s, i = seg.search(v[[10, 1500, 2450, 3]], 5)
     assert i[:3, 0].tolist() == [10, 1500, 2450] and (s[:3, 0] > 0.99).all()
     assert 3 not in i[3]
+
+
+def _bf16_step(x):
+    x = x.float()
+    step = torch.ldexp(torch.ones_like(x), torch.frexp(x)[1] - 8)
+    return torch.where(x == 0, torch.zeros_like(x), step)
+
+
+def _paged_case(card, s, hq, hkv, dh, page, maxp, lens, seed, layers=2):
+    """Pools of ``layers`` layers with distinct pages per slot, ragged
+    ``lens`` and, as the last slot, one idle slot (table all page 0,
+    length 1). → q, k_pools, v_pools, tables, lens (int32, on the card)."""
+    rng = np.random.default_rng(seed)
+    n_pages = 1 + s * maxp
+    shape = (layers, n_pages, page, hkv, dh)
+    kp = torch.from_numpy(rng.standard_normal(shape, np.float32)).to(card)
+    vp = torch.from_numpy(rng.standard_normal(shape, np.float32)).to(card)
+    q = torch.from_numpy(rng.standard_normal((s, hq, dh), np.float32)).to(card)
+    tables = rng.permutation(np.arange(1, n_pages)).reshape(s, maxp)
+    lens = np.asarray(list(lens) + [1], np.int32)
+    tables[-1] = 0
+    return (q.bfloat16(), kp.bfloat16(), vp.bfloat16(),
+            torch.from_numpy(tables.astype(np.int32)).to(card),
+            torch.from_numpy(lens).to(card))
+
+
+PAGED_SHAPES = [  # S, Hq, Hkv, Dh, page, maxp, lens of the active slots
+    (4, 16, 8, 128, 64, 32, [1, 63, 2047]),          # serving: 4 slots x 2048
+    (8, 16, 8, 128, 64, 16, [64, 65, 257, 300, 1, 1000, 1024]),
+    (32, 16, 8, 128, 64, 16, [1 + 33 * i for i in range(31)]),
+    (3, 4, 4, 64, 16, 6, [5, 96]),                   # no GQA, Dh 64, page 16
+    (5, 32, 4, 128, 32, 8, [17, 32, 33, 200]),       # 8 query heads a KV head
+]
+
+
+@pytest.mark.parametrize("shape", PAGED_SHAPES)
+@pytest.mark.parametrize("kind", ["dma", "scatter", "int8"])
+def test_paged_attention_kernels_match_plain_twins(card, shape, kind):
+    s, hq, hkv, dh, page, maxp, lens = shape
+    q, kp, vp, tables, lens = _paged_case(card, s, hq, hkv, dh, page, maxp,
+                                          lens, seed=s + dh)
+    layer, act = 1, slice(0, s - 1)
+    if kind == "int8":
+        kq, ks = PA.quantize_kv_page(kp)
+        vq, vs = PA.quantize_kv_page(vp)
+        n0 = PA.paged_decode_attention_dma_kv_int8.launches
+        got = PA.paged_decode_attention_dma_kv_int8(q, kq, ks, vq, vs, tables,
+                                                    lens, layer=layer)
+        want = PA.paged_decode_attention_dma_kv_int8(
+            q.cpu(), kq.cpu(), ks.cpu(), vq.cpu(), vs.cpu(), tables.cpu(),
+            lens.cpu(), layer=layer).to(card)
+        assert PA.paged_decode_attention_dma_kv_int8.launches == n0 + 1
+        tol = 2e-2
+    elif kind == "scatter":
+        rng = np.random.default_rng(s)
+        k_new = torch.from_numpy(rng.standard_normal(
+            (s, hkv, dh), np.float32)).to(card).bfloat16()
+        v_new = torch.from_numpy(rng.standard_normal(
+            (s, hkv, dh), np.float32)).to(card).bfloat16()
+        pos = (lens - 1).long()
+        page_idx = tables.long().gather(1, (pos // page)[:, None])[:, 0]
+        page_idx, off = page_idx.to(torch.int32), (pos % page).to(torch.int32)
+        k_cpu, v_cpu = kp.cpu(), vp.cpu()
+        n0 = PA.paged_decode_attention_dma_scatter.launches
+        got, k_out, v_out = PA.paged_decode_attention_dma_scatter(
+            q, k_new, v_new, page_idx, off, kp, vp, tables, lens, layer=layer)
+        want, k_want, v_want = PA.paged_decode_attention_dma_scatter(
+            q.cpu(), k_new.cpu(), v_new.cpu(), page_idx.cpu(), off.cpu(),
+            k_cpu, v_cpu, tables.cpu(), lens.cpu(), layer=layer)
+        assert PA.paged_decode_attention_dma_scatter.launches == n0 + 1
+        assert k_out is kp and v_out is vp      # updated in place
+        torch.cuda.synchronize()
+        assert torch.equal(kp.cpu(), k_want) and torch.equal(vp.cpu(), v_want)
+        want = want.to(card)
+        tol = 1e-5
+    else:
+        n0 = PA.paged_decode_attention_dma.launches
+        got = PA.paged_decode_attention_dma(q, kp, vp, tables, lens, layer=layer)
+        want = PA.paged_decode_attention_dma(q.cpu(), kp.cpu(), vp.cpu(),
+                                             tables.cpu(), lens.cpu(),
+                                             layer=layer).to(card)
+        assert PA.paged_decode_attention_dma.launches == n0 + 1
+        tol = 1e-5
+    torch.cuda.synchronize()
+    assert got.shape == want.shape and got.dtype == torch.bfloat16
+    err = (got[act].float() - want[act].float()).abs()
+    assert (err <= _bf16_step(want[act]) + tol).all(), err.max().item()
+
+
+def test_paged_attention_aliases_launch_the_kernel(card):
+    q, kp, vp, tables, lens = _paged_case(card, 4, 16, 8, 128, 64, 8,
+                                          [1, 64, 500], seed=3)
+    want = PA.paged_decode_attention_dma(q, kp, vp, tables, lens, layer=0)
+    n0 = (PA.paged_decode_attention.launches,
+          PA.paged_decode_attention_pooled.launches)
+    one = PA.paged_decode_attention(q, kp[0].contiguous(), vp[0].contiguous(),
+                                    tables, lens)
+    pooled = PA.paged_decode_attention_pooled(q, kp, vp, tables, lens, layer=0)
+    torch.cuda.synchronize()
+    assert torch.equal(one, want) and torch.equal(pooled, want)
+    assert (PA.paged_decode_attention.launches,
+            PA.paged_decode_attention_pooled.launches) == (n0[0] + 1, n0[1] + 1)
+
+
+def test_paged_attention_kernel_never_reads_past_the_length(card):
+    """NaN in every row at or past a slot's length (a preempted request's
+    leftovers) leaves the output as it was: those rows are skipped, not
+    weighted 0 (NaN * 0 is NaN)."""
+    q, kp, vp, tables, lens = _paged_case(card, 4, 16, 8, 128, 64, 8,
+                                          [1, 64, 500], seed=5)
+    want = PA.paged_decode_attention_dma(q, kp, vp, tables, lens, layer=0)
+    for s, n in enumerate(lens.tolist()):
+        for j in range(tables.shape[1]):
+            page = int(tables[s, j])
+            start = min(max(n - j * 64, 0), 64)
+            if page and start < 64:
+                kp[0, page, start:] = float("nan")
+                vp[0, page, start:] = float("nan")
+    got = PA.paged_decode_attention_dma(q, kp, vp, tables, lens, layer=0)
+    torch.cuda.synchronize()
+    assert torch.equal(got[:3], want[:3])
+
+
+def test_paged_attention_wrappers_refuse_what_the_kernel_does_not_take(card):
+    q, kp, vp, tables, lens = _paged_case(card, 2, 16, 8, 128, 16, 4, [9],
+                                          seed=1)
+    with pytest.raises(TypeError):
+        PA.paged_decode_attention_dma(q.float(), kp, vp, tables, lens, layer=0)
+    with pytest.raises(TypeError):
+        PA.paged_decode_attention_dma(q, kp, vp, tables.long(), lens, layer=0)
+    with pytest.raises(ValueError, match="contiguous"):
+        PA.paged_decode_attention_dma(q.transpose(0, 1).contiguous()
+                                      .transpose(0, 1), kp, vp, tables, lens,
+                                      layer=0)
+    with pytest.raises(ValueError, match="layer"):
+        PA.paged_decode_attention_dma(q, kp, vp, tables, lens, layer=2)
+    with pytest.raises(ValueError, match="ratio"):
+        PA.paged_decode_attention_dma(q[:, :12].contiguous(), kp, vp, tables,
+                                      lens, layer=0)
+    with pytest.raises(ValueError, match="head dim"):
+        PA.paged_decode_attention_dma(q[..., :96].contiguous(),
+                                      kp[..., :96].contiguous(),
+                                      vp[..., :96].contiguous(), tables, lens,
+                                      layer=0)
+    with pytest.raises(ValueError):
+        PA.paged_decode_attention_dma(q, kp, vp, tables.cpu(), lens, layer=0)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        PA.paged_decode_attention_dma_scatter(
+            q, kp[0, 0, :2], vp[0, 0, :2], lens, lens, kp, vp, tables, lens,
+            layer=0, batched=True)

@@ -4,7 +4,9 @@ refuses jax, jaxlib, pydantic, yaml and cmw_rag_tpu imports every module of
 cmw_rag_tpu_torch and chip_smoke, answers a query with a tiny CPU
 FusedPipeline, and one through the Retriever over a TorchVectorStore with a
 qwen3-arch embedder and LLM reranker on their flash route, over a flat and
-then a segmented (IVF) store."""
+then a segmented (IVF) store, and serves a JSON and an SSE chat through the
+local LLM transport over the paged engine's loop (kernel route, the twins
+on the CPU), then an int8-KV engine with chunked prefill."""
 
 import ast
 import os
@@ -98,6 +100,37 @@ CHILD = textwrap.dedent("""
     arts = R.Retriever(qemb, seg, qrr, rerank_score_threshold=-10.0
                        ).retrieve("database backup", top_k=2)
     assert len(arts) == 2 and arts[0].score >= arts[1].score, arts
+    import json
+    from cmw_rag_tpu_torch.config import GuardModelSpec
+    from cmw_rag_tpu_torch.llm.local_transport import create_local_llm_transport
+
+    llm = create_local_llm_transport(
+        spec=GuardModelSpec(slug="tiny-lm", arch="qwen3", d_model=32,
+                            d_ff=64, num_layers=1, num_heads=2,
+                            num_kv_heads=1, head_dim=16),
+        max_len=128, page_size=16, dtype=torch.float32,
+        continuous_batching=True, use_kernel=True, device="cpu")
+    try:
+        for stream in (False, True):
+            resp = llm.transport("u", json.dumps({{
+                "messages": [{{"role": "user", "content": "привет"}}],
+                "max_tokens": 4, "stream": stream}}).encode(), {{}}, 10.0,
+                stream)
+            raw = b"".join(resp) if stream else resp.read()
+            if stream:
+                assert raw.rstrip().endswith(b"data: [DONE]"), raw
+            else:
+                assert json.loads(raw)["usage"]["completion_tokens"] > 0, raw
+    finally:
+        llm.engine_loop.stop()
+    eng = llm.engine_loop.engine
+    assert eng.use_kernel and eng.scatter_fused and eng.decode_steps > 0
+    from cmw_rag_tpu_torch.models.engine import PagedLLMEngine
+    int8 = PagedLLMEngine(llm.params, llm.cfg, eng.tokenizer, max_slots=2,
+                          page_size=16, max_ctx=128, kv_dtype="int8",
+                          prefill_chunk=32, use_kernel=True, device="cpu")
+    assert int8.generate(["привет", "hello"], max_new_tokens=3)
+
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in REFUSED)
     assert not leaked, leaked
     print("ok", len(mods))

@@ -1,0 +1,184 @@
+"""The port's paged decode attention (cmw_rag_tpu_torch.ops.paged_attention)
+on the CPU, where its wrappers run their plain twins, against the JAX
+package: its gather goldens and its Pallas kernels in interpret mode.
+
+Inputs are float32, made with numpy from a seed, at toy shapes (the JAX
+package marks its own interpret-mode int8 run slow): pools of 2 layers,
+distinct random pages per slot, ragged lengths across page boundaries.
+Tolerance 2e-5 absolute for every attention output (float32 sums in
+another order; the JAX package holds its kernels to its golden at the same
+2e-5, 3e-5 for int8 pages); quantization, the scattered pools and the
+worklist are held equal exactly.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from cmw_rag_tpu.ops import paged_attention as J
+from cmw_rag_tpu_torch.ops import paged_attention as PA
+
+TOL = 2e-5
+INT8_TOL = 3e-5
+# S, Hq, Hkv, Dh, page, maxp, lens: GQA (2 query heads a KV head) and none
+SHAPES = {"gqa": (4, 4, 2, 16, 16, 4, [1, 16, 17, 64]),
+          "mha": (3, 4, 4, 32, 8, 4, [5, 8, 32])}
+
+
+def _case(shape, seed, layers=2):
+    """(port tensors, JAX arrays) of q, pools [L, P, page, Hkv, Dh], tables
+    and lens."""
+    s, hq, hkv, dh, page, maxp, lens = shape
+    rng = np.random.default_rng(seed)
+    pool = 2 + s * maxp
+    a = dict(
+        q=rng.standard_normal((s, hq, dh)).astype(np.float32),
+        kp=rng.standard_normal((layers, pool, page, hkv, dh)).astype(np.float32),
+        vp=rng.standard_normal((layers, pool, page, hkv, dh)).astype(np.float32),
+        tables=rng.permutation(np.arange(1, 1 + s * maxp)).reshape(
+            s, maxp).astype(np.int32),
+        lens=np.asarray(lens, np.int32))
+    return ({k: torch.from_numpy(v.copy()) for k, v in a.items()},
+            {k: jnp.asarray(v) for k, v in a.items()})
+
+
+@pytest.mark.parametrize("shape", sorted(SHAPES))
+def test_dma_twin_matches_jax_golden_and_kernel(shape):
+    t, j = _case(SHAPES[shape], seed=1)
+    for layer in (0, 1):
+        got = PA.paged_decode_attention_dma(t["q"], t["kp"], t["vp"],
+                                            t["tables"], t["lens"],
+                                            layer=layer).numpy()
+        gold = J.paged_decode_attention_xla(j["q"], j["kp"][layer],
+                                            j["vp"][layer], j["tables"],
+                                            j["lens"])
+        ker = J.paged_decode_attention_dma(j["q"], j["kp"], j["vp"],
+                                           j["tables"], j["lens"], layer=layer,
+                                           interpret=True)
+        np.testing.assert_allclose(got, np.asarray(gold), atol=TOL, rtol=0)
+        np.testing.assert_allclose(got, np.asarray(ker), atol=TOL, rtol=0)
+
+
+@pytest.mark.parametrize("shape", sorted(SHAPES))
+def test_scatter_twin_matches_jax_kernel_output_and_pools(shape):
+    """The row of position lens - 1 is written (the engine's contract),
+    in place, into the same pools the JAX kernel returns."""
+    t, j = _case(SHAPES[shape], seed=2)
+    s, _, hkv, dh, page, _, lens = SHAPES[shape]
+    rng = np.random.default_rng(3)
+    k_new = rng.standard_normal((s, hkv, dh)).astype(np.float32)
+    v_new = rng.standard_normal((s, hkv, dh)).astype(np.float32)
+    pos = np.asarray(lens) - 1
+    page_idx = np.take_along_axis(np.asarray(j["tables"]),
+                                  (pos // page)[:, None], 1)[:, 0].astype(np.int32)
+    off = (pos % page).astype(np.int32)
+    kp, vp = t["kp"], t["vp"]
+    out, k2, v2 = PA.paged_decode_attention_dma_scatter(
+        t["q"], torch.from_numpy(k_new), torch.from_numpy(v_new),
+        torch.from_numpy(page_idx), torch.from_numpy(off), kp, vp,
+        t["tables"], t["lens"], layer=1)
+    assert k2 is kp and v2 is vp
+    jout, jk, jv = J.paged_decode_attention_dma_scatter(
+        j["q"], jnp.asarray(k_new), jnp.asarray(v_new), jnp.asarray(page_idx),
+        jnp.asarray(off), j["kp"], j["vp"], j["tables"], j["lens"], layer=1,
+        interpret=True)
+    np.testing.assert_array_equal(kp.numpy(), np.asarray(jk))
+    np.testing.assert_array_equal(vp.numpy(), np.asarray(jv))
+    np.testing.assert_allclose(out.numpy(), np.asarray(jout), atol=TOL, rtol=0)
+    assert not np.array_equal(kp.numpy(), np.asarray(j["kp"]))  # it wrote
+
+
+@pytest.mark.parametrize("shape", sorted(SHAPES))
+def test_kv_int8_twin_matches_jax_golden_and_kernel(shape):
+    t, j = _case(SHAPES[shape], seed=4)
+    kq, ks = PA.quantize_kv_page(t["kp"])
+    vq, vs = PA.quantize_kv_page(t["vp"])
+    jkq, jks = J.quantize_kv_page(j["kp"])
+    jvq, jvs = J.quantize_kv_page(j["vp"])
+    for layer in (0, 1):
+        got = PA.paged_decode_attention_dma_kv_int8(
+            t["q"], kq, ks, vq, vs, t["tables"], t["lens"], layer=layer).numpy()
+        gold = J.paged_decode_attention_xla_kv_int8(
+            j["q"], jkq[layer], jks[layer], jvq[layer], jvs[layer],
+            j["tables"], j["lens"])
+        np.testing.assert_allclose(got, np.asarray(gold), atol=INT8_TOL, rtol=0)
+    ker = J.paged_decode_attention_dma_kv_int8(
+        j["q"], jkq, jks, jvq, jvs, j["tables"], j["lens"], layer=1,
+        interpret=True)
+    np.testing.assert_allclose(got, np.asarray(ker), atol=INT8_TOL, rtol=0)
+
+
+def test_aliases_match_their_jax_kernels():
+    """``paged_decode_attention`` (one layer's pool) and
+    ``paged_decode_attention_pooled`` against the two TPU schedules."""
+    t, j = _case(SHAPES["gqa"], seed=5)
+    one = PA.paged_decode_attention(t["q"], t["kp"][1], t["vp"][1],
+                                    t["tables"], t["lens"]).numpy()
+    pooled = PA.paged_decode_attention_pooled(t["q"], t["kp"], t["vp"],
+                                              t["tables"], t["lens"],
+                                              layer=1).numpy()
+    jone = J.paged_decode_attention(j["q"], j["kp"][1], j["vp"][1],
+                                    j["tables"], j["lens"], interpret=True)
+    jpooled = J.paged_decode_attention_pooled(j["q"], j["kp"], j["vp"],
+                                              j["tables"], j["lens"], layer=1,
+                                              interpret=True)
+    np.testing.assert_allclose(one, np.asarray(jone), atol=TOL, rtol=0)
+    np.testing.assert_allclose(pooled, np.asarray(jpooled), atol=TOL, rtol=0)
+
+
+def test_quantize_kv_matches_jax():
+    rng = np.random.default_rng(7)
+    x = (rng.standard_normal((3, 5, 16, 2, 16)) * 3).astype(np.float32)
+    q, s = PA.quantize_kv_page(torch.from_numpy(x))
+    jq, js = J.quantize_kv_page(jnp.asarray(x))
+    np.testing.assert_array_equal(q.numpy(), np.asarray(jq))
+    np.testing.assert_array_equal(s.numpy(), np.asarray(js))
+    assert q.dtype == torch.int8 and s.shape == (3, 5, 2)
+    tok = x[0, :4, 3]                                    # [S, Hkv, Dh]
+    scale = np.asarray(js)[0, :4] * 0.5                  # some rows clip
+    got = PA.quantize_kv_token(torch.from_numpy(tok), torch.from_numpy(scale))
+    want = J.quantize_kv_token(jnp.asarray(tok), jnp.asarray(scale))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    assert int(got.abs().max()) == 127
+
+
+@pytest.mark.parametrize("chunk", [1, 2, 4])
+def test_make_decode_worklist_matches_jax(chunk):
+    rng = np.random.default_rng(8)
+    tables = rng.permutation(np.arange(1, 17)).reshape(4, 4).astype(np.int32)
+    lens = np.asarray([1, 17, 40, 64], np.int32)
+    got = PA.make_decode_worklist(torch.from_numpy(tables),
+                                  torch.from_numpy(lens), 16, chunk=chunk)
+    want = J.make_decode_worklist(jnp.asarray(tables), jnp.asarray(lens), 16,
+                                  chunk=chunk)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    with pytest.raises(ValueError, match="multiple"):
+        PA.make_decode_worklist(torch.from_numpy(tables),
+                                torch.from_numpy(lens), 16, chunk=3)
+
+
+def test_deferred_routes_raise_naming_the_roadmap():
+    t, _ = _case(SHAPES["gqa"], seed=9)
+    s, _, hkv, dh = 4, 4, 2, 16
+    zeros = torch.zeros((s, hkv, dh))
+    idx = torch.zeros((s,), dtype=torch.int32)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        PA.paged_decode_attention_dma_scatter(
+            t["q"], zeros, zeros, idx, idx, t["kp"], t["vp"], t["tables"],
+            t["lens"], layer=0, batched=True)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        PA.paged_decode_attention_dma_slot(t["q"], t["kp"], t["vp"], t["lens"],
+                                           layer=0, cap=4, maxp_slot=4)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        PA.paged_decode_attention_dma_batched(t["q"], t["kp"], t["vp"],
+                                              t["tables"], t["lens"], layer=0)
+
+
+def test_wrappers_refuse_a_bad_layer():
+    t, _ = _case(SHAPES["gqa"], seed=10)
+    with pytest.raises(ValueError, match="layer"):
+        PA.paged_decode_attention_dma(t["q"], t["kp"], t["vp"], t["tables"],
+                                      t["lens"], layer=2)
+    assert PA.paged_decode_attention_dma.launches == 0  # twins never count
