@@ -125,8 +125,33 @@ Phases, each printed with its seconds beside the card's name and power limit:
    tokenizer's vocabulary: a JSON and an SSE chat sent together, their
    wire shapes and usage counts checked.
 
-Every kernel's launch count is set to 0 just before each path (3, 5, 6, 7
-and 8) is driven and read just after; each kernel of a path must have launched. The
+9. local-llm-int8 - the same engine with int8 weights (the reference's
+   ``local_llm_weights = "int8"``). The four int8-path kernels against their
+   plain twins over 28 layers' weights read in turn: ``int8_matmul`` at
+   (4, 1024, 4096) and (16, 1024, 4096) bf16 and the head (4, 1024,
+   151,680) float32, within one bf16 step plus ``INT8_MM_TOL`` of the
+   largest output; slot-major attention at 4 slots with caps 2 and 6 and
+   at 16 slots, as the paged kernel; the fused MLP at 4 and 16 slots and
+   the decoder-layer megakernel at 4 slots on its slot-major route and on
+   its paged route (one slot of 2,047 positions), within one bf16 step plus
+   ``INT8_LAYER_TOL`` of the largest output, the megakernel's written pool
+   rows within the same of the twin's and every other row unchanged, bit
+   for bit.
+   Times as in phase 8, beside a composite library yardstick (dequantize,
+   ``torch.matmul``, scale; gather + ``scaled_dot_product_attention``).
+   Then the engine at full width, each kernel run against the same
+   engine's golden route (``use_kernel=False``) under phase 8's rule: 4
+   slots (the megakernel, slot-major while contexts fit 384 tokens, paged
+   once a 614-token request joins 8 steps in; both must run), 16 slots
+   (``int8_matmul``, slot attention, then the scatter kernel once the long
+   request joins, the fused MLP) and 4 slots with int8 KV; every launch
+   count exact. The first-step
+   logits of int8 against native weights (cosine); one int8 decode step
+   profiled (the megakernel's share); a JSON and an SSE chat through
+   ``create_local_llm_transport(weights="int8")``.
+
+Every kernel's launch count is set to 0 just before each path (3, 5, 6, 7,
+8 and 9) is driven and read just after; each kernel of a path must have launched. The
 script then prints one JSON line with every kernel's numbers, the card's
 ``nvidia-smi`` name and power limit, and as its last line
 ``{"ok": true, "device": {...}}``. Any failed check raises and the script
@@ -161,6 +186,18 @@ PAGED_INT8_TOL = 2e-2
 # differ by 0.054 on the card, so the engine checks allow twice that floor
 LLM_DRIFT = 0.1
 LLM_GAP = 2 * LLM_DRIFT
+# int8_matmul against its twin: one bf16 step where the output is bf16, plus
+# this share of the largest |output| (float32 sums of at most 3,072 exact
+# products in another order)
+INT8_MM_TOL = 1e-5
+# the fused MLP and the megakernel against their twins (outputs and the
+# megakernel's written K/V rows): one bf16 step plus this share of the
+# largest |value|. Both round the normed input, y and h to bf16; where
+# float32 sums in another order (or rsqrtf against torch.rsqrt) put one of
+# those a bf16 step apart, every product it feeds moves by that step times
+# a weight: up to ~5e-4 of the output's scale (a K row two bf16 steps apart
+# in a card test)
+INT8_LAYER_TOL = 1e-3
 
 
 def log(phase: str, seconds: float, card_line: str, **fields) -> None:
@@ -240,6 +277,32 @@ PAGED_KERNELS = {
         "cmw_rag_tpu/ops/paged_attention.py:858"}
 
 
+#: the int8-weight decode wrappers: (TPU kernel replaced, CUDA source)
+INT8_KERNELS = {
+    "int8_matmul": ("cmw_rag_tpu/ops/int8_matmul.py:59",
+                    "cmw_rag_tpu_torch/csrc/int8_matmul.cu"),
+    "paged_decode_attention_dma_slot": (
+        "cmw_rag_tpu/ops/paged_attention.py:1024",
+        "cmw_rag_tpu_torch/csrc/slot_attention.cu"),
+    "fused_mlp_int8": ("cmw_rag_tpu/ops/fused_mlp.py:101",
+                       "cmw_rag_tpu_torch/csrc/fused_mlp.cu"),
+    "decoder_layer_int8": ("cmw_rag_tpu/ops/decoder_layer.py:264",
+                           "cmw_rag_tpu_torch/csrc/decoder_layer.cu")}
+
+
+def int8_wrappers() -> dict:
+    from cmw_rag_tpu_torch.ops import decoder_layer as DL
+    from cmw_rag_tpu_torch.ops import fused_mlp as FM
+    from cmw_rag_tpu_torch.ops import int8_matmul as IM
+    from cmw_rag_tpu_torch.ops import paged_attention as PA
+
+    return {"int8_matmul": IM.int8_matmul,
+            "paged_decode_attention_dma_slot":
+                PA.paged_decode_attention_dma_slot,
+            "fused_mlp_int8": FM.fused_mlp_int8,
+            "decoder_layer_int8": DL.decoder_layer_int8}
+
+
 def reset_counts() -> None:
     from cmw_rag_tpu_torch.ops import flash_attention as F
     from cmw_rag_tpu_torch.ops import ivf_scan as V
@@ -252,6 +315,8 @@ def reset_counts() -> None:
     for name in IVF_KERNELS:
         getattr(V, name).launches = 0
     PA.reset_launches()
+    for fn in int8_wrappers().values():
+        fn.launches = 0
 
 
 def read_counts() -> dict:
@@ -264,7 +329,8 @@ def read_counts() -> dict:
             "topk_scan_int8": T.topk_scan_int8.launches,
             "flash_attention_fwd": F.total_launches(),
             **{name: getattr(V, name).launches for name in IVF_KERNELS},
-            **{name: getattr(PA, name).launches for name in PAGED_KERNELS}}
+            **{name: getattr(PA, name).launches for name in PAGED_KERNELS},
+            **{name: fn.launches for name, fn in int8_wrappers().items()}}
 
 
 # ------------------------------------------------------------------ kernels
@@ -1277,10 +1343,10 @@ def engine_phase(card_line: str) -> dict:
     return result
 
 
-def transport_phase(card_line: str) -> dict:
+def transport_phase(card_line: str, weights: str = "native") -> dict:
     """EngineLoop + the engine transport at full width with the tokenizer's
-    vocabulary: two chats sent together, one for a JSON body and one for an
-    SSE stream."""
+    vocabulary (``weights`` native or int8): two chats sent together, one
+    for a JSON body and one for an SSE stream."""
     import threading
 
     import torch
@@ -1293,7 +1359,8 @@ def transport_phase(card_line: str) -> dict:
     tok = get_tokenizer()
     llm = create_local_llm_transport(
         spec=LL.spec_with_tokenizer_vocab(), tokenizer=tok,
-        continuous_batching=True, page_size=LL.PAGE, device="cuda")
+        continuous_batching=True, page_size=LL.PAGE, weights=weights,
+        device="cuda")
     chats = {False: [{"role": "user", "content": LL.PLANTED_TEXTS[1]}],
              True: [{"role": "system", "content": "Answer briefly."},
                     {"role": "user", "content": LL.PLANTED_TEXTS[2]}]}
@@ -1353,7 +1420,8 @@ def transport_phase(card_line: str) -> dict:
               "json_usage": body["usage"], "sse_usage": last["usage"],
               "finish_reasons": [choice["finish_reason"],
                                  last["choices"][0]["finish_reason"]]}
-    log("llm-transport", time.time() - t0, card_line, vocab=result["vocab"],
+    log(f"llm-transport-{weights}", time.time() - t0, card_line,
+        vocab=result["vocab"],
         sse_events=len(events), json_usage=json.dumps(body["usage"]),
         sse_usage=json.dumps(last["usage"]))
     del llm
@@ -1372,6 +1440,482 @@ def local_llm_phase(card_line: str) -> dict:
     for name in PAGED_KERNELS:
         if launches[name] < 1:
             raise AssertionError(f"{name} was launched no time on the LLM path")
+    return {"kernels": kernels, "engine": engine, "transport": transport,
+            "launches": launches}
+
+
+# ---------------------------------------------------- int8-weight LLM path
+
+
+def int8_layers(n: int, gen, d=1024, hq=16, hkv=8, dh=128, f=3072) -> list:
+    """``n`` decoder layers at qwen3guard-0.6b's width, int8 weights
+    quantized from seeded normal weights (std 0.05) on the card, norm scales
+    near 1."""
+    import torch
+    from cmw_rag_tpu_torch.ops.int8_matmul import quantize_weight
+
+    def q8(k, m):
+        return quantize_weight(torch.randn((k, m), generator=gen,
+                                           device="cuda") * 0.05)
+
+    def norm(m):
+        return 1.0 + 0.1 * torch.randn((m,), generator=gen, device="cuda")
+
+    layers = []
+    for _ in range(n):
+        lay = {"attn_norm": norm(d), "ffn_norm": norm(d), "q_norm": norm(dh),
+               "k_norm": norm(dh)}
+        lay["wqkv_q"], lay["wqkv_s"] = q8(d, (hq + 2 * hkv) * dh)
+        lay["wo_q"], lay["wo_s"] = q8(hq * dh, d)
+        lay["w_gateup_q"], lay["w_gateup_s"] = q8(d, 2 * f)
+        lay["w_down_q"], lay["w_down_s"] = q8(f, d)
+        layers.append(lay)
+    return layers
+
+
+MLP_KEYS = ("wo_q", "wo_s", "ffn_norm", "w_gateup_q", "w_gateup_s",
+            "w_down_q", "w_down_s")
+LAYER_KEYS = ("attn_norm", "wqkv_q", "wqkv_s", "q_norm", "k_norm") + MLP_KEYS
+
+
+def library_mm(x, w_q, scale):
+    """Yardstick only, a composite: dequantize to bf16, ``torch.matmul``,
+    scale."""
+    import torch
+
+    return (torch.matmul(x.to(torch.bfloat16), w_q.to(torch.bfloat16)).float()
+            * scale).to(x.dtype)
+
+
+def library_mlp(x, attn, lay, eps=1e-6):
+    """Yardstick only, a composite of library calls for the fused MLP."""
+    import torch
+    import torch.nn.functional as Fn
+
+    f = lay["w_down_q"].shape[0]
+    x1 = x.float() + library_mm(attn, lay["wo_q"], lay["wo_s"]).float()
+    y = x1 * torch.rsqrt(x1.square().mean(-1, keepdim=True) + eps) \
+        * lay["ffn_norm"]
+    gu = library_mm(y.to(torch.bfloat16), lay["w_gateup_q"],
+                    lay["w_gateup_s"]).float()
+    h = Fn.silu(gu[:, :f]) * gu[:, f:]
+    return (x1 + library_mm(h.to(torch.bfloat16), lay["w_down_q"],
+                            lay["w_down_s"]).float()).to(x.dtype)
+
+
+def library_layer(x, c2, s2, lay, pi, off, kl, vl, tables, lens, eps=1e-6):
+    """Yardstick only, a composite of library calls for the decoder layer:
+    norms and RoPE in torch ops, dequantized ``torch.matmul`` products, the
+    rows written by index, ``scaled_dot_product_attention`` over the
+    gathered context."""
+    import torch
+
+    s, dh = x.shape[0], c2.shape[1]
+    hkv = kl.shape[2]
+    xf = x.float()
+    y = (xf * torch.rsqrt(xf.square().mean(-1, keepdim=True) + eps)
+         * lay["attn_norm"]).to(torch.bfloat16)
+    qkv = library_mm(y, lay["wqkv_q"], lay["wqkv_s"]).float()
+    hq = qkv.shape[1] // dh - 2 * hkv
+
+    def nr(t, w):
+        n = t * torch.rsqrt(t.square().mean(-1, keepdim=True) + eps) * w
+        return n * c2[:, None] + torch.roll(n, dh // 2, -1) * s2[:, None]
+
+    q = nr(qkv[:, :hq * dh].reshape(s, hq, dh), lay["q_norm"])
+    k = nr(qkv[:, hq * dh:(hq + hkv) * dh].reshape(s, hkv, dh), lay["k_norm"])
+    kl[pi.long(), off.long()] = k.to(kl.dtype)
+    vl[pi.long(), off.long()] = qkv[:, (hq + hkv) * dh:].reshape(
+        s, hkv, dh).to(vl.dtype)
+    attn = library_paged(q.to(torch.bfloat16), kl, vl, tables, lens)
+    return library_mlp(x, attn.reshape(s, hq * dh), lay, eps)
+
+
+def held(got, want, tol: float, label: str) -> dict:
+    """``got`` within one bf16 step of ``want`` (where the output is bf16;
+    the step at the larger of the two magnitudes, so that a rounding across
+    a power of two counts one step) plus ``tol`` times the largest |want|;
+    → the errors."""
+    import torch
+
+    err = (got.float() - want.float()).abs()
+    big = want.float().abs().max().item()
+    step = (bf16_step(torch.maximum(got.float().abs(), want.float().abs()))
+            if want.dtype == torch.bfloat16 else torch.zeros_like(err))
+    excess = (err - step).max().item()
+    if not bool((err <= step + tol * big).all()):
+        raise AssertionError(f"{label}: differs from the twin by "
+                             f"{err.max().item()}, {excess} past one bf16 "
+                             f"step (tolerance {tol} x {big})")
+    return {"max_abs_err": err.max().item(), "max_err_past_one_step": excess,
+            "tolerance": tol, "max_abs_want": big}
+
+
+def int8_kernel_phase(card_line: str) -> dict:
+    """Hold the four int8-path kernels against their plain twins at the
+    main path's shapes (qwen3guard-0.6b, 28 layers' weights read in turn so
+    that repeats do not find them in L2); time each, its twin and a library
+    composite."""
+    import torch
+    from cmw_rag_tpu_torch.ops import decoder_layer as DL
+    from cmw_rag_tpu_torch.ops import fused_mlp as FM
+    from cmw_rag_tpu_torch.ops import int8_matmul as IM
+    from cmw_rag_tpu_torch.ops import paged_attention as PA
+
+    n_layers, d, hq, hkv, dh, f, page, maxp = 28, 1024, 16, 8, 128, 3072, 64, 32
+    a, a3 = hq * dh, (hq + 2 * hkv) * dh
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    t0 = time.time()
+    layers = int8_layers(n_layers, gen)
+    head_q, head_s = IM.quantize_weight(
+        torch.randn((d, 151680), generator=gen, device="cuda") * 0.02)
+    log("int8-setup", time.time() - t0, card_line, layers=n_layers)
+    w_bytes = d * a3 + a * d + d * 2 * f + f * d
+    report = {}
+
+    def record(name, case, kern, plain, lib, got, want, tol, nbytes, ops,
+               shape, iters=56):
+        t1 = time.time()
+        entry = {**held(got, want, tol, f"{name} {case}"),
+                 "ms": device_ms(kern, iters), "plain_ms": device_ms(plain, 5),
+                 "library_ms": device_ms(lib, 5),
+                 "call_ms": cuda_ms(kern, iters), **bound(nbytes, ops)}
+        log(f"kernel-{name}-{case}", time.time() - t1, card_line,
+            **fmt(entry))
+        report[(name, case)] = dict(entry, shape=shape)
+
+    # int8_matmul: the fused QKV at 4 and 16 slots, the head at 4 slots
+    for case, m, n, xdt in (("qkv-s4", 4, a3, torch.bfloat16),
+                            ("head-s4", 4, 151680, torch.float32),
+                            ("qkv-s16", 16, a3, torch.bfloat16)):
+        x = torch.randn((m, d), generator=gen, device="cuda").to(xdt)
+        if case.startswith("head"):
+            ws = [(head_q, head_s)]
+        else:
+            ws = [(lay["wqkv_q"], lay["wqkv_s"]) for lay in layers]
+        kern = cycling(lambda i: IM.int8_matmul(x, *ws[i]), len(ws))
+        plain = cycling(lambda i: IM.int8_matmul_plain(x, *ws[i]), len(ws))
+        lib = cycling(lambda i: library_mm(x, *ws[i]), len(ws))
+        got, want = IM.int8_matmul(x, *ws[0]), IM.int8_matmul_plain(x, *ws[0])
+        torch.cuda.synchronize()
+        xb = x.element_size()
+        record("int8_matmul", case, kern, plain, lib, got, want, INT8_MM_TOL,
+               d * n + 4 * n + m * d * xb + m * n * xb, 2.0 * m * d * n,
+               {"M": m, "K": d, "N": n, "x": str(xdt)})
+
+    # slot attention: 4 slots at caps 2 and 6, 16 slots at cap 6, one idle
+    for case, s, lens in (("s4-cap2", 4, [1, 64, 128]),
+                          ("s4-cap6", 4, [65, 200, 384]),
+                          ("s16-cap6", 16, [1 + 25 * i for i in range(15)])):
+        cap = -(-max(lens) // page)
+        n_pages = 1 + s * maxp
+        shape = (n_layers, n_pages, page, hkv, dh)
+        kp = torch.randn(shape, generator=gen, device="cuda",
+                         dtype=torch.bfloat16)
+        vp = torch.randn(shape, generator=gen, device="cuda",
+                         dtype=torch.bfloat16)
+        q = torch.randn((s, hq, dh), generator=gen, device="cuda",
+                        dtype=torch.bfloat16)
+        lens_t = torch.tensor(lens + [1], dtype=torch.int32, device="cuda")
+        tables = PA.slot_tables(s, cap, maxp, 1, "cuda")
+
+        def kern(li):
+            return PA.paged_decode_attention_dma_slot(
+                q, kp, vp, lens_t, layer=li, cap=cap, maxp_slot=maxp)
+
+        def plain(li):
+            return PA.paged_decode_attention_slot_plain(
+                q, kp[li], vp[li], lens_t, cap, maxp)
+
+        def lib(li):
+            return library_paged(q, kp[li], vp[li], tables, lens_t)
+        got, want = kern(3), plain(3)
+        torch.cuda.synchronize()
+        pos = sum(lens) + 1
+        record("paged_decode_attention_dma_slot", case,
+               cycling(kern, n_layers), cycling(plain, n_layers),
+               cycling(lib, n_layers), got[:s - 1], want[:s - 1], PAGED_TOL,
+               2 * pos * hkv * dh * 2 + 2 * 2 * q.numel() + 4 * s,
+               4.0 * hq * dh * pos,
+               {"S": s, "Hq": hq, "Hkv": hkv, "Dh": dh, "page": page,
+                "cap": cap, "maxp_slot": maxp, "lens": lens + [1]})
+        del kp, vp
+        torch.cuda.empty_cache()
+
+    # the fused MLP at 4 and 16 slots
+    for case, s in (("s4", 4), ("s16", 16)):
+        x = torch.randn((s, d), generator=gen, device="cuda").bfloat16()
+        attn = (0.1 * torch.randn((s, a), generator=gen, device="cuda")
+                ).bfloat16()
+
+        def kern(li):
+            return FM.fused_mlp_int8(x, attn, *[layers[li][k]
+                                                for k in MLP_KEYS])
+
+        def plain(li):
+            return FM.fused_mlp_int8_plain(x, attn, *[layers[li][k]
+                                                      for k in MLP_KEYS])
+
+        def lib(li):
+            return library_mlp(x, attn, layers[li])
+        got, want = kern(0), plain(0)
+        torch.cuda.synchronize()
+        mlp_w = a * d + d * 2 * f + f * d
+        record("fused_mlp_int8", case, cycling(kern, n_layers),
+               cycling(plain, n_layers), cycling(lib, n_layers), got, want,
+               INT8_LAYER_TOL, mlp_w + 4 * (3 * d + 2 * f) + 2 * s * (2 * d + a),
+               2.0 * s * mlp_w, {"S": s, "D": d, "A": a, "F": f})
+
+    # the megakernel at 4 slots: slot-major (contexts within cap 6) and
+    # paged (one context of 2047, past the slot-major budget), one idle slot
+    for case, lens, slot in (("s4-slot", [63, 200, 384], True),
+                             ("s4-paged", [1, 700, 2047], False)):
+        s = 4
+        n_pages = 1 + s * maxp
+        shape = (n_layers, n_pages, page, hkv, dh)
+        kp = torch.randn(shape, generator=gen, device="cuda",
+                         dtype=torch.bfloat16)
+        vp = torch.randn(shape, generator=gen, device="cuda",
+                         dtype=torch.bfloat16)
+        lens_t = torch.tensor(lens + [1], dtype=torch.int32, device="cuda")
+        if slot:
+            cap = -(-max(lens) // page)
+            tables = PA.slot_tables(s, maxp, maxp, 1, "cuda")
+            kw = dict(attn_slot=True, slot_cap=cap, slot_maxp=maxp)
+        else:
+            perm = torch.randperm(n_pages - 1, generator=gen,
+                                  device="cuda") + 1
+            tables = perm[:s * maxp].reshape(s, maxp).to(torch.int32)
+            tables[-1] = 0                                # the idle slot
+            kw = dict(tables=tables)
+        pos = (lens_t - 1).long()
+        page_idx = tables.long().gather(1, (pos // page)[:, None])[:, 0]
+        page_idx[-1] = 0                                  # the idle slot
+        page_idx = page_idx.to(torch.int32)
+        off = (pos % page).to(torch.int32)
+        off[-1] = 0
+        x = torch.randn((s, d), generator=gen, device="cuda").bfloat16()
+        ang = torch.rand((s, dh // 2), generator=gen, device="cuda") * 6.28
+        c2, s2 = DL.make_rope_maps(torch.cos(ang), torch.sin(ang))
+
+        def kern(li, kp=kp, vp=vp, kw=kw):
+            return DL.decoder_layer_int8(
+                x, c2, s2, *[layers[li][k] for k in LAYER_KEYS], page_idx,
+                off, kp, vp, lens_t, layer=li, **kw)[0]
+
+        def plain(li, kp=kp, vp=vp, kw=kw):
+            return DL.decoder_layer_int8_plain(
+                x, c2, s2, *[layers[li][k] for k in LAYER_KEYS], page_idx,
+                off, kp, vp, lens_t, layer=li, **kw)[0]
+
+        def lib(li, kp=kp, vp=vp):
+            return library_layer(x, c2, s2, layers[li], page_idx, off,
+                                 kp[li], vp[li], tables if not slot else
+                                 PA.slot_tables(s, kw["slot_cap"], maxp, 1,
+                                                "cuda"), lens_t)
+        li = 5
+        k0, v0 = kp[li].clone(), vp[li].clone()
+        got = kern(li)
+        torch.cuda.synchronize()
+        k_got, v_got = kp[li].clone(), vp[li].clone()
+        kp[li].copy_(k0)
+        vp[li].copy_(v0)
+        want = plain(li)
+        rows = (page_idx.long(), off.long())
+        for label, g_pool, w_pool, before in (("k", k_got, kp[li], k0),
+                                              ("v", v_got, vp[li], v0)):
+            keep = torch.ones(g_pool.shape[:2], dtype=torch.bool,
+                              device="cuda")
+            keep[rows] = False
+            if not (torch.equal(g_pool[keep], before[keep])
+                    and torch.equal(w_pool[keep], before[keep])):
+                raise AssertionError(f"decoder_layer_int8 {case}: {label} "
+                                     f"pool rows other than the new ones "
+                                     f"changed")
+            held(g_pool[rows], w_pool[rows], INT8_LAYER_TOL,
+                 f"decoder_layer_int8 {case}: written {label} rows")
+        positions = sum(lens) + 1
+        record("decoder_layer_int8", case, cycling(kern, n_layers),
+               cycling(plain, n_layers), cycling(lib, n_layers), got[:s - 1],
+               want[:s - 1], INT8_LAYER_TOL,
+               w_bytes + 4 * (a3 + 4 * d + 2 * f + 2 * dh)
+               + 2 * 2 * s * d + 2 * 4 * s * dh
+               + 2 * positions * hkv * dh * 2 + 12 * s,
+               2.0 * s * w_bytes + 4.0 * hq * dh * positions,
+               {"S": s, "D": d, "Hq": hq, "Hkv": hkv, "Dh": dh, "F": f,
+                "page": page, "lens": lens + [1],
+                "route": "slot" if slot else "paged"})
+        del kp, vp, k0, v0, k_got, v_got
+        torch.cuda.empty_cache()
+    del layers, head_q, head_s
+    torch.cuda.empty_cache()
+    return report
+
+
+def route_recording_engine():
+    """``recording_engine`` that also keeps each decode step's route."""
+    Rec = recording_engine()
+
+    class Routes(Rec):
+        def decode_options(self, active):
+            opts = super().decode_options(active)
+            self.routes = getattr(self, "routes", [])
+            self.routes.append(opts["slot_cap"])
+            return opts
+
+    return Routes
+
+
+def int8_engine_phase(card_line: str) -> dict:
+    """The full-width engine with int8 weights, each kernel run against the
+    same engine's golden route: 4 slots (megakernel, slot-major then paged
+    attention as a 614-token request joins), 16 slots (int8_matmul, slot
+    attention, then the scatter kernel once the 614-token request joins,
+    fused MLP), 4 slots with int8 KV; the
+    first-step logits against native weights; one decode step profiled."""
+    import types
+
+    import numpy as np
+    import torch
+    from cmw_rag_tpu_torch.models import engine as E
+    from cmw_rag_tpu_torch.scripts import local_llm as LL
+
+    t0 = time.time()
+    cfg = LL.config()
+    params = LL.build_params(cfg, seed=0, device="cuda")
+    prompts = LL.chat_prompts() + [LL.long_chat_prompt()]
+    torch.cuda.synchronize()
+    log("int8-llm-setup", time.time() - t0, card_line, spec=LL.SPEC,
+        requests=len(prompts))
+    Rec = route_recording_engine()
+    # the slot-major route's page cap at this width (the TPU budget)
+    cap_max = E.SLOT_ATTN_VMEM_LIMIT // (2 * 2 * LL.PAGE * cfg.kv_heads
+                                         * cfg.hd * 2)
+    n_l = cfg.num_layers
+    kernel_names = list(INT8_KERNELS) + list(PAGED_KERNELS)
+
+    def want_s4(eng):
+        return {"decoder_layer_int8": n_l * eng.decode_steps,
+                "int8_matmul": eng.decode_steps}
+
+    def want_s16(eng):
+        slot = sum(1 for c in eng.routes if 0 < c <= cap_max)
+        return {"int8_matmul": (n_l + 1) * eng.decode_steps,
+                "fused_mlp_int8": n_l * eng.decode_steps,
+                "paged_decode_attention_dma_slot": n_l * slot,
+                "paged_decode_attention_dma_scatter":
+                    n_l * (eng.decode_steps - slot)}
+
+    def want_kv8(eng):
+        return {"int8_matmul": (n_l + 1) * eng.decode_steps,
+                "fused_mlp_int8": n_l * eng.decode_steps,
+                "paged_decode_attention_dma_kv_int8": n_l * eng.decode_steps}
+
+    def staggered(eng):
+        """The chats first, the long request 8 steps later (with 16 slots
+        it would otherwise join at once and every step would be paged)."""
+        reqs = [eng.submit(p, max_new_tokens=LL.MAX_NEW_TOKENS)
+                for p in prompts[:-1]]
+        for _ in range(8):
+            eng.step()
+        reqs.append(eng.submit(prompts[-1], max_new_tokens=LL.MAX_NEW_TOKENS))
+        eng.run_until_done(reqs)
+        return reqs
+
+    runs = [("s4", dict(), want_s4), ("s16", dict(max_slots=16), want_s16),
+            ("kv8", dict(kv_dtype="int8"), want_kv8)]
+    result = {"runs": {}}
+    for label, kw, want_fn in runs:
+        traces = {}
+        for route in ("golden", "kernel"):
+            t1 = time.time()
+            eng = LL.build_engine(params, cfg, engine_cls=Rec, weights="int8",
+                                  use_kernel=route == "kernel", **kw)
+            n0 = read_counts()
+            reqs = staggered(eng)
+            torch.cuda.synchronize()
+            wall = time.time() - t1
+            n1 = read_counts()
+            bad = [(r.rid, r.finish_reason) for r in reqs
+                   if not r.done or r.finish_reason not in ("length", "stop")]
+            if bad:
+                raise AssertionError(f"int8 {label} {route}: unfinished {bad}")
+            launches = {k: n1[k] - n0[k] for k in kernel_names}
+            want = {k: 0 for k in kernel_names}
+            if route == "kernel":
+                want.update(want_fn(eng))
+            if launches != want:
+                raise AssertionError(f"int8 {label} {route}: launches "
+                                     f"{launches}, want {want} "
+                                     f"({eng.decode_steps} decode steps)")
+            slot_steps = sum(1 for c in eng.routes if 0 < c <= cap_max)
+            run = {"decode_steps": eng.decode_steps,
+                   "slot_route_steps": slot_steps,
+                   "tokens": sum(len(r.out) for r in reqs), "wall_s": wall,
+                   "ms_per_step": 1e3 * wall / eng.decode_steps,
+                   "layer_fused": eng.layer_fused, "attn_slot": eng.attn_slot,
+                   "kernel_launches": sum(launches.values())}
+            traces[route] = types.SimpleNamespace(trace=eng.trace)
+            if route == "kernel":
+                if label != "kv8" and not 0 < slot_steps < eng.decode_steps:
+                    raise AssertionError(f"int8 {label}: {slot_steps} of "
+                                         f"{eng.decode_steps} steps slot-"
+                                         f"major; both routes must run")
+                run.update(compare_runs(traces["golden"], traces["kernel"],
+                                        f"int8 {label}"))
+            log(f"int8-llm-{label}-{route}", wall, card_line, **fmt(
+                {k: v for k, v in run.items() if k != "drift_by_step"}),
+                drift_by_step=json.dumps(run.get("drift_by_step", [])))
+            result["runs"][f"{label}-{route}"] = run
+            del eng
+            torch.cuda.empty_cache()
+    # first-step logits of int8 against native weights (golden routes)
+    t1 = time.time()
+    firsts = {}
+    for weights in ("native", "int8"):
+        eng = LL.build_engine(params, cfg, engine_cls=Rec, weights=weights,
+                              use_kernel=False)
+        LL.run_requests(eng, prompts[:6], max_new_tokens=2)
+        firsts[weights] = [eng.trace[rid][0] for rid in sorted(eng.trace)]
+        del eng
+    cos = [float(np.dot(a, b) / (np.linalg.norm(a) * np.linalg.norm(b)))
+           for a, b in zip(firsts["native"], firsts["int8"])]
+    same = sum(int(a.argmax() == b.argmax())
+               for a, b in zip(firsts["native"], firsts["int8"]))
+    result["first_step_vs_native"] = {"cosine": cos, "min_cosine": min(cos),
+                                      "same_greedy_id": same}
+    log("int8-llm-vs-native", time.time() - t1, card_line,
+        min_cosine=f"{min(cos):.6f}", same_greedy_id=f"{same}/{len(cos)}")
+    # where an int8 decode step spends its time: 4 active slots
+    t1 = time.time()
+    eng = LL.build_engine(params, cfg, weights="int8")
+    for p in prompts[:4]:
+        eng.submit(p, max_new_tokens=64)
+    for _ in range(16):
+        eng.step()
+    profile = LL.profile_decode(eng, names=LL.LAYER_KERNEL_NAMES)
+    log("int8-llm-decode-profile", time.time() - t1, card_line,
+        **fmt({k: v for k, v in profile.items()
+               if not isinstance(v, (list, dict))}))
+    result["decode_profile"] = profile
+    del eng, params
+    torch.cuda.empty_cache()
+    return result
+
+
+def int8_llm_phase(card_line: str) -> dict:
+    """Phase 9: the int8-path kernels against their twins, then the main
+    path (the engine runs and the transport) with every count set to 0
+    before it."""
+    kernels = int8_kernel_phase(card_line)
+    reset_counts()
+    engine = int8_engine_phase(card_line)
+    transport = transport_phase(card_line, weights="int8")
+    launches = read_counts()
+    for name in INT8_KERNELS:
+        if launches[name] < 1:
+            raise AssertionError(f"{name} was launched no time on the int8 "
+                                 f"LLM path")
     return {"kernels": kernels, "engine": engine, "transport": transport,
             "launches": launches}
 
@@ -1408,10 +1952,14 @@ def main() -> int:
     t_llm = time.time()
     llm = local_llm_phase(card_line)
     llm_seconds = time.time() - t_llm
+    t_int8 = time.time()
+    int8 = int8_llm_phase(card_line)
+    int8_seconds = time.time() - t_int8
 
     by_path = {"fused": fused["launches"], "long_context": long_ctx["launches"],
                "ivf": ivf["launches"], "segmented": segmented["launches"],
-               "local_llm": llm["launches"]}
+               "local_llm": llm["launches"],
+               "local_llm_int8": int8["launches"]}
     rows = []
     for name in ("topk_scan_bf16", "topk_scan_int8"):
         main_shape = scans[(name, "main")]
@@ -1491,6 +2039,31 @@ def main() -> int:
                 "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
                 "max_abs_err", "shape")}
         rows.append(row)
+    int8_cases = {"int8_matmul": ("qkv-s4", "head-s4", "qkv-s16"),
+                  "paged_decode_attention_dma_slot": ("s4-cap6", "s4-cap2",
+                                                      "s16-cap6"),
+                  "fused_mlp_int8": ("s4", "s16"),
+                  "decoder_layer_int8": ("s4-slot", "s4-paged")}
+    int8_runs = int8["engine"]["runs"]
+    for name, (replaces, source) in INT8_KERNELS.items():
+        cases = int8_cases[name]
+        main_case = int8["kernels"][(name, cases[0])]
+        row = {"name": name, "route": "cuda", "source": source,
+               "replaces": replaces,
+               "launches": sum(p[name] for p in by_path.values()),
+               "launches_by_path": {p: c[name] for p, c in by_path.items()},
+               "decode_steps_by_run": {r: v["decode_steps"]
+                                       for r, v in int8_runs.items()},
+               "max_abs_err": max(int8["kernels"][(name, c)]["max_abs_err"]
+                                  for c in cases)}
+        row.update({k: main_case[k] for k in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "max_err_past_one_step", "tolerance", "shape")})
+        for case in cases[1:]:
+            row[case] = {k: int8["kernels"][(name, case)][k] for k in (
+                "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+                "max_abs_err", "shape")}
+        rows.append(row)
     print(json.dumps({"kernels": rows, "pipeline_qps": fused["qps"],
                       "card_vs_cpu": card_cpu,
                       "long_context": {k: v for k, v in long_ctx.items()
@@ -1503,6 +2076,9 @@ def main() -> int:
                       "local_llm": {"engine": llm["engine"],
                                     "transport": llm["transport"]},
                       "local_llm_phase_seconds": round(llm_seconds, 3),
+                      "local_llm_int8": {"engine": int8["engine"],
+                                         "transport": int8["transport"]},
+                      "local_llm_int8_phase_seconds": round(int8_seconds, 3),
                       "seconds": round(time.time() - t_all, 3),
                       "card": card_line}), flush=True)
     print(card_line, flush=True)

@@ -1,0 +1,566 @@
+// Device code shared by the int8-weight decode kernels for Hopper (sm_90a):
+// csrc/int8_matmul.cu, csrc/slot_attention.cu, csrc/fused_mlp.cu and
+// csrc/decoder_layer.cu. Each source includes this header; the build hashes
+// it with each (ops/cuda_build.py).
+//
+// Two building blocks:
+//
+// int8_tile - one block computes a [MT rows, kBN columns] tile of
+//   act [M, K] @ w_int8 [K, N] over a contiguous range of the contraction,
+//   float32 sums, before the column scale. Weight rows stream through a
+//   kStages-deep cp.async ring in shared memory (kBK rows x kBN bytes a
+//   stage, 16-byte copies, coalesced along N); activations come from a
+//   caller-supplied loader that returns each element already rounded to bf16
+//   (the TPU kernels' MXU operand), so norms, casts and the SiLU product are
+//   computed as they are loaded and need no buffer of their own. 256 threads:
+//   16 across the columns (4 each) times 16 row subsets; the subsets' sums
+//   meet in shared memory at the end, in a fixed order, so results repeat
+//   bit for bit. Decode products have M <= 32 rows and are bound by the
+//   weight bytes (an int8 weight is used M times, far under the ~295
+//   operations a byte where the card turns compute-bound), so the tile's
+//   aim is bytes in flight: 12 KB a block in the ring, several blocks a SM.
+//   int8 -> float conversion and float32 FMAs on the CUDA cores; wgmma and
+//   TMA are later work.
+//
+// attend - one block computes decode attention for one (slot, KV head):
+//   the rep = Hq / Hkv query heads of that KV head over the slot's positions
+//   p < len, position p in page page_of(p / page), row p % page. Scores are
+//   float32 (q . k) / sqrt(Dh) kept in shared memory for a chunk of positions
+//   at a time; softmax runs over the chunk with a running max and sum, so a
+//   context that fits one chunk (every slot-major call: the TPU budget stops
+//   it at 384 positions at qwen3guard-0.6b's width) is the TPU kernel's
+//   single pass, with no rescaling. o = sum p v / sum p in float32. Rows at
+//   or past len are never read, so stale or NaN rows cannot leak (the TPU
+//   zeroes them with a where). 16-byte loads (8 bf16), Dh / 8 threads a row,
+//   4 rows in flight per thread. Pool rows are read with ld.global.cg: the
+//   decoder-layer megakernel writes this step's row earlier in the same
+//   launch, and L1 is not coherent across SMs.
+//
+// mlp_phases - wo -> residual -> RMSNorm -> gate/up -> SiLU * up -> down ->
+//   residual, the fused MLP (csrc/fused_mlp.cu) and the back half of the
+//   megakernel (csrc/decoder_layer.cu), as phases of ONE cooperative launch
+//   separated by grid barriers: a TPU grid runs its steps in order, a GPU
+//   grid does not, so the order the TPU kernel gets from its grid comes from
+//   the barriers here. Each product is split over columns and over the
+//   contraction so that every block streams weights; the splits' float32
+//   partial sums are added in split order by the next phase (no float
+//   atomics: runs repeat bit for bit). Data written in the launch is read
+//   back with ld.global.cg.
+
+#pragma once
+
+#include <cooperative_groups.h>
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace i8d {
+
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr int kBN = 64;                       // tile columns
+constexpr int kColGroups = kBN / 4;           // threads across the columns
+constexpr int kKSub = kThreads / kColGroups;  // row subsets
+constexpr int kBK = 64;                       // weight rows a stage
+constexpr int kStages = 4;
+constexpr int kWBytes = kStages * kBK * kBN;  // 16 KB weight ring
+constexpr int kMaxRep = 8;                    // query heads a KV head
+constexpr int kAttnChunk = 1024;              // positions of scores kept
+constexpr int kAttnUnroll = 4;                // rows in flight per thread
+constexpr int kMaxRows = 256;                 // activation rows (norm scratch)
+
+static_assert(kKSub * 4 * kBN * 4 == kWBytes, "reduction reuses the ring");
+
+__device__ __forceinline__ float bf16r(float v) {
+  return __bfloat162float(__float2bfloat16(v));
+}
+
+__device__ __forceinline__ float to_f(float v) { return v; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+__device__ __forceinline__ void from_f(float v, float* dst) { *dst = v; }
+__device__ __forceinline__ void from_f(float v, __nv_bfloat16* dst) {
+  *dst = __float2bfloat16(v);
+}
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
+               "l"(gmem));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+// Shared-memory bytes of int8_tile<MT>.
+__host__ __device__ constexpr int tile_smem(int mt) {
+  return kWBytes + kStages * kBK * mt * 4;
+}
+
+// Sums over k in [k0, k1) (a multiple of kBK) of act(m, k) * w[k, n] for
+// rows m0 <= m < min(m0 + MT, m_rows) and columns col0 <= n < col0 + kBN,
+// n < n_cols (n_cols a multiple of 16); calls epi(m, n, sum) for each.
+// load(m, k) returns the bf16-rounded activation. Uses tile_smem(MT) bytes
+// of smem; every thread of the block must call it.
+template <int MT, class Load, class Epi>
+__device__ void int8_tile(const int8_t* w, int n_cols, int col0, int k0,
+                          int k1, int m0, int m_rows, const Load& load,
+                          const Epi& epi, unsigned char* smem) {
+  static_assert(MT % 4 == 0, "MT is a multiple of 4");
+  int8_t* w_s = reinterpret_cast<int8_t*>(smem);
+  float* x_s = reinterpret_cast<float*>(smem + kWBytes);
+  const int tid = threadIdx.x;
+  const int colg = tid % kColGroups, sub = tid / kColGroups;
+  const int n_iter = (k1 - k0) / kBK;
+
+  auto issue = [&](int it) {
+    const int stage = it % kStages;
+    const int kb = k0 + it * kBK;
+    for (int c = tid; c < kBK * kBN / 16; c += kThreads) {
+      const int r = c / (kBN / 16), cc = (c % (kBN / 16)) * 16;
+      int8_t* dst = w_s + (stage * kBK + r) * kBN + cc;
+      if (col0 + cc < n_cols)
+        cp_async16(dst, w + static_cast<int64_t>(kb + r) * n_cols + col0 + cc);
+      else
+        *reinterpret_cast<uint4*>(dst) = make_uint4(0u, 0u, 0u, 0u);
+    }
+    for (int e = tid; e < kBK * MT; e += kThreads) {
+      const int r = e / MT, m = e % MT;
+      x_s[(stage * kBK + r) * MT + m] =
+          m0 + m < m_rows ? load(m0 + m, kb + r) : 0.f;
+    }
+  };
+
+  float acc[MT][4];
+#pragma unroll
+  for (int m = 0; m < MT; ++m)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[m][j] = 0.f;
+
+#pragma unroll
+  for (int st = 0; st < kStages - 1; ++st) {
+    if (st < n_iter) issue(st);
+    cp_async_commit();
+  }
+  for (int it = 0; it < n_iter; ++it) {
+    cp_async_wait<kStages - 2>();
+    __syncthreads();  // stage it landed; everyone finished stage it - 1
+    if (it + kStages - 1 < n_iter) issue(it + kStages - 1);
+    cp_async_commit();
+    const int stage = it % kStages;
+    const int8_t* ws = w_s + stage * kBK * kBN;
+    const float* xs = x_s + stage * kBK * MT;
+#pragma unroll
+    for (int r = sub; r < kBK; r += kKSub) {
+      const int wv = *reinterpret_cast<const int*>(ws + r * kBN + colg * 4);
+      float wf[4];
+      wf[0] = static_cast<float>(static_cast<int8_t>(wv));
+      wf[1] = static_cast<float>(static_cast<int8_t>(wv >> 8));
+      wf[2] = static_cast<float>(static_cast<int8_t>(wv >> 16));
+      wf[3] = static_cast<float>(static_cast<int8_t>(wv >> 24));
+#pragma unroll
+      for (int m = 0; m < MT; m += 4) {
+        const float4 xv = *reinterpret_cast<const float4*>(xs + r * MT + m);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          acc[m][j] = fmaf(xv.x, wf[j], acc[m][j]);
+          acc[m + 1][j] = fmaf(xv.y, wf[j], acc[m + 1][j]);
+          acc[m + 2][j] = fmaf(xv.z, wf[j], acc[m + 2][j]);
+          acc[m + 3][j] = fmaf(xv.w, wf[j], acc[m + 3][j]);
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+
+  // the 16 row subsets meet in the (now idle) weight ring, 4 rows at a time
+  float* red = reinterpret_cast<float*>(smem);
+#pragma unroll
+  for (int mc = 0; mc < MT; mc += 4) {
+#pragma unroll
+    for (int mm = 0; mm < 4; ++mm)
+      *reinterpret_cast<float4*>(red + (sub * 4 + mm) * kBN + colg * 4) =
+          make_float4(acc[mc + mm][0], acc[mc + mm][1], acc[mc + mm][2],
+                      acc[mc + mm][3]);
+    __syncthreads();
+    {
+      const int mm = tid / kBN, c = tid % kBN;
+      float sum = 0.f;
+#pragma unroll
+      for (int u = 0; u < kKSub; ++u) sum += red[(u * 4 + mm) * kBN + c];
+      const int m = m0 + mc + mm, n = col0 + c;
+      if (m < m_rows && n < n_cols) epi(m, n, sum);
+    }
+    __syncthreads();
+  }
+}
+
+// Shared-memory bytes of attend<DH>.
+__host__ __device__ constexpr int attend_smem(int dh) {
+  return (kMaxRep * dh + kMaxRep * kAttnChunk + 3 * kMaxRep +
+          (kThreads / (dh / 8)) * dh) * 4;
+}
+
+// Slot-major page map: slot s's logical page j at base + j.
+struct SlotPages {
+  int64_t base;
+  __device__ int64_t operator()(int j) const { return base + j; }
+};
+
+// Paged map: a row of the block table.
+struct TablePages {
+  const int* row;
+  __device__ int64_t operator()(int j) const { return row[j]; }
+};
+
+// One (slot, KV head g): q [Hq, DH] of the slot (float or bf16), pools of
+// one layer [P, page, hkv, DH] bf16, out [Hq, DH] of the slot. Every thread
+// of the block must call it. Uses attend_smem(DH) bytes of smem.
+template <int DH, typename TQ, typename TO, class PageOf>
+__device__ void attend(const TQ* q, int g, int rep,
+                       const __nv_bfloat16* k_pool,
+                       const __nv_bfloat16* v_pool, int hkv, int page,
+                       const PageOf& page_of, int len, TO* out, float* smem) {
+  constexpr int E = 8;           // bf16 values in 16 bytes
+  constexpr int TPR = DH / E;    // threads a row
+  constexpr int NG = kThreads / TPR;  // rows a pass
+  static_assert(32 % TPR == 0, "a row's threads share a warp");
+  float* q_s = smem;                        // [kMaxRep][DH]
+  float* sc = q_s + kMaxRep * DH;           // [kMaxRep][kAttnChunk]
+  float* m_sh = sc + kMaxRep * kAttnChunk;  // [kMaxRep]
+  float* l_sh = m_sh + kMaxRep;
+  float* a_sh = l_sh + kMaxRep;
+  float* red = a_sh + kMaxRep;              // [NG][DH]
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int c = tid % TPR, rg = tid / TPR;
+  const int64_t row_stride = static_cast<int64_t>(hkv) * DH;
+  const int64_t page_stride = row_stride * page;
+  const float inv_sqrt = rsqrtf(static_cast<float>(DH));
+
+  for (int i = tid; i < rep * DH; i += kThreads)
+    q_s[i] = to_f(__ldcg(q + static_cast<int64_t>(g) * rep * DH + i));
+  if (tid < kMaxRep) {
+    m_sh[tid] = -INFINITY;
+    l_sh[tid] = 0.f;
+  }
+  float acc[kMaxRep][E];
+#pragma unroll
+  for (int r = 0; r < kMaxRep; ++r)
+#pragma unroll
+    for (int e = 0; e < E; ++e) acc[r][e] = 0.f;
+  __syncthreads();
+
+  auto row_at = [&](int p) -> int64_t {
+    return page_of(p / page) * page_stride + (p % page) * row_stride +
+           g * DH + c * E;
+  };
+
+  for (int c0 = 0; c0 < len; c0 += kAttnChunk) {
+    const int rows = min(kAttnChunk, len - c0);
+    for (int i0 = 0; i0 < rows; i0 += NG * kAttnUnroll) {
+      uint4 raw[kAttnUnroll];
+#pragma unroll
+      for (int u = 0; u < kAttnUnroll; ++u) {
+        const int p = i0 + u * NG + rg;
+        raw[u] = p < rows ? __ldcg(reinterpret_cast<const uint4*>(
+                                k_pool + row_at(c0 + p)))
+                          : make_uint4(0u, 0u, 0u, 0u);
+      }
+#pragma unroll
+      for (int u = 0; u < kAttnUnroll; ++u) {
+        const __nv_bfloat162* h2 =
+            reinterpret_cast<const __nv_bfloat162*>(&raw[u]);
+        float kf[E];
+#pragma unroll
+        for (int e = 0; e < E / 2; ++e) {
+          const float2 t = __bfloat1622float2(h2[e]);
+          kf[2 * e] = t.x;
+          kf[2 * e + 1] = t.y;
+        }
+        const int p = i0 + u * NG + rg;
+#pragma unroll
+        for (int r = 0; r < kMaxRep; ++r) {
+          if (r < rep) {
+            const float* qr = q_s + r * DH + c * E;
+            float d = 0.f;
+#pragma unroll
+            for (int e = 0; e < E; ++e) d = fmaf(qr[e], kf[e], d);
+#pragma unroll
+            for (int o = TPR / 2; o > 0; o >>= 1)
+              d += __shfl_xor_sync(0xffffffffu, d, o);
+            if (c == 0 && p < rows) sc[r * kAttnChunk + p] = d * inv_sqrt;
+          }
+        }
+      }
+    }
+    __syncthreads();
+
+    for (int r = warp; r < rep; r += kWarps) {
+      float* sr = sc + r * kAttnChunk;
+      float mx = -INFINITY;
+      for (int i = lane; i < rows; i += 32) mx = fmaxf(mx, sr[i]);
+      mx = warp_max(mx);
+      const float m_old = m_sh[r];
+      const float m_new = fmaxf(m_old, mx);
+      float sum = 0.f;
+      for (int i = lane; i < rows; i += 32) {
+        const float pr = expf(sr[i] - m_new);
+        sr[i] = pr;
+        sum += pr;
+      }
+      sum = warp_sum(sum);
+      if (lane == 0) {
+        const float alpha = m_old == -INFINITY ? 0.f : expf(m_old - m_new);
+        m_sh[r] = m_new;
+        l_sh[r] = l_sh[r] * alpha + sum;
+        a_sh[r] = alpha;
+      }
+    }
+    __syncthreads();
+
+#pragma unroll
+    for (int r = 0; r < kMaxRep; ++r) {
+      if (r < rep) {
+        const float al = a_sh[r];
+#pragma unroll
+        for (int e = 0; e < E; ++e) acc[r][e] *= al;
+      }
+    }
+    for (int i0 = 0; i0 < rows; i0 += NG * kAttnUnroll) {
+      uint4 raw[kAttnUnroll];
+#pragma unroll
+      for (int u = 0; u < kAttnUnroll; ++u) {
+        const int p = i0 + u * NG + rg;
+        raw[u] = p < rows ? __ldcg(reinterpret_cast<const uint4*>(
+                                v_pool + row_at(c0 + p)))
+                          : make_uint4(0u, 0u, 0u, 0u);
+      }
+#pragma unroll
+      for (int u = 0; u < kAttnUnroll; ++u) {
+        const int p = i0 + u * NG + rg;
+        if (p < rows) {  // rows past the length are skipped, not weighted 0
+          const __nv_bfloat162* h2 =
+              reinterpret_cast<const __nv_bfloat162*>(&raw[u]);
+          float vf[E];
+#pragma unroll
+          for (int e = 0; e < E / 2; ++e) {
+            const float2 t = __bfloat1622float2(h2[e]);
+            vf[2 * e] = t.x;
+            vf[2 * e + 1] = t.y;
+          }
+#pragma unroll
+          for (int r = 0; r < kMaxRep; ++r) {
+            if (r < rep) {
+              const float pr = sc[r * kAttnChunk + p];
+#pragma unroll
+              for (int e = 0; e < E; ++e) acc[r][e] = fmaf(pr, vf[e], acc[r][e]);
+            }
+          }
+        }
+      }
+    }
+    __syncthreads();  // the next chunk overwrites sc
+  }
+
+#pragma unroll
+  for (int r = 0; r < kMaxRep; ++r) {
+    if (r < rep) {
+#pragma unroll
+      for (int e = 0; e < E; ++e) red[rg * DH + c * E + e] = acc[r][e];
+      __syncthreads();
+      for (int d = tid; d < DH; d += kThreads) {
+        float sum = 0.f;
+        for (int i = 0; i < NG; ++i) sum += red[i * DH + d];
+        from_f(sum / fmaxf(l_sh[r], 1e-30f),
+               out + (static_cast<int64_t>(g) * rep + r) * DH + d);
+      }
+      __syncthreads();
+    }
+  }
+}
+
+// Work items of a split product: m tiles x column tiles x contraction splits.
+struct Split {
+  int m_tiles, col_tiles, ks, k_per;
+  __device__ int items() const { return m_tiles * col_tiles * ks; }
+};
+
+__device__ __forceinline__ Split make_split(int m, int mt, int n, int k,
+                                            int ks) {
+  return Split{(m + mt - 1) / mt, (n + kBN - 1) / kBN, ks, k / ks};
+}
+
+// Runs item `it` of a split product into partial [ks][m][n] (pre-scale
+// float32 sums) through int8_tile.
+template <int MT, class Load>
+__device__ void split_item(const Split& sp, int it, const int8_t* w, int n,
+                           int m, const Load& load, float* partial,
+                           unsigned char* smem) {
+  const int ks = it % sp.ks;
+  const int ct = (it / sp.ks) % sp.col_tiles;
+  const int mt = it / (sp.ks * sp.col_tiles);
+  float* dst = partial + static_cast<int64_t>(ks) * m * n;
+  int8_tile<MT>(w, n, ct * kBN, ks * sp.k_per, (ks + 1) * sp.k_per, mt * MT,
+                m, load,
+                [&](int mm, int nn, float v) {
+                  dst[static_cast<int64_t>(mm) * n + nn] = v;
+                },
+                smem);
+}
+
+// Sum over the ks splits of partial [ks][m][n] at (mm, nn), in split order.
+__device__ __forceinline__ float split_sum(const float* partial, int ks, int m,
+                                           int n, int mm, int nn) {
+  float sum = 0.f;
+  for (int i = 0; i < ks; ++i)
+    sum += __ldcg(partial + (static_cast<int64_t>(i) * m + mm) * n + nn);
+  return sum;
+}
+
+// Every row's 1 / sqrt(mean(x^2) + eps) into rstd[m] (one warp a row).
+template <typename TX>
+__device__ void row_rstd(const TX* x, int m, int d, float eps, float* rstd) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int r = warp; r < m; r += kWarps) {
+    float ss = 0.f;
+    for (int i = lane; i < d; i += 32) {
+      const float v = to_f(x[static_cast<int64_t>(r) * d + i]);
+      ss += v * v;
+    }
+    ss = warp_sum(ss);
+    if (lane == 0) rstd[r] = rsqrtf(ss / static_cast<float>(d) + eps);
+  }
+}
+
+namespace cg = cooperative_groups;
+
+// Sum of v over the block (every thread gets it); scratch holds kWarps floats.
+__device__ __forceinline__ float block_sum(float v, float* scratch) {
+  v = warp_sum(v);
+  if ((threadIdx.x & 31) == 0) scratch[threadIdx.x >> 5] = v;
+  __syncthreads();
+  float total = 0.f;
+#pragma unroll
+  for (int i = 0; i < kWarps; ++i) total += scratch[i];
+  __syncthreads();
+  return total;
+}
+
+struct MlpArgs {
+  const __nv_bfloat16* x;  // [S, D] residual in
+  const int8_t* wo_q;      // [A, D]
+  const float* wo_s;       // [D]
+  const float* fnw;        // [D] FFN norm
+  const int8_t* gu_q;      // [D, 2F], gate columns first
+  const float* gu_s;       // [2F]
+  const int8_t* dn_q;      // [F, D]
+  const float* dn_s;       // [D]
+  int s, d, a, f;
+  float eps;
+  int ks_wo, ks_gu, ks_dn;  // contraction splits
+  float* part_a;  // >= max(ks_wo, ks_dn) * S * D floats
+  float* part_b;  // ks_gu * S * 2F floats
+  float* x1;      // [S, D] residual after wo
+  float* ybuf;    // [S, D] bf16-rounded FFN input
+  __nv_bfloat16* out;  // [S, D]
+};
+
+// The fused MLP over an attention output read by load_attn(m, k) (already
+// rounded to bf16). Every block of the cooperative grid calls it.
+template <int MT, class LoadA>
+__device__ void mlp_phases(const MlpArgs& p, const LoadA& load_attn,
+                           unsigned char* smem, cg::grid_group& grid) {
+  __shared__ float scratch[kWarps];
+  const int tid = threadIdx.x;
+  // wo: partial sums of attn @ wo
+  const Split wo = make_split(p.s, MT, p.d, p.a, p.ks_wo);
+  for (int it = blockIdx.x; it < wo.items(); it += gridDim.x)
+    split_item<MT>(wo, it, p.wo_q, p.d, p.s, load_attn, p.part_a, smem);
+  grid.sync();
+  // x1 = x + (attn @ wo) * wo_s in float32, then the FFN norm, one block a row
+  for (int m = blockIdx.x; m < p.s; m += gridDim.x) {
+    float ss = 0.f;
+    for (int n = tid; n < p.d; n += kThreads) {
+      const int64_t i = static_cast<int64_t>(m) * p.d + n;
+      const float v = to_f(p.x[i]) +
+                      split_sum(p.part_a, p.ks_wo, p.s, p.d, m, n) * p.wo_s[n];
+      p.x1[i] = v;
+      ss += v * v;
+    }
+    const float r = rsqrtf(block_sum(ss, scratch) / static_cast<float>(p.d) +
+                           p.eps);
+    for (int n = tid; n < p.d; n += kThreads) {
+      const int64_t i = static_cast<int64_t>(m) * p.d + n;
+      p.ybuf[i] = bf16r(p.x1[i] * r * p.fnw[n]);
+    }
+  }
+  grid.sync();
+  // gate/up: partial sums of y @ w_gateup
+  const int f2 = 2 * p.f;
+  const Split gu = make_split(p.s, MT, f2, p.d, p.ks_gu);
+  auto load_y = [&](int m, int k) {
+    return __ldcg(p.ybuf + static_cast<int64_t>(m) * p.d + k);
+  };
+  for (int it = blockIdx.x; it < gu.items(); it += gridDim.x)
+    split_item<MT>(gu, it, p.gu_q, f2, p.s, load_y, p.part_b, smem);
+  grid.sync();
+  // down: h = bf16(silu(g) * u) is formed as it is loaded
+  const Split dn = make_split(p.s, MT, p.d, p.f, p.ks_dn);
+  auto load_h = [&](int m, int k) {
+    const float g =
+        split_sum(p.part_b, p.ks_gu, p.s, f2, m, k) * p.gu_s[k];
+    const float u =
+        split_sum(p.part_b, p.ks_gu, p.s, f2, m, p.f + k) * p.gu_s[p.f + k];
+    return bf16r(g * (1.f / (1.f + expf(-g))) * u);
+  };
+  for (int it = blockIdx.x; it < dn.items(); it += gridDim.x)
+    split_item<MT>(dn, it, p.dn_q, p.d, p.s, load_h, p.part_a, smem);
+  grid.sync();
+  // out = x1 + (h @ down) * down_s
+  const int64_t total = static_cast<int64_t>(p.s) * p.d;
+  for (int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + tid;
+       i < total; i += static_cast<int64_t>(gridDim.x) * kThreads) {
+    const int m = static_cast<int>(i / p.d), n = static_cast<int>(i % p.d);
+    p.out[i] = __float2bfloat16(
+        __ldcg(p.x1 + i) +
+        split_sum(p.part_a, p.ks_dn, p.s, p.d, m, n) * p.dn_s[n]);
+  }
+}
+
+// Blocks of a cooperative launch of kern: all that fit on the card at once.
+template <class K>
+int cooperative_blocks(K kern, int smem) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return -static_cast<int>(err);
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
+      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                    dev)) != cudaSuccess ||
+      (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+           &per_sm, kern, kThreads, smem)) != cudaSuccess)
+    return -static_cast<int>(err);
+  return per_sm * sms;
+}
+
+}  // namespace i8d

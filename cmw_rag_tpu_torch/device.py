@@ -2,6 +2,7 @@
 
 from __future__ import annotations
 
+import functools
 from pathlib import Path
 
 import torch
@@ -22,6 +23,27 @@ def on_cpu(*tensors: torch.Tensor) -> bool:
         raise ValueError(f"inputs must share one device, got "
                          f"{[str(t.device) for t in tensors]}")
     return False
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device: torch.device) -> int:
+    """Streaming multiprocessors of a CUDA device (grid sizing)."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def need(t: torch.Tensor, name: str, dtype, shape) -> None:
+    """Raise unless ``t`` has ``dtype`` (one dtype or a tuple of them),
+    ``shape`` and a contiguous, 16-byte aligned layout: what a kernel
+    wrapper checks before it hands a pointer to its kernel."""
+    dtypes = dtype if isinstance(dtype, tuple) else (dtype,)
+    if t.dtype not in dtypes:
+        raise TypeError(f"{name}: dtype {t.dtype}, expected "
+                        f"{' or '.join(str(d) for d in dtypes)}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected "
+                         f"{tuple(shape)}")
+    if not t.is_contiguous() or t.data_ptr() % 16:
+        raise ValueError(f"{name} must be contiguous and 16-byte aligned")
 
 
 def resolve_device(device: str | torch.device = "cuda") -> torch.device:

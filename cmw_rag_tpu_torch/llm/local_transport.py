@@ -176,6 +176,7 @@ def create_local_llm_transport(spec: Optional[GuardModelSpec] = None,
                                checkpoint: Optional[str] = None,
                                weights: str = "native",
                                kv_dtype: str = "native",
+                               layer_fused: Optional[bool] = None,
                                device: str | torch.device = "cuda") -> LocalLLM:
     """The engine-building half of the JAX package's
     ``create_local_llm_manager`` (``local_transport.py:188-217``): the spec
@@ -185,7 +186,9 @@ def create_local_llm_transport(spec: Optional[GuardModelSpec] = None,
     given or loaded from ``checkpoint`` (an npz in the JAX layout); with
     ``continuous_batching`` a ``PagedLLMEngine`` behind a started
     ``EngineLoop`` serves the transport, else one ``generate`` call per
-    request. The other half, wrapping the transport in an ``LLMManager``,
+    request. ``layer_fused`` folds as the JAX factory folds it: on only
+    with the kernel route and int8 weights, ``None`` keeps the engine's
+    default. The other half, wrapping the transport in an ``LLMManager``,
     waits for the port's manager, whose request and response schemas need
     pydantic (``ROADMAP.md`` Queue 1 item 13); hence this name and the
     ``LocalLLM`` it returns instead of a manager."""
@@ -207,9 +210,13 @@ def create_local_llm_transport(spec: Optional[GuardModelSpec] = None,
     if not continuous_batching:
         return LocalLLM(make_local_transport(params, cfg, tokenizer,
                                              max_len=max_len), cfg, params)
-    engine = PagedLLMEngine(params, cfg, tokenizer, max_slots=max_slots,
-                            page_size=page_size, max_ctx=max_len,
-                            use_kernel=use_kernel, weights=weights,
-                            kv_dtype=kv_dtype, device=dev)
+    if use_kernel is None:
+        use_kernel = dev.type == "cuda"
+    engine = PagedLLMEngine(
+        params, cfg, tokenizer, max_slots=max_slots, page_size=page_size,
+        max_ctx=max_len, use_kernel=use_kernel, weights=weights,
+        kv_dtype=kv_dtype, device=dev,
+        layer_fused=(None if layer_fused is None else
+                     (layer_fused and use_kernel and weights == "int8")))
     loop = EngineLoop(engine).start()
     return LocalLLM(make_engine_transport(loop, tokenizer), cfg, params, loop)

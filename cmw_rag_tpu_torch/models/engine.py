@@ -23,11 +23,22 @@ join the decode batch the moment a slot frees.
 
 The pools and scales are updated in place where the JAX package donates
 them. Numerics are those of ``models/generate.py``; the logits are float32
-products of the final hidden state and the tied embedding. Not ported yet:
-int8 or w8a8 weights and the kernels only they run (``mlp_fused``,
-``layer_fused``, ``attn_slot``), cross-slot batched attention
-(``attn_batched``) and the perf ablations (``ablate``); asking for any of
-them raises ``NotImplementedError`` (``ROADMAP.md`` Queue 2 #5-#9).
+products of the final hidden state and the tied embedding.
+
+With ``weights="int8"`` the parameters are quantized at construction
+(``models/quantize``): prefill dequantizes a layer at a time and runs the
+full-precision layer math, and the head is the float32 golden of
+``int8_matmul``; decode runs the int8 kernels the JAX engine picks. At most
+8 slots, one decoder-layer megakernel launch a layer
+(``ops/decoder_layer``, ``layer_fused``) with slot-major attention over the
+partitioned pool (``attn_slot``) while each slot's context fits
+``SLOT_ATTN_VMEM_LIMIT``, paged attention past it. Past 8 slots, the fused
+QKV ``int8_matmul``, slot-major attention (or, past the limit, the scatter
+kernel) and the fused MLP (``ops/fused_mlp``, ``mlp_fused``). The head is
+``int8_matmul`` on every int8 step. Not ported yet, each raising
+``NotImplementedError`` that names ``ROADMAP.md``: ``weights="w8a8"``,
+``layer_fused`` with int8 KV pages, cross-slot batched attention
+(``attn_batched``) and the perf ablations (``ablate``).
 """
 
 from __future__ import annotations
@@ -50,11 +61,18 @@ from cmw_rag_tpu_torch.models.generate import (DEFAULT_STOP, _head,
                                                _layer_forward, _write_kv,
                                                embed, matmul_f32)
 from cmw_rag_tpu_torch.models.qwen3 import Qwen3Config
+from cmw_rag_tpu_torch.models.quantize import (dequantize_layer,
+                                               quantize_qwen3_params)
+from cmw_rag_tpu_torch.ops.decoder_layer import (decoder_layer_int8,
+                                                 make_rope_maps)
+from cmw_rag_tpu_torch.ops.fused_mlp import fused_mlp_int8
+from cmw_rag_tpu_torch.ops.int8_matmul import int8_matmul, int8_matmul_xla
 from cmw_rag_tpu_torch.ops.paged_attention import (
     KV_HEADROOM,
     paged_decode_attention_dma,
     paged_decode_attention_dma_kv_int8,
     paged_decode_attention_dma_scatter,
+    paged_decode_attention_dma_slot,
     paged_decode_attention_xla,
     paged_decode_attention_xla_kv_int8,
     quantize_kv_page,
@@ -63,8 +81,12 @@ from cmw_rag_tpu_torch.ops.paged_attention import (
 
 logger = logging.getLogger(__name__)
 
-_INT8_WEIGHTS = ("int8 weights and the kernels they run are not ported: "
-                 "ROADMAP.md Queue 2 #5-#8")
+# The TPU's scoped-VMEM budget for the slot-major attention's K and V context
+# buffers (n_buf x cap x page x Hkv x Dh each, JAX engine.py:57-61). Hopper
+# has no such budget; the port keeps it so that it takes the route the
+# reference takes (at qwen3guard-0.6b's width: slot-major up to cap 6, 384
+# tokens). Lifting it on the card is later work (ROADMAP.md).
+SLOT_ATTN_VMEM_LIMIT = 3 * 2 ** 20
 
 
 def _rope_rows(x, cos, sin):
@@ -87,14 +109,30 @@ def _write_pages(pool, scale, li, pages, blocks, kv_int8):
         pool[li, pages] = blocks.to(pool.dtype)
 
 
+def _layers(params, cfg: Qwen3Config, weights_int8: bool):
+    """The layers in the full-precision layout: int8 ones dequantized one at
+    a time (prefill is one pass per admission)."""
+    for layer in params["layers"]:
+        yield dequantize_layer(layer, cfg.dtype, cfg) if weights_int8 else layer
+
+
+def _prefill_logits(params, cfg: Qwen3Config, h, weights_int8: bool):
+    """float32 logits [V] of the final hidden state h [D]."""
+    if weights_int8:
+        return int8_matmul_xla(h[None].float(), params["head_q"],
+                               params["head_s"])[0, :cfg.vocab_size]
+    return matmul_f32(h, _head(params, cfg))
+
+
 @torch.no_grad()
 def _paged_prefill(params, k_pool, v_pool, k_scale, v_scale, ids, true_len,
-                   table_row, cfg: Qwen3Config, kv_int8: bool = False):
+                   table_row, cfg: Qwen3Config, kv_int8: bool = False,
+                   weights_int8: bool = False):
     """Dense forward over right-padded ids [1, T] (T a page multiple); writes
     K/V for all T positions into the pages ``table_row`` [T // page] (rows at
     or past ``true_len`` are garbage, masked later by the lengths); → float32
     logits at ``true_len - 1`` [V]. The pools and scales are written in
-    place."""
+    place. With ``weights_int8`` each layer is dequantized for the pass."""
     _, t = ids.shape
     page = k_pool.shape[2]
     hkv, dh = cfg.kv_heads, cfg.hd
@@ -106,7 +144,7 @@ def _paged_prefill(params, k_pool, v_pool, k_scale, v_scale, ids, true_len,
     pages = table_row.long()
     kc = torch.zeros((1, t, hkv, dh), dtype=cfg.dtype, device=dev)
     vc = torch.zeros((1, t, hkv, dh), dtype=cfg.dtype, device=dev)
-    for li, layer in enumerate(params["layers"]):
+    for li, layer in enumerate(_layers(params, cfg, weights_int8)):
         _write_kv(layer, cfg, x, cos, sin, kc, vc, 0)
         x = _layer_forward(layer, cfg, x, cos, sin, kc, vc, t, positions)
         _write_pages(k_pool, k_scale, li, pages,
@@ -114,12 +152,13 @@ def _paged_prefill(params, k_pool, v_pool, k_scale, v_scale, ids, true_len,
         _write_pages(v_pool, v_scale, li, pages,
                      vc[0].reshape(t // page, page, hkv, dh), kv_int8)
     x = rms_norm(x, params["final_norm"])
-    return matmul_f32(x[0, true_len - 1], _head(params, cfg))
+    return _prefill_logits(params, cfg, x[0, true_len - 1], weights_int8)
 
 
 @torch.no_grad()
 def _prefill_chunk(params, k_pool, v_pool, k_scale, v_scale, ids_c, start,
-                   valid_c, table_row, cfg: Qwen3Config, kv_int8: bool = False):
+                   valid_c, table_row, cfg: Qwen3Config, kv_int8: bool = False,
+                   weights_int8: bool = False):
     """Chunked prefill: ONE chunk ``ids_c`` [1, C] of a prompt at absolute
     positions [start, start + C). The chunk attends to the slot's earlier
     pages (gathered through ``table_row`` [maxp]) and to itself causally,
@@ -138,7 +177,7 @@ def _prefill_chunk(params, k_pool, v_pool, k_scale, v_scale, ids_c, start,
     cos, sin = cos_full[positions][None], sin_full[positions][None]
     table = table_row.long()
     pidx = table[start // page:start // page + n_cpages]
-    for li, layer in enumerate(params["layers"]):
+    for li, layer in enumerate(_layers(params, cfg, weights_int8)):
         # the slot's earlier context; rows of the null page 0 are garbage,
         # masked by position and causality
         if kv_int8:
@@ -161,7 +200,7 @@ def _prefill_chunk(params, k_pool, v_pool, k_scale, v_scale, ids_c, start,
                      vc[0, start:start + c].reshape(n_cpages, page, hkv, dh),
                      kv_int8)
     x = rms_norm(x, params["final_norm"])
-    return matmul_f32(x[0, valid_c - 1], _head(params, cfg))
+    return _prefill_logits(params, cfg, x[0, valid_c - 1], weights_int8)
 
 
 def _write_token_int8(pool, scale, li, page_idx, off, x):
@@ -180,19 +219,34 @@ def _write_token_int8(pool, scale, li, page_idx, off, x):
 def _paged_decode(params, k_pool, v_pool, k_scale, v_scale, tables, lens,
                   cur_ids, active, cfg: Qwen3Config, use_kernel: bool, rope,
                   kv_int8: bool = False, scatter_fused: bool = False,
-                  ablate: str = ""):
+                  ablate: str = "", weights_int8: bool = False,
+                  mlp_fused: bool = False, layer_fused: bool = False,
+                  attn_slot: bool = False, slot_cap: int = 0):
     """One decode step for every slot: the new token ``cur_ids[s]`` sits at
     logical position ``lens[s]``. → float32 logits [S, V]; the pools (and
     int8 scales) are updated in place. Idle slots write their K/V into the
     null page 0. ``rope``: the (cos, sin) tables of ``maxp * page``
-    positions (``make_rope``; the engine makes them once)."""
+    positions (``make_rope``; the engine makes them once). The int8-weight
+    routes follow the JAX engine's (``engine.py:229-513``); ``attn_slot``
+    needs the partitioned pool and ``slot_cap`` pages covering every
+    length."""
     if ablate:
         raise NotImplementedError("decode ablations are not ported: "
-                                  "ROADMAP.md Queue 2 #5")
+                                  "ROADMAP.md Queue 2 #9")
     s = cur_ids.shape[0]
     page = k_pool.shape[2]
+    maxp = tables.shape[1]
     hq, hkv, dh = cfg.num_heads, cfg.kv_heads, cfg.hd
     dev = cur_ids.device
+    if attn_slot:
+        # the TPU's context buffers for slot-major attention must fit its
+        # scoped VMEM, and the megakernel past 8 slots overflows it: both
+        # fall back to the paged route, as the JAX engine does
+        kv_bytes = 2 * 2 * slot_cap * page * hkv * dh * k_pool.element_size()
+        if slot_cap <= 0 or kv_bytes > SLOT_ATTN_VMEM_LIMIT:
+            attn_slot = False
+        if layer_fused and s > 8:
+            attn_slot = False
     x = embed(params, cur_ids)                        # [S, D]
     cos, sin = rope[0][lens.long()], rope[1][lens.long()]  # [S, half]
     rows = torch.arange(s, device=dev)
@@ -200,12 +254,39 @@ def _paged_decode(params, k_pool, v_pool, k_scale, v_scale, tables, lens,
     page_idx = torch.where(active, page_idx, 0).to(torch.int32)  # null page
     off = (lens % page).to(torch.int32)
     lens1 = (lens + 1).to(torch.int32)
-    fused = scatter_fused and use_kernel and not kv_int8
+    if weights_int8:
+        mm_fn = int8_matmul if use_kernel else int8_matmul_xla
+
+        def mm(y, layer, name):
+            return mm_fn(y, layer[name + "_q"], layer[name + "_s"])
+    if layer_fused:
+        # ONE launch a layer: norm, QKV, head norms, RoPE, K/V write,
+        # attention, wo, norm, FFN (ops/decoder_layer.py)
+        c2, s2 = make_rope_maps(cos, sin)
+        for li, layer in enumerate(params["layers"]):
+            x, _, _ = decoder_layer_int8(
+                x, c2, s2, layer["attn_norm"], layer["wqkv_q"],
+                layer["wqkv_s"], layer["q_norm"], layer["k_norm"],
+                layer["wo_q"], layer["wo_s"], layer["ffn_norm"],
+                layer["w_gateup_q"], layer["w_gateup_s"], layer["w_down_q"],
+                layer["w_down_s"], page_idx, off, k_pool, v_pool, lens1,
+                layer=li, attn_slot=attn_slot, slot_cap=slot_cap,
+                slot_maxp=maxp, tables=tables)
+        x = rms_norm(x, params["final_norm"])
+        return mm_fn(x.float(), params["head_q"],
+                     params["head_s"])[:, :cfg.vocab_size]
+    fused = scatter_fused and use_kernel and not kv_int8 and not attn_slot
     for li, layer in enumerate(params["layers"]):
         y = rms_norm(x, layer["attn_norm"])
-        q = (y @ layer["wq"]).reshape(s, hq, dh)
-        k = (y @ layer["wk"]).reshape(s, hkv, dh)
-        v = (y @ layer["wv"]).reshape(s, hkv, dh)
+        if weights_int8:
+            qkv = mm(y, layer, "wqkv")        # fused: one launch for q, k, v
+            q = qkv[:, : hq * dh].reshape(s, hq, dh)
+            k = qkv[:, hq * dh:(hq + hkv) * dh].reshape(s, hkv, dh)
+            v = qkv[:, (hq + hkv) * dh:].reshape(s, hkv, dh)
+        else:
+            q = (y @ layer["wq"]).reshape(s, hq, dh)
+            k = (y @ layer["wk"]).reshape(s, hkv, dh)
+            v = (y @ layer["wv"]).reshape(s, hkv, dh)
         q = _rope_rows(rms_norm(q, layer["q_norm"]), cos, sin)
         k = _rope_rows(rms_norm(k, layer["k_norm"]), cos, sin)
         if fused:
@@ -221,7 +302,11 @@ def _paged_decode(params, k_pool, v_pool, k_scale, v_scale, tables, lens,
             else:
                 k_pool[li, pi, of] = k.to(k_pool.dtype)
                 v_pool[li, pi, of] = v.to(v_pool.dtype)
-            if use_kernel and kv_int8:
+            if use_kernel and attn_slot and not kv_int8:
+                attn = paged_decode_attention_dma_slot(
+                    q.contiguous(), k_pool, v_pool, lens1, layer=li,
+                    cap=slot_cap, maxp_slot=maxp)
+            elif use_kernel and kv_int8:
                 attn = paged_decode_attention_dma_kv_int8(
                     q, k_pool, k_scale, v_pool, v_scale, tables, lens1,
                     layer=li)
@@ -235,10 +320,28 @@ def _paged_decode(params, k_pool, v_pool, k_scale, v_scale, tables, lens,
             else:
                 attn = paged_decode_attention_xla(q, k_pool[li], v_pool[li],
                                                   tables, lens1)
-        x = x + attn.reshape(s, hq * dh).to(x.dtype) @ layer["wo"]
-        y = rms_norm(x, layer["ffn_norm"])
-        x = x + (F.silu(y @ layer["w_gate"]) * (y @ layer["w_up"])) @ layer["w_down"]
+        attn = attn.reshape(s, hq * dh).to(x.dtype)
+        if mlp_fused:
+            # ONE launch for wo, residual, norm, gate/up, SiLU, down,
+            # residual (ops/fused_mlp.py)
+            x = fused_mlp_int8(
+                x, attn.contiguous(), layer["wo_q"], layer["wo_s"],
+                layer["ffn_norm"], layer["w_gateup_q"], layer["w_gateup_s"],
+                layer["w_down_q"], layer["w_down_s"])
+        elif weights_int8:
+            x = x + mm(attn, layer, "wo")
+            y = rms_norm(x, layer["ffn_norm"])
+            gu = mm(y, layer, "w_gateup")     # fused: one launch for gate, up
+            d_ff = gu.shape[1] // 2
+            x = x + mm(F.silu(gu[:, :d_ff]) * gu[:, d_ff:], layer, "w_down")
+        else:
+            x = x + attn @ layer["wo"]
+            y = rms_norm(x, layer["ffn_norm"])
+            x = x + (F.silu(y @ layer["w_gate"]) * (y @ layer["w_up"])) @ layer["w_down"]
     x = rms_norm(x, params["final_norm"])
+    if weights_int8:
+        return mm_fn(x.float(), params["head_q"],
+                     params["head_s"])[:, :cfg.vocab_size]
     return matmul_f32(x, _head(params, cfg))
 
 
@@ -283,17 +386,15 @@ class PagedLLMEngine:
         prefill_buckets: Optional[tuple[int, ...]] = None,
         prefill_chunk: int = 0,    # > 0: chunked prefill, C tokens a step
         seed: int = 0,
-        weights: str = "native",   # "int8" / "w8a8": not ported
+        weights: str = "native",   # "native" | "int8" ("w8a8": not ported)
         kv_dtype: str = "native",  # "native" (cfg.dtype) | "int8" pages
-        mlp_fused: Optional[bool] = None,
+        mlp_fused: Optional[bool] = None,    # fused int8 MLP kernel
         scatter_fused: Optional[bool] = None,  # K/V write inside the kernel
-        layer_fused: Optional[bool] = None,
+        layer_fused: Optional[bool] = None,  # decoder-layer megakernel
         attn_batched: bool = False,
-        attn_slot: Optional[bool] = None,
+        attn_slot: Optional[bool] = None,    # slot-major attention
         device: str | torch.device = "cuda",
     ):
-        if weights in ("int8", "w8a8"):
-            raise NotImplementedError(_INT8_WEIGHTS)
         if max_ctx % page_size:
             raise ValueError("max_ctx must be a multiple of page_size")
         if prefill_chunk:
@@ -303,37 +404,61 @@ class PagedLLMEngine:
         self.device = resolve_device(device)
         if use_kernel is None:
             use_kernel = self.device.type == "cuda"
-        # the JAX package's own refusals of these knobs with native weights
-        if mlp_fused:
+        maxp = max_ctx // page_size
+        num_pages = num_pages if num_pages is not None else 1 + max_slots * maxp
+        # the JAX engine's defaults and refusals (engine.py:631-678)
+        if mlp_fused is None:
+            mlp_fused = weights == "int8" and use_kernel
+        if mlp_fused and weights != "int8":
             raise ValueError("mlp_fused requires weights='int8' "
                              "(fused kernel streams the int8 layout)")
-        if layer_fused:
-            raise ValueError("layer_fused requires use_kernel=True and "
-                             "weights='int8'")
         if scatter_fused is None:
             scatter_fused = use_kernel and kv_dtype == "native"
         if scatter_fused and (not use_kernel or kv_dtype != "native"):
             raise ValueError("scatter_fused requires use_kernel=True and "
                              "native-dtype KV pages")
+        if layer_fused is None:
+            layer_fused = (use_kernel and weights == "int8"
+                           and kv_dtype == "native" and max_slots <= 8)
+        if layer_fused and (not use_kernel or weights != "int8"):
+            raise ValueError("layer_fused requires use_kernel=True and "
+                             "weights='int8'")
         if attn_batched and (not use_kernel or kv_dtype != "native"):
             raise ValueError("attn_batched requires use_kernel=True and "
                              "native-dtype KV pages")
+        if attn_slot is None:
+            attn_slot = (use_kernel and weights == "int8"
+                         and kv_dtype == "native"
+                         and num_pages >= 1 + max_slots * maxp)
+        if attn_slot:
+            if not use_kernel or kv_dtype != "native":
+                raise ValueError("attn_slot requires use_kernel=True and "
+                                 "native-dtype KV pages")
+            if num_pages < 1 + max_slots * maxp:
+                raise ValueError(
+                    "attn_slot requires the full partitioned pool: "
+                    "num_pages >= 1 + max_slots * max_ctx/page_size")
+        if weights == "w8a8":
+            raise NotImplementedError("weights='w8a8' (int8 activations) is "
+                                      "not ported: ROADMAP.md Queue 2 #6")
+        if layer_fused and kv_dtype == "int8":
+            raise NotImplementedError("the int8-KV megakernel is not ported: "
+                                      "ROADMAP.md Queue 2 #8")
         if attn_batched:
             raise NotImplementedError("attn_batched is not ported: "
                                       "ROADMAP.md Queue 2 #9")
-        if attn_slot:
-            raise NotImplementedError("attn_slot (the slot-major kernel) is "
-                                      "not ported: ROADMAP.md Queue 2 #5")
+        self.weights_int8 = weights == "int8"
+        if self.weights_int8:
+            params = quantize_qwen3_params(params, cfg)
         self.params = params
         self.cfg = cfg
         self.tokenizer = tokenizer
         self.page = page_size
-        self.maxp = max_ctx // page_size
+        self.maxp = maxp
         self.max_ctx = max_ctx
         self.slots: list[Optional[Request]] = [None] * max_slots
         # page 0 is the reserved null page (idle-slot writes land there)
-        self.num_pages = (num_pages if num_pages is not None
-                          else 1 + max_slots * self.maxp)
+        self.num_pages = num_pages
         if self.num_pages < 2:
             raise ValueError("pool needs at least the null page + one real page")
         self._free = deque(range(1, self.num_pages))
@@ -354,6 +479,13 @@ class PagedLLMEngine:
         self.pending: deque[Request] = deque()
         self.use_kernel = use_kernel
         self.scatter_fused = scatter_fused
+        self.mlp_fused = mlp_fused
+        self.layer_fused = layer_fused
+        self.attn_slot = attn_slot
+        # partitioned allocator: slot s's logical page j is always physical
+        # 1 + s * maxp + j (contiguous per slot, the slot kernel's contract);
+        # allocation and free leave the shared pool alone
+        self.slot_pages = attn_slot
         self.decode_steps = 0
         if prefill_buckets is None:
             # the ladder always ends at max_ctx, so any prompt that passes
@@ -414,11 +546,12 @@ class PagedLLMEngine:
         return -(-n_tokens // self.page)
 
     def _free_slot_pages(self, slot: int) -> None:
-        used = self._pages_needed(int(self.lens[slot]))
-        for i in range(used):
-            p = int(self.tables[slot, i])
-            if p > 0:
-                self._free.append(p)
+        if not self.slot_pages:   # partitioned pages never enter the pool
+            used = self._pages_needed(int(self.lens[slot]))
+            for i in range(used):
+                p = int(self.tables[slot, i])
+                if p > 0:
+                    self._free.append(p)
         self.tables[slot, :] = 0
         self.lens[slot] = 0
         if slot in self._admit_order:
@@ -454,9 +587,12 @@ class PagedLLMEngine:
             req.done = True
             req.finish_reason = "context"
             return True
-        if len(self._free) < n_used:
+        if self.slot_pages:
+            pages = [1 + slot * self.maxp + i for i in range(n_used)]
+        elif len(self._free) < n_used:
             return False
-        pages = [self._free.popleft() for _ in range(n_used)]
+        else:
+            pages = [self._free.popleft() for _ in range(n_used)]
         self.tables[slot, :] = 0
         self.tables[slot, :n_used] = pages
         self.lens[slot] = 0
@@ -480,7 +616,7 @@ class PagedLLMEngine:
         logits = _prefill_chunk(
             self.params, self.k_pool, self.v_pool, self.k_scale, self.v_scale,
             self._dev(ids), pos, valid, self._dev(self.tables[slot]), self.cfg,
-            kv_int8=self.kv_int8)
+            kv_int8=self.kv_int8, weights_int8=self.weights_int8)
         pos += c
         if pos >= n:
             del self._prefilling[slot]
@@ -510,18 +646,22 @@ class PagedLLMEngine:
             req.done = True
             req.finish_reason = "context"
             return True
-        if len(self._free) < n_bucket_pages:
+        if self.slot_pages:
+            pages = [1 + slot * self.maxp + i for i in range(n_bucket_pages)]
+        elif len(self._free) < n_bucket_pages:
             return False
-        pages = [self._free.popleft() for _ in range(n_bucket_pages)]
+        else:
+            pages = [self._free.popleft() for _ in range(n_bucket_pages)]
         ids = np.zeros((1, bucket), np.int32)
         ids[0, :n] = req.ids
         logits = _paged_prefill(
             self.params, self.k_pool, self.v_pool, self.k_scale, self.v_scale,
             self._dev(ids), n, self._dev(np.asarray(pages, np.int32)),
-            self.cfg, kv_int8=self.kv_int8)
+            self.cfg, kv_int8=self.kv_int8, weights_int8=self.weights_int8)
         # keep only the pages that hold real context; return the rest
-        for p in pages[n_used_pages:]:
-            self._free.append(p)
+        if not self.slot_pages:
+            for p in pages[n_used_pages:]:
+                self._free.append(p)
         self.tables[slot, :] = 0
         self.tables[slot, :n_used_pages] = pages[:n_used_pages]
         self.lens[slot] = n
@@ -622,6 +762,11 @@ class PagedLLMEngine:
                     logical = length // self.page
                     if self.tables[slot, logical] == 0:
                         need.append(slot)
+            if self.slot_pages:   # partitioned: the page is always there
+                for slot in need:
+                    logical = int(self.lens[slot]) // self.page
+                    self.tables[slot, logical] = 1 + slot * self.maxp + logical
+                return
             if len(need) <= len(self._free):
                 for slot in need:
                     logical = int(self.lens[slot]) // self.page
@@ -629,6 +774,19 @@ class PagedLLMEngine:
                 return
             if not self._preempt_youngest():
                 raise RuntimeError("KV pool exhausted and nothing to preempt")
+
+    def decode_options(self, active: np.ndarray) -> dict:
+        """The route keywords of ``_paged_decode`` for this step; slot-major
+        attention covers exactly the pages of the longest active context
+        (one more page whenever a length crosses a page boundary)."""
+        slot_cap = 0
+        if self.attn_slot:
+            mx = int(self.lens[active].max()) + 1
+            slot_cap = min(-(-mx // self.page), self.maxp)
+        return dict(kv_int8=self.kv_int8, scatter_fused=self.scatter_fused,
+                    weights_int8=self.weights_int8, mlp_fused=self.mlp_fused,
+                    layer_fused=self.layer_fused, attn_slot=self.attn_slot,
+                    slot_cap=slot_cap)
 
     def _active_mask(self) -> np.ndarray:
         return np.asarray(
@@ -651,8 +809,7 @@ class PagedLLMEngine:
             self.params, self.k_pool, self.v_pool, self.k_scale, self.v_scale,
             self._dev(self.tables), self._dev(self.lens),
             self._dev(self.cur_ids), self._dev(active), self.cfg,
-            self.use_kernel, self._rope, kv_int8=self.kv_int8,
-            scatter_fused=self.scatter_fused)
+            self.use_kernel, self._rope, **self.decode_options(active))
         self.decode_steps += 1
         logits_np = logits.cpu().numpy()
         n = 0
@@ -692,6 +849,8 @@ class PagedLLMEngine:
 
     @property
     def free_pages(self) -> int:
+        if self.slot_pages:
+            return self.maxp * sum(1 for r in self.slots if r is None)
         return len(self._free)
 
 

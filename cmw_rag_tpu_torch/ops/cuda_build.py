@@ -3,8 +3,9 @@
 Each source ``csrc/<stem>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into a
 shared library of its own with a plain C interface, on first use, into
 ``build/cmw_rag_tpu_torch/`` under the checkout. A library's file name
-carries a hash of its source and flags, so an edited source is rebuilt and
-an unchanged one is loaded as it is. ``build()`` starts one ``nvcc`` per
+carries a hash of its source, of the ``csrc/`` headers it includes
+(``#include "..."``, followed recursively) and of the flags, so an edited
+source or header is rebuilt and an unchanged one is loaded as it is. ``build()`` starts one ``nvcc`` per
 missing library, all at once, and waits for them together. Nothing here
 runs at import time.
 """
@@ -14,6 +15,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -22,7 +24,8 @@ from cmw_rag_tpu_torch.device import REPO_ROOT
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 #: every kernel source of the port, by stem
-SOURCES = ("topk_scan", "flash_attention", "ivf_scan", "paged_attention")
+SOURCES = ("topk_scan", "flash_attention", "ivf_scan", "paged_attention",
+           "int8_matmul", "slot_attention", "fused_mlp", "decoder_layer")
 BUILD_DIR = REPO_ROOT / "build" / "cmw_rag_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
@@ -45,11 +48,32 @@ def source(stem: str) -> Path:
     return CSRC / f"{stem}.cu"
 
 
+_INCLUDE = re.compile(rb'^[ \t]*#[ \t]*include[ \t]*"([^"]+)"', re.M)
+
+
+def headers(path: Path) -> list[Path]:
+    """The quoted headers ``path`` includes, recursively (each once,
+    resolved beside the file that includes it)."""
+    found: list[Path] = []
+    todo = [path]
+    while todo:
+        cur = todo.pop()
+        for name in _INCLUDE.findall(cur.read_bytes()):
+            hdr = (cur.parent / name.decode()).resolve()
+            if hdr not in found:
+                found.append(hdr)
+                todo.append(hdr)
+    return found
+
+
 def target(stem: str) -> Path:
-    """The library built from ``source(stem)`` with ``NVCC_FLAGS``."""
-    digest = hashlib.sha256(source(stem).read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"{stem}_{digest}.so"
+    """The library built from ``source(stem)``, its headers and
+    ``NVCC_FLAGS``."""
+    digest = hashlib.sha256(source(stem).read_bytes())
+    for hdr in headers(source(stem)):
+        digest.update(hdr.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{stem}_{digest.hexdigest()[:16]}.so"
 
 
 def build(stems=SOURCES) -> dict[str, Path]:

@@ -26,20 +26,26 @@ to q's dtype. int8 pools carry page-granular float32 scales ``[L, P, Hkv]``.
   kernel reads ``tables`` and ``lens`` itself, so they change nothing.
   ``make_decode_worklist`` (:292) stays for callers of that signature.
 
-The slot-major kernel (:1024) belongs to the int8-weights configuration and
-the batched one (:1241) to the opt-in ``attn_batched``; both raise
-``NotImplementedError`` (``ROADMAP.md`` Queue 2 #5 and #9).
+- ``paged_decode_attention_dma_slot`` (:1024, body ``_slot_attn_inner``
+  :931) is slot-major: slot s reads its contiguous partition of the pool
+  (logical page j at physical ``base0 + s * maxp_slot + j``, the engine's
+  partitioned allocator), ``cap`` pages of it, with a single-pass float32
+  softmax. Its twin ``paged_decode_attention_slot_plain`` is the gather
+  golden over that table (``slot_tables``). On CUDA tensors it launches
+  ``csrc/slot_attention.cu`` (bf16; Dh 64 or 128, Hq / Hkv at most 8).
+
+The batched kernel (:1241) belongs to the opt-in ``attn_batched`` and raises
+``NotImplementedError`` (``ROADMAP.md`` Queue 2 #9).
 """
 
 from __future__ import annotations
 
 import ctypes
-import functools
 import math
 
 import torch
 
-from cmw_rag_tpu_torch.device import on_cpu
+from cmw_rag_tpu_torch.device import need, on_cpu, sm_count
 from cmw_rag_tpu_torch.ops import cuda_build
 
 NEG_INF = -3.0e38
@@ -144,31 +150,16 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def _need(t: torch.Tensor, name: str, dtype: torch.dtype, shape) -> None:
-    if t.dtype != dtype:
-        raise TypeError(f"{name}: dtype {t.dtype}, expected {dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected "
-                         f"{tuple(shape)}")
-    if not t.is_contiguous() or t.data_ptr() % 16:
-        raise ValueError(f"{name} must be contiguous and 16-byte aligned")
-
-
 def _layer(pools: torch.Tensor, layer: int) -> torch.Tensor:
     if pools.dim() != 5 or not 0 <= layer < pools.shape[0]:
         raise ValueError(f"layer {layer} of a pool shaped {tuple(pools.shape)}")
     return pools[layer]
 
 
-@functools.lru_cache(maxsize=None)
-def _sm_count(device: torch.device) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
-
-
 def pages_per_split(s: int, hkv: int, maxp: int, device: torch.device) -> int:
     """Pages of each block's range: ranges are added until the launch has
     about two blocks per SM (one (KV head, slot) pair each at most)."""
-    n_split = max(1, min(maxp, -(-2 * _sm_count(device) // (s * hkv))))
+    n_split = max(1, min(maxp, -(-2 * sm_count(device) // (s * hkv))))
     return -(-maxp // n_split)
 
 
@@ -184,19 +175,19 @@ def _launch(q, k_pool, v_pool, tables, lens, k_scale=None, v_scale=None,
     maxp = tables.shape[-1]
     int8 = k_scale is not None
     pool_dtype = torch.int8 if int8 else torch.bfloat16
-    _need(q, "q", torch.bfloat16, (s, hq, dh))
-    _need(k_pool, "k_pool", pool_dtype, (n_pages, page, hkv, dh))
-    _need(v_pool, "v_pool", pool_dtype, (n_pages, page, hkv, dh))
-    _need(tables, "tables", torch.int32, (s, maxp))
-    _need(lens, "lens", torch.int32, (s,))
+    need(q, "q", torch.bfloat16, (s, hq, dh))
+    need(k_pool, "k_pool", pool_dtype, (n_pages, page, hkv, dh))
+    need(v_pool, "v_pool", pool_dtype, (n_pages, page, hkv, dh))
+    need(tables, "tables", torch.int32, (s, maxp))
+    need(lens, "lens", torch.int32, (s,))
     if int8:
-        _need(k_scale, "k_scale", torch.float32, (n_pages, hkv))
-        _need(v_scale, "v_scale", torch.float32, (n_pages, hkv))
+        need(k_scale, "k_scale", torch.float32, (n_pages, hkv))
+        need(v_scale, "v_scale", torch.float32, (n_pages, hkv))
     if k_new is not None:
         for name, t in (("k_new", k_new), ("v_new", v_new)):
-            _need(t, name, torch.bfloat16, (s, hkv, dh))
-        _need(page_idx, "page_idx", torch.int32, (s,))
-        _need(off, "off", torch.int32, (s,))
+            need(t, name, torch.bfloat16, (s, hkv, dh))
+        need(page_idx, "page_idx", torch.int32, (s,))
+        need(off, "off", torch.int32, (s,))
     if hkv < 1 or hq % hkv or hq // hkv not in (1, 2, 4, 8):
         raise ValueError(f"Hq={hq} over Hkv={hkv}: the kernel takes a ratio "
                          f"of 1, 2, 4 or 8")
@@ -319,10 +310,78 @@ def paged_decode_attention_pooled(q: torch.Tensor, k_pools: torch.Tensor,
     return out
 
 
-def paged_decode_attention_dma_slot(*args, **kwargs):
-    raise NotImplementedError(
-        "the slot-major kernel runs with int8 weights, which are not ported: "
-        "ROADMAP.md Queue 2 #5")
+def slot_tables(s: int, cap: int, maxp_slot: int, base0: int = 1,
+                device=None) -> torch.Tensor:
+    """The partitioned block table [S, cap]: slot s's logical page j is
+    physical page ``base0 + s * maxp_slot + j``."""
+    rows = torch.arange(s, device=device, dtype=torch.int32)[:, None]
+    return base0 + rows * maxp_slot + torch.arange(
+        cap, device=device, dtype=torch.int32)[None, :]
+
+
+def paged_decode_attention_slot_plain(q, k_pool, v_pool, lens, cap: int,
+                                      maxp_slot: int,
+                                      base0: int = 1) -> torch.Tensor:
+    """Twin of the slot-major kernel: the gather golden over the partitioned
+    table of ``cap`` pages (positions past ``cap * page`` do not exist)."""
+    tables = slot_tables(q.shape[0], cap, maxp_slot, base0, q.device)
+    return paged_decode_attention_xla(q, k_pool, v_pool, tables, lens)
+
+
+def _slot_lib() -> ctypes.CDLL:
+    lib = cuda_build.library("slot_attention")
+    if not getattr(lib, "_typed", False):
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.slot_attention_bf16.argtypes = [p] * 4 + [i] * 8 + [p, p]
+        lib.slot_attention_bf16.restype = ctypes.c_int
+        lib._typed = True
+    return lib
+
+
+def check_attention_shape(hq: int, hkv: int, dh: int) -> None:
+    if hkv < 1 or hq % hkv or not 1 <= hq // hkv <= 8:
+        raise ValueError(f"Hq={hq} over Hkv={hkv}: the kernel takes a ratio "
+                         f"of 1 to 8")
+    if dh not in (64, 128):
+        raise ValueError(f"head dim {dh} not in (64, 128)")
+
+
+def paged_decode_attention_dma_slot(q: torch.Tensor, k_pools: torch.Tensor,
+                                    v_pools: torch.Tensor, lens: torch.Tensor,
+                                    layer: int, cap: int, maxp_slot: int,
+                                    base0: int = 1,
+                                    n_buf: int = 2) -> torch.Tensor:
+    """Slot-major decode attention over layer ``layer`` of the stacked pools
+    [L, P, page, Hkv, Dh] in the partitioned layout → [S, Hq, Dh]; slot s
+    attends over its first ``min(lens[s], cap * page)`` positions.
+    ``n_buf`` is the TPU kernel's DMA depth and changes nothing here."""
+    if on_cpu(q, k_pools, v_pools, lens):
+        return paged_decode_attention_slot_plain(
+            q, _layer(k_pools, layer), _layer(v_pools, layer), lens, cap,
+            maxp_slot, base0)
+    kl, vl = _layer(k_pools, layer), _layer(v_pools, layer)
+    if q.dim() != 3:
+        raise ValueError("q must be [S, Hq, Dh]")
+    s, hq, dh = q.shape
+    n_pages, page, hkv, _ = kl.shape
+    need(q, "q", torch.bfloat16, (s, hq, dh))
+    need(kl, "k_pool", torch.bfloat16, (n_pages, page, hkv, dh))
+    need(vl, "v_pool", torch.bfloat16, (n_pages, page, hkv, dh))
+    need(lens, "lens", torch.int32, (s,))
+    check_attention_shape(hq, hkv, dh)
+    if cap < 1 or base0 < 0 or base0 + (s - 1) * maxp_slot + cap > n_pages:
+        raise ValueError(f"{s} partitions of {maxp_slot} pages from page "
+                         f"{base0}, cap {cap}, overrun a pool of {n_pages}")
+    out = torch.empty_like(q)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = _slot_lib().slot_attention_bf16(
+            q.data_ptr(), kl.data_ptr(), vl.data_ptr(), lens.data_ptr(), s,
+            hq, hkv, dh, page, cap, maxp_slot, base0, out.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"slot attention launch failed: CUDA error {err}")
+    paged_decode_attention_dma_slot.launches += 1
+    return out
 
 
 def paged_decode_attention_dma_batched(*args, **kwargs):
@@ -333,7 +392,7 @@ def paged_decode_attention_dma_batched(*args, **kwargs):
 
 WRAPPERS = (paged_decode_attention_dma, paged_decode_attention_dma_scatter,
             paged_decode_attention_dma_kv_int8, paged_decode_attention,
-            paged_decode_attention_pooled)
+            paged_decode_attention_pooled, paged_decode_attention_dma_slot)
 
 
 def reset_launches() -> None:

@@ -1,7 +1,8 @@
 """The local LLM serving path, as ``chip_smoke.py`` drives it.
 
-    python -m cmw_rag_tpu_torch.scripts.local_llm [--kv-dtype int8]
-        [--prefill-chunk 256] [--reference] [--device cuda]
+    python -m cmw_rag_tpu_torch.scripts.local_llm [--weights int8]
+        [--slots 16] [--kv-dtype int8] [--prefill-chunk 256] [--reference]
+        [--device cuda]
 
 Model: ``qwen3guard-0.6b`` (``cmw_rag_tpu/config/models.yaml:310-331``), the
 spec the JAX package's ``create_local_llm_manager`` serves by default, at
@@ -12,7 +13,11 @@ runs read token ids and never quality.
 
 Serving shape: the port's ``Settings`` (``config/settings.py:125-132``): 4
 slots, a 2,048-token context, 64-token pages (``local_transport.py:162``),
-native weights and KV pages. Requests: ChatML (``format_chatml``) of the 8
+native weights and KV pages. The int8 configuration is the reference's own
+``local_llm_weights = "int8"`` ("half memory", ``settings.py:130``): at 4
+slots each layer is one decoder-layer megakernel launch, at 16 slots the
+fused QKV ``int8_matmul``, slot-major attention and the fused MLP
+(``INT8_SLOTS``). Requests: ChatML (``format_chatml``) of the 8
 bilingual texts that the shipping path plants (``scripts/shipping.py``),
 greedy, 32 new tokens each; with more requests than slots, later ones are
 admitted mid-flight.
@@ -49,8 +54,13 @@ N_REQUESTS = 6
 MAX_NEW_TOKENS = 32
 TIMED_STEPS = 20
 PROFILED_STEPS = 5
+#: the int8-weight serving configurations: slots -> the route they take
+INT8_SLOTS = {4: "decoder-layer megakernel", 16: "int8_matmul + slot "
+              "attention + fused MLP"}
 #: device-side names of the paged attention kernel and its combine pass
 PAGED_KERNEL_NAMES = ("paged_decode_kernel", "combine_kernel")
+#: device-side name of the decoder-layer megakernel
+LAYER_KERNEL_NAMES = ("decoder_layer_kernel",)
 
 
 def spec_with_tokenizer_vocab(slug: str = SPEC):
@@ -80,10 +90,25 @@ def chat_prompts(n: int = N_REQUESTS) -> list[str]:
             for t in PLANTED_TEXTS[:n]]
 
 
+def long_chat_prompt(min_tokens: int = 400) -> str:
+    """One ChatML request of the planted texts, repeated until its prompt has
+    more than ``min_tokens`` tokens: a context past the slot-major budget
+    (384 tokens at this width), so the megakernel takes its paged route
+    while the request is in flight."""
+    tok = get_tokenizer()
+    text = ""
+    while True:
+        text += " ".join(PLANTED_TEXTS) + "\n"
+        prompt = format_chatml([{"role": "user", "content": text}])
+        if len(tok.encode(prompt, allowed_special="all")) > min_tokens:
+            return prompt
+
+
 def build_engine(params, cfg: Qwen3Config, device="cuda", engine_cls=None,
                  **engine_kw) -> PagedLLMEngine:
     """An engine at the serving settings; ``engine_kw`` overrides
-    (``use_kernel``, ``kv_dtype``, ``prefill_chunk``, ``scatter_fused``)."""
+    (``use_kernel``, ``weights``, ``max_slots``, ``kv_dtype``,
+    ``prefill_chunk``, ``scatter_fused``, ...)."""
     s = Settings()
     kw = dict(max_slots=s.local_llm_slots, page_size=PAGE,
               max_ctx=s.local_llm_max_ctx, kv_dtype=s.local_llm_kv_dtype,
@@ -101,24 +126,27 @@ def run_requests(engine: PagedLLMEngine, prompts: list[str],
 
 
 @torch.no_grad()
-def profile_decode(engine: PagedLLMEngine) -> dict:
+def profile_decode(engine: PagedLLMEngine,
+                   names: tuple = PAGED_KERNEL_NAMES) -> dict:
     """Where one decode step of ``engine``'s current state spends its time,
     on a card: the step is repeated as it stands (it writes the same rows
     each time), ``TIMED_STEPS`` times without the profiler and
     ``PROFILED_STEPS`` under ``torch.profiler``. → host wall per step
     without and with the profiler, device busy (union of kernel intervals)
-    and idle share, the paged attention kernel's device time and launches
-    per step, and the kernels that took the most device time."""
+    and idle share, the device time and share of the kernels whose names
+    contain one of ``names`` (the paged attention kernel by default,
+    ``LAYER_KERNEL_NAMES`` for the megakernel), launches per step, and the
+    kernels that took the most device time."""
     active = engine._active_mask()
     tables, lens = engine._dev(engine.tables), engine._dev(engine.lens)
     cur, act = engine._dev(engine.cur_ids), engine._dev(active)
+    options = engine.decode_options(active)
 
     def step():
         return _paged_decode(
             engine.params, engine.k_pool, engine.v_pool, engine.k_scale,
             engine.v_scale, tables, lens, cur, act, engine.cfg,
-            engine.use_kernel, engine._rope, kv_int8=engine.kv_int8,
-            scatter_fused=engine.scatter_fused)
+            engine.use_kernel, engine._rope, **options)
 
     step()
     torch.cuda.synchronize()
@@ -143,16 +171,17 @@ def profile_decode(engine: PagedLLMEngine) -> dict:
             kernels[e.name] += (e.time_range.end - e.time_range.start) / 1e3 / n
             launches += 1
     busy_ms = _busy_us(events) / 1e3 / n
-    paged = {k: v for k, v in kernels.items()
-             if any(p in k for p in PAGED_KERNEL_NAMES)}
+    named = {k: v for k, v in kernels.items() if any(p in k for p in names)}
     return {
         "active_slots": int(active.sum()),
         "context_lens": [int(x) for x in engine.lens[active]],
+        "route": {k: v for k, v in options.items() if v},
         "wall_ms_per_step_unprofiled": plain_ms,
         "wall_ms_per_step": wall_ms, "device_busy_ms_per_step": busy_ms,
         "idle_share": 1.0 - busy_ms / wall_ms,
-        "paged_kernel_ms_per_step": sum(paged.values()),
-        "paged_share_of_busy": sum(paged.values()) / busy_ms,
+        "named_kernels": list(names),
+        "named_kernel_ms_per_step": sum(named.values()),
+        "named_share_of_busy": sum(named.values()) / busy_ms,
         "kernel_launches_per_step": launches / n,
         "top_kernels_ms_per_step":
             sorted(kernels.items(), key=lambda kv: -kv[1])[:10]}
@@ -162,6 +191,9 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--weights", default="native", choices=("native", "int8"))
+    ap.add_argument("--slots", type=int, default=None,
+                    help="serving slots (default: the settings' 4)")
     ap.add_argument("--kv-dtype", default="native", choices=("native", "int8"))
     ap.add_argument("--prefill-chunk", type=int, default=0)
     ap.add_argument("--reference", action="store_true",
@@ -170,8 +202,10 @@ def main() -> None:
     args = ap.parse_args()
     cfg = config()
     params = build_params(cfg, args.seed, args.device)
+    slots = {} if args.slots is None else dict(max_slots=args.slots)
     engine = build_engine(params, cfg, args.device, kv_dtype=args.kv_dtype,
                           prefill_chunk=args.prefill_chunk,
+                          weights=args.weights, **slots,
                           use_kernel=False if args.reference else None)
     t0 = time.perf_counter()
     reqs = run_requests(engine, chat_prompts(), args.max_new_tokens)

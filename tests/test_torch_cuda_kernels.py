@@ -16,7 +16,15 @@ over bf16 pages to one bf16 step at the twin's magnitude plus 1e-5 (float32
 sums in another order, then both round to bf16), over int8 pages to one
 step plus 2e-2 (the twin, as JAX's golden, rounds the dequantized K and V to
 bf16 before attending; the kernel keeps them in float32), with the scatter
-wrapper's pools equal to the twin's bit for bit.
+wrapper's pools equal to the twin's bit for bit. The int8-weight kernels:
+int8_matmul to one bf16 step (bf16 outputs) plus 1e-5 of the largest
+|output| (float32 sums of exact products in another order); slot-major
+attention as the paged kernel; the fused MLP and the decoder-layer
+megakernel to one bf16 step plus 1e-3 of the largest |output| (both round
+the normed input, y and h to bf16, and sums in another order can put one of
+those a step apart, which moves every product it feeds), the megakernel's
+written pool rows within the same of the twin's and every other row
+unchanged, bit for bit.
 """
 
 import numpy as np
@@ -26,7 +34,10 @@ import torch
 from cmw_rag_tpu_torch.index.flat import FlatIndex
 from cmw_rag_tpu_torch.index.ivf import IVFIndex
 from cmw_rag_tpu_torch.index.shards import SegmentedIndex
+from cmw_rag_tpu_torch.ops import decoder_layer as DL
 from cmw_rag_tpu_torch.ops import flash_attention as F
+from cmw_rag_tpu_torch.ops import fused_mlp as FM
+from cmw_rag_tpu_torch.ops import int8_matmul as IM
 from cmw_rag_tpu_torch.ops import ivf_scan as V
 from cmw_rag_tpu_torch.ops import paged_attention as PA
 from cmw_rag_tpu_torch.ops import topk as T
@@ -377,3 +388,190 @@ def test_paged_attention_wrappers_refuse_what_the_kernel_does_not_take(card):
         PA.paged_decode_attention_dma_scatter(
             q, kp[0, 0, :2], vp[0, 0, :2], lens, lens, kp, vp, tables, lens,
             layer=0, batched=True)
+
+
+def _close(got, want, tol):
+    """Within one bf16 step (bf16 outputs; at the larger magnitude of the
+    two, so a rounding across a power of two counts one step) plus ``tol``
+    of the largest |want|."""
+    err = (got.float() - want.float()).abs()
+    step = (_bf16_step(torch.maximum(got.float().abs(), want.float().abs()))
+            if want.dtype == torch.bfloat16 else torch.zeros_like(err))
+    assert (err <= step + tol * want.float().abs().max()).all(), \
+        err.max().item()
+
+
+def _q8(card, gen, k, n):
+    return IM.quantize_weight(torch.randn((k, n), generator=gen,
+                                          device=card) * 0.05)
+
+
+@pytest.mark.parametrize("m,k,n", [(1, 64, 16), (4, 1024, 4096),
+                                   (5, 256, 1040), (16, 1024, 4096),
+                                   (33, 128, 512), (4, 1024, 151680)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_int8_matmul_matches_plain_twin(card, m, k, n, dtype):
+    gen = torch.Generator(device=card).manual_seed(m + n)
+    wq, ws = _q8(card, gen, k, n)
+    x = torch.randn((m, k), generator=gen, device=card).to(dtype)
+    n0 = IM.int8_matmul.launches
+    got = IM.int8_matmul(x, wq, ws)
+    torch.cuda.synchronize()
+    assert IM.int8_matmul.launches == n0 + 1
+    assert got.dtype == dtype and got.shape == (m, n)
+    _close(got, IM.int8_matmul_plain(x, wq, ws), 1e-5)
+    assert torch.equal(got, IM.int8_matmul(x, wq, ws))   # repeats exactly
+
+
+def _slot_case(card, s, hq, hkv, dh, page, maxp, seed):
+    gen = torch.Generator(device=card).manual_seed(seed)
+    shape = (2, 1 + s * maxp, page, hkv, dh)
+    kp = torch.randn(shape, generator=gen, device=card).bfloat16()
+    vp = torch.randn(shape, generator=gen, device=card).bfloat16()
+    q = torch.randn((s, hq, dh), generator=gen, device=card).bfloat16()
+    return q, kp, vp
+
+
+@pytest.mark.parametrize("shape", [
+    (4, 16, 8, 128, 64, 32, 6, [1, 64, 200, 384]),
+    (16, 16, 8, 128, 64, 32, 2, [1 + 8 * i for i in range(16)]),
+    (3, 4, 4, 64, 16, 6, 6, [5, 96, 90]),
+    (2, 32, 4, 128, 64, 20, 20, [1280, 700])])   # past one 1,024 chunk
+def test_slot_attention_matches_plain_twin(card, shape):
+    s, hq, hkv, dh, page, maxp, cap, lens = shape
+    q, kp, vp = _slot_case(card, s, hq, hkv, dh, page, maxp, seed=s + cap)
+    lens = torch.tensor(lens, dtype=torch.int32, device=card)
+    n0 = PA.paged_decode_attention_dma_slot.launches
+    got = PA.paged_decode_attention_dma_slot(q, kp, vp, lens, layer=1,
+                                             cap=cap, maxp_slot=maxp)
+    want = PA.paged_decode_attention_slot_plain(q, kp[1], vp[1], lens, cap,
+                                                maxp)
+    torch.cuda.synchronize()
+    assert PA.paged_decode_attention_dma_slot.launches == n0 + 1
+    err = (got.float() - want.float()).abs()
+    assert (err <= _bf16_step(want) + 1e-5).all(), err.max().item()
+
+
+def test_slot_attention_never_reads_past_the_length_or_cap(card):
+    """NaN in every row at or past a slot's length, and in its partition's
+    pages past the cap, leaves the output as it was."""
+    s, page, maxp, cap = 3, 64, 8, 4
+    q, kp, vp = _slot_case(card, s, 16, 8, 128, page, maxp, seed=11)
+    lens = torch.tensor([1, 100, 256], dtype=torch.int32, device=card)
+    want = PA.paged_decode_attention_dma_slot(q, kp, vp, lens, layer=0,
+                                              cap=cap, maxp_slot=maxp)
+    for si, n in enumerate(lens.tolist()):
+        for j in range(maxp):
+            start = min(max(n - j * page, 0), page)
+            kp[0, 1 + si * maxp + j, start:] = float("nan")
+            vp[0, 1 + si * maxp + j, start:] = float("nan")
+    got = PA.paged_decode_attention_dma_slot(q, kp, vp, lens, layer=0,
+                                             cap=cap, maxp_slot=maxp)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+def _layer(card, gen, d, hq, hkv, dh, f):
+    lay = {k: 1.0 + 0.1 * torch.randn((n,), generator=gen, device=card)
+           for k, n in (("attn_norm", d), ("ffn_norm", d), ("q_norm", dh),
+                        ("k_norm", dh))}
+    lay["wqkv_q"], lay["wqkv_s"] = _q8(card, gen, d, (hq + 2 * hkv) * dh)
+    lay["wo_q"], lay["wo_s"] = _q8(card, gen, hq * dh, d)
+    lay["w_gateup_q"], lay["w_gateup_s"] = _q8(card, gen, d, 2 * f)
+    lay["w_down_q"], lay["w_down_s"] = _q8(card, gen, f, d)
+    return lay
+
+
+MLP = ("wo_q", "wo_s", "ffn_norm", "w_gateup_q", "w_gateup_s", "w_down_q",
+       "w_down_s")
+LAYER = ("attn_norm", "wqkv_q", "wqkv_s", "q_norm", "k_norm") + MLP
+
+
+@pytest.mark.parametrize("s,d,a,f", [(4, 1024, 2048, 3072),
+                                     (16, 1024, 2048, 3072),
+                                     (1, 256, 512, 384), (40, 256, 128, 192)])
+def test_fused_mlp_matches_plain_twin(card, s, d, a, f):
+    gen = torch.Generator(device=card).manual_seed(s + d)
+    lay = _layer(card, gen, d, a // 128, a // 128, 128, f)
+    x = torch.randn((s, d), generator=gen, device=card).bfloat16()
+    attn = (0.1 * torch.randn((s, a), generator=gen, device=card)).bfloat16()
+    n0 = FM.fused_mlp_int8.launches
+    got = FM.fused_mlp_int8(x, attn, *[lay[k] for k in MLP])
+    want = FM.fused_mlp_int8_plain(x, attn, *[lay[k] for k in MLP])
+    torch.cuda.synchronize()
+    assert FM.fused_mlp_int8.launches == n0 + 1 and got.dtype == torch.bfloat16
+    _close(got, want, 1e-3)
+    assert torch.equal(got, FM.fused_mlp_int8(x, attn, *[lay[k] for k in MLP]))
+
+
+@pytest.mark.parametrize("case", [
+    # S, Hq, Hkv, Dh, D, F, page, maxp, lens, slot-major
+    (4, 16, 8, 128, 1024, 3072, 64, 32, [63, 200, 384], True),
+    (4, 16, 8, 128, 1024, 3072, 64, 32, [1, 700, 2047], False),
+    (9, 8, 2, 64, 256, 384, 16, 4, [1, 16, 17, 30, 33, 48, 63, 64], False),
+    (3, 8, 2, 64, 256, 384, 16, 4, [5, 40], True)])
+def test_decoder_layer_matches_plain_twin(card, case):
+    s, hq, hkv, dh, d, f, page, maxp, lens, slot = case
+    gen = torch.Generator(device=card).manual_seed(s + d)
+    lay = _layer(card, gen, d, hq, hkv, dh, f)
+    n_pages = 1 + s * maxp
+    shape = (2, n_pages, page, hkv, dh)
+    kp = torch.randn(shape, generator=gen, device=card).bfloat16()
+    vp = torch.randn(shape, generator=gen, device=card).bfloat16()
+    lens_t = torch.tensor(lens + [1], dtype=torch.int32, device=card)
+    if slot:
+        tables = PA.slot_tables(s, maxp, maxp, 1, card)
+        kw = dict(attn_slot=True, slot_cap=-(-max(lens) // page),
+                  slot_maxp=maxp)
+    else:
+        tables = (torch.randperm(n_pages - 1, generator=gen, device=card)
+                  + 1).reshape(s, maxp).to(torch.int32)
+        tables[-1] = 0
+        kw = dict(tables=tables)
+    pos = (lens_t - 1).long()
+    page_idx = tables.long().gather(1, (pos // page)[:, None])[:, 0]
+    page_idx[-1] = 0
+    off = (pos % page).to(torch.int32)
+    off[-1] = 0
+    page_idx = page_idx.to(torch.int32)
+    x = torch.randn((s, d), generator=gen, device=card).bfloat16()
+    ang = torch.rand((s, dh // 2), generator=gen, device=card) * 6.28
+    c2, s2 = DL.make_rope_maps(torch.cos(ang), torch.sin(ang))
+    args = (x, c2, s2, *[lay[k] for k in LAYER], page_idx, off)
+    k_tw, v_tw = kp.clone(), vp.clone()
+    n0 = DL.decoder_layer_int8.launches
+    got, k_out, v_out = DL.decoder_layer_int8(*args, kp, vp, lens_t, layer=1,
+                                              **kw)
+    want, _, _ = DL.decoder_layer_int8_plain(*args, k_tw, v_tw, lens_t,
+                                             layer=1, **kw)
+    torch.cuda.synchronize()
+    assert DL.decoder_layer_int8.launches == n0 + 1
+    assert k_out is kp and v_out is vp
+    _close(got[:s - 1], want[:s - 1], 1e-3)
+    rows = (page_idx.long(), off.long())
+    for pool, twin in ((kp, k_tw), (vp, v_tw)):
+        keep = torch.ones(pool.shape[:3], dtype=torch.bool, device=card)
+        keep[1][rows] = False
+        assert torch.equal(pool[keep], twin[keep])
+        _close(pool[1][rows], twin[1][rows], 1e-3)
+
+
+def test_int8_wrappers_refuse_what_the_kernels_do_not_take(card):
+    gen = torch.Generator(device=card).manual_seed(0)
+    wq, ws = _q8(card, gen, 64, 128)
+    x = torch.randn((2, 64), device=card)
+    with pytest.raises(TypeError):
+        IM.int8_matmul(x.half(), wq, ws)
+    with pytest.raises(ValueError, match="multiple"):
+        IM.int8_matmul(x[:, :48].contiguous(), wq[:48].contiguous(), ws)
+    with pytest.raises(ValueError):
+        IM.int8_matmul(x, wq.cpu(), ws)
+    q, kp, vp = _slot_case(card, 2, 16, 8, 128, 64, 4, seed=1)
+    lens = torch.tensor([3, 9], dtype=torch.int32, device=card)
+    with pytest.raises(ValueError, match="overrun"):
+        PA.paged_decode_attention_dma_slot(q, kp, vp, lens, layer=0, cap=5,
+                                           maxp_slot=4)
+    with pytest.raises(ValueError, match="ratio"):
+        PA.paged_decode_attention_dma_slot(
+            torch.randn((2, 72, 128), device=card).bfloat16(), kp, vp, lens,
+            layer=0, cap=1, maxp_slot=4)

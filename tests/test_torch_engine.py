@@ -307,18 +307,30 @@ def test_concurrent_streams_share_the_batch():
 
 
 def test_deferred_and_invalid_knobs_raise():
-    for kw in (dict(weights="int8"), dict(weights="w8a8"),
-               dict(use_kernel=True, attn_batched=True),
-               dict(use_kernel=True, attn_slot=True)):
+    for kw in (dict(weights="w8a8"),
+               dict(weights="int8", use_kernel=True, kv_dtype="int8",
+                    layer_fused=True),
+               dict(weights="int8", use_kernel=True, attn_batched=True),
+               dict(use_kernel=True, attn_batched=True)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             port_engine(**kw)
     for kw in (dict(mlp_fused=True), dict(layer_fused=True),
                dict(use_kernel=False, scatter_fused=True),
                dict(use_kernel=True, kv_dtype="int8", scatter_fused=True),
                dict(attn_batched=True), dict(max_ctx=250),
-               dict(prefill_chunk=24)):
+               dict(prefill_chunk=24), dict(weights="w8a8", mlp_fused=True),
+               dict(use_kernel=True, kv_dtype="int8", attn_slot=True)):
         with pytest.raises(ValueError):
             port_engine(**kw)
+    # the JAX package refuses the same ones
+    for kw in (dict(weights="w8a8", mlp_fused=True),
+               dict(use_kernel=True, kv_dtype="int8", attn_slot=True)):
+        with pytest.raises(ValueError):
+            jax_engine(**kw)
+    # what moved out of the list: int8 weights, and slot-major attention
+    # with native weights (legal in JAX: a plain write, then the kernel)
+    assert port_engine(weights="int8").weights_int8
+    assert port_engine(use_kernel=True, attn_slot=True).slot_pages
     eng = port_engine()
     z = torch.zeros((2,), dtype=torch.int32)
     with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -6,7 +6,8 @@ FusedPipeline, and one through the Retriever over a TorchVectorStore with a
 qwen3-arch embedder and LLM reranker on their flash route, over a flat and
 then a segmented (IVF) store, and serves a JSON and an SSE chat through the
 local LLM transport over the paged engine's loop (kernel route, the twins
-on the CPU), then an int8-KV engine with chunked prefill."""
+on the CPU), then an int8-KV engine with chunked prefill, then an
+int8-weight engine on the decoder-layer megakernel's twin."""
 
 import ast
 import os
@@ -130,6 +131,11 @@ CHILD = textwrap.dedent("""
                           page_size=16, max_ctx=128, kv_dtype="int8",
                           prefill_chunk=32, use_kernel=True, device="cpu")
     assert int8.generate(["привет", "hello"], max_new_tokens=3)
+    w8 = PagedLLMEngine(llm.params, llm.cfg, eng.tokenizer, max_slots=2,
+                        page_size=16, max_ctx=128, weights="int8",
+                        use_kernel=True, device="cpu")
+    assert w8.layer_fused and w8.attn_slot
+    assert w8.generate(["привет", "hello"], max_new_tokens=3)
 
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in REFUSED)
     assert not leaked, leaked
