@@ -28,7 +28,11 @@ Phases, each printed with its seconds beside the card's name and power limit:
    ``scaled_dot_product_attention`` with the same mask) and the bound (the
    larger of the bytes the function needs / 3.35 TB/s and the operations
    it needs / 989 TFLOP/s, both counted over the real keys of this run's
-   masks).
+   masks). Then the two scans reached only from tests: the int8 x int8
+   scan (``topk_scan_int8mxu``: int8 queries quantized per row, exact int32
+   sums) over the int8 corpus at Q = 8, k = 20, bit for bit its twin's
+   (scores and ids), planted ties in id order; the streaming alias of the
+   bf16 scan, bit for bit ``topk_scan_bf16``; each timed as above.
 3. pipeline - the port's ``FusedPipeline`` with ``frida-hybrid`` and the
    shipping 4-member rerank ensemble on their bundled checkpoints, over a
    1M x 5120 corpus in which 8 bilingual chunk texts are planted
@@ -77,7 +81,9 @@ Phases, each printed with its seconds beside the card's name and power limit:
    library yardstick timed here only (``index_select`` of the probed
    blocks' rows, ``torch.matmul``, ``torch.topk``) and the bound (the rows
    of the distinct blocks read once, 2D + 4 bytes a row in bf16 and D + 8
-   in int8, against 2 x Q x rows scanned x D operations).
+   in int8, against 2 x Q x rows scanned x D operations). The manual-DMA
+   alias of the probed kernel (``ivf_probed_scan_dma``) once at Q 1,
+   bit for bit ``ivf_probed_scan``.
 7. segmented - ``Retriever`` with ``frida-hybrid`` and the rerank ensemble
    over ``TorchVectorStore(kind="segmented")`` with the ``SegmentedIndex``
    defaults: 250,000 rows in batches of 8,192 (the checkout's markdown in
@@ -116,7 +122,7 @@ Phases, each printed with its seconds beside the card's name and power limit:
    kernel exactly 28 times a decode step; while a request has been fed the
    same ids as in its reference run, its logits agree within ``LLM_DRIFT``
    at every step and its greedy id is equal unless the reference's top-2
-   gap there is under ``LLM_GAP`` = 2 x ``LLM_DRIFT``, where the walk stops
+   gap there is under ``LLM_GAP`` = 0.2, where the walk stops
    (``LLM_DRIFT`` is twice the model's bf16 noise floor on random weights:
    the bucketed and chunked prefills, which run no kernel, differ by about
    0.05 in the logits); one decode step at 4 active slots is profiled
@@ -150,8 +156,39 @@ Phases, each printed with its seconds beside the card's name and power limit:
    profiled (the megakernel's share); a JSON and an SSE chat through
    ``create_local_llm_transport(weights="int8")``.
 
+10. local-llm-w8a8-kv8 - the last decode routes of the same engine at full
+   width and depth. ``int8_matmul_w8a8`` against its twin over 28 layers'
+   weights read in turn at QKV (4 and 16 slots), wo, gate-up and down (4
+   slots; down also at 16) and the head (4 and 16 slots, float32 x), bit
+   for bit; the int8-KV megakernel ``decoder_layer_int8_kv8`` at 4 slots
+   (contexts 65, 200 and 384, then one of 2,047, and an idle slot) under
+   phase 9's rule for x, each written int8 value within 1 of the twin's,
+   each updated page scale within one bf16 step, every other row and scale
+   (the null page's excepted) bit for bit; the batched attention alias bit
+   for bit ``paged_decode_attention_dma`` at 4 x 2048. Times as in phase
+   9; yardsticks ``torch._int_mm`` with the scales (M padded to 32, the
+   least it takes), phase 9's composite with a dequantizing gather, and
+   phase 8's gather + SDPA. Then the engine, each route against its golden
+   route (``use_kernel=False``) under phase 8's rule, every launch count
+   exact: ``weights="w8a8"`` at 4 and 16 slots (W8A8 products and head,
+   the scatter kernel) within twice W8A8's own kernel-free floor as this
+   run measures it, not ``LLM_DRIFT`` (quantized activations turn a bf16
+   rounding change into int8 steps: the golden route with bucketed and
+   with chunked prefill differ by 0.144, against 0.058 with native or
+   int8 weights; the floor must stay under ``W8A8_FLOOR_MAX``), ids still
+   equal unless the top-2 gap is under ``LLM_GAP``, int8
+   weights with int8 KV and ``layer_fused=True``
+   at 4 slots (the int8-KV megakernel a layer, the 614-token request
+   joining 8 steps in), and ``attn_batched=True`` with native weights at 4
+   slots (``scatter_fused=False``, so that the batched wrapper itself
+   runs). The first-step logits of w8a8 against int8 weights (cosine,
+   reported); one profiled decode step each of w8a8 and of the int8-KV
+   megakernel; one profiled step each of the ``noattn`` and ``noscatter``
+   ablations (native weights, host ms a step); a JSON and an SSE chat
+   through ``create_local_llm_transport(weights="w8a8")``.
+
 Every kernel's launch count is set to 0 just before each path (3, 5, 6, 7,
-8 and 9) is driven and read just after; each kernel of a path must have launched. The
+8, 9 and 10) is driven and read just after; each kernel of a path must have launched. The
 script then prints one JSON line with every kernel's numbers, the card's
 ``nvidia-smi`` name and power limit, and as its last line
 ``{"ok": true, "device": {...}}``. Any failed check raises and the script
@@ -170,6 +207,7 @@ ROOT = Path(__file__).resolve().parent
 TOP_K = 20
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 BF16_OPS_PER_S = 989e12        # dense bf16 tensor-core peak, H100 SXM
+INT8_OPS_PER_S = 1979e12       # dense int8 tensor-core peak, H100 SXM
 TOL = 1e-4
 LSE_TOL = 1e-4
 O_ABS = 2e-3
@@ -183,9 +221,20 @@ PAGED_INT8_TOL = 2e-2
 # the full-width model on random weights turns any one bf16 rounding that
 # lands otherwise into a logit drift of about 0.05: two kernel-free
 # computations of the same prompt's logits (bucketed and chunked prefill)
-# differ by 0.054 on the card, so the engine checks allow twice that floor
+# differ by 0.054 on the card, so the engine checks allow twice that floor,
+# and greedy ids may differ only where the reference's top-2 gap is under
+# twice that drift (two logits that each move by at most the drift can
+# swap only there)
 LLM_DRIFT = 0.1
 LLM_GAP = 2 * LLM_DRIFT
+# the same rule for W8A8 weights, with the floor measured in the run:
+# quantizing the activations turns a bf16 rounding that lands otherwise
+# into an int8 step on some elements, so two kernel-free computations
+# differ more (the golden route with bucketed and with chunked prefill:
+# 0.144 on the card, against 0.058 with native or int8 weights). Phase 10
+# holds the W8A8 routes to twice the floor it measures, which itself must
+# stay under this; their ids may still swap only under LLM_GAP
+W8A8_FLOOR_MAX = LLM_GAP
 # int8_matmul against its twin: one bf16 step where the output is bf16, plus
 # this share of the largest |output| (float32 sums of at most 3,072 exact
 # products in another order)
@@ -245,8 +294,9 @@ def device_ms(fn, iters: int) -> float:
     return _busy_us(prof.events()) / 1e3 / iters
 
 
-def bound(nbytes: float, ops: float) -> dict:
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / BF16_OPS_PER_S
+def bound(nbytes: float, ops: float, ops_per_s: float = BF16_OPS_PER_S
+          ) -> dict:
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / ops_per_s
     return {"bound_ms": 1e3 * max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
@@ -290,6 +340,44 @@ INT8_KERNELS = {
                            "cmw_rag_tpu_torch/csrc/decoder_layer.cu")}
 
 
+#: the wrappers reached only from tests (no main path): (TPU kernel, CUDA
+#: source); each is launched once in its phase, bit for bit its kernel
+OFF_PATH_KERNELS = {
+    "topk_scan_int8mxu": ("cmw_rag_tpu/ops/topk.py:290",
+                          "cmw_rag_tpu_torch/csrc/topk_scan.cu"),
+    "topk_scan_stream": ("cmw_rag_tpu/ops/topk.py:418",
+                         "cmw_rag_tpu_torch/csrc/topk_scan.cu"),
+    "ivf_probed_scan_dma": ("cmw_rag_tpu/ops/ivf_scan.py:231",
+                            "cmw_rag_tpu_torch/csrc/ivf_scan.cu")}
+
+#: the phase-10 decode wrappers: (TPU kernel replaced, CUDA source)
+W8A8_KV8_KERNELS = {
+    "int8_matmul_w8a8": ("cmw_rag_tpu/ops/int8_matmul.py:133",
+                         "cmw_rag_tpu_torch/csrc/int8_matmul.cu"),
+    "decoder_layer_int8_kv8": ("cmw_rag_tpu/ops/decoder_layer.py:618",
+                               "cmw_rag_tpu_torch/csrc/decoder_layer_kv8.cu"),
+    "paged_decode_attention_dma_batched": (
+        "cmw_rag_tpu/ops/paged_attention.py:1241",
+        "cmw_rag_tpu_torch/csrc/paged_attention.cu")}
+
+
+def new_wrappers() -> dict:
+    """The wrappers of phase 10 and the off-path aliases, by name."""
+    from cmw_rag_tpu_torch.ops import decoder_layer as DL
+    from cmw_rag_tpu_torch.ops import int8_matmul as IM
+    from cmw_rag_tpu_torch.ops import ivf_scan as V
+    from cmw_rag_tpu_torch.ops import paged_attention as PA
+    from cmw_rag_tpu_torch.ops import topk as T
+
+    return {"int8_matmul_w8a8": IM.int8_matmul_w8a8,
+            "decoder_layer_int8_kv8": DL.decoder_layer_int8_kv8,
+            "paged_decode_attention_dma_batched":
+                PA.paged_decode_attention_dma_batched,
+            "topk_scan_int8mxu": T.topk_scan_int8mxu,
+            "topk_scan_stream": T.topk_scan_stream,
+            "ivf_probed_scan_dma": V.ivf_probed_scan_dma}
+
+
 def int8_wrappers() -> dict:
     from cmw_rag_tpu_torch.ops import decoder_layer as DL
     from cmw_rag_tpu_torch.ops import fused_mlp as FM
@@ -315,7 +403,7 @@ def reset_counts() -> None:
     for name in IVF_KERNELS:
         getattr(V, name).launches = 0
     PA.reset_launches()
-    for fn in int8_wrappers().values():
+    for fn in (*int8_wrappers().values(), *new_wrappers().values()):
         fn.launches = 0
 
 
@@ -330,7 +418,8 @@ def read_counts() -> dict:
             "flash_attention_fwd": F.total_launches(),
             **{name: getattr(V, name).launches for name in IVF_KERNELS},
             **{name: getattr(PA, name).launches for name in PAGED_KERNELS},
-            **{name: fn.launches for name, fn in int8_wrappers().items()}}
+            **{name: fn.launches for name, fn in int8_wrappers().items()},
+            **{name: fn.launches for name, fn in new_wrappers().items()}}
 
 
 # ------------------------------------------------------------------ kernels
@@ -453,6 +542,37 @@ def scan_phase(card_line: str) -> dict:
             report[(name, case)] = dict(entry, replaces=route,
                                         shape={"Q": nq, "N": n, "D": DIM,
                                                "k": k})
+    # the scans reached only from tests, each once at the main shape
+    nq, k = 8, TOP_K
+    q = q_all[:nq].contiguous()
+    off_path = {
+        "topk_scan_int8mxu": (
+            lambda: T.topk_scan_int8mxu(corpus8, scales, ids, q, k),
+            lambda: T.topk_plain_int8mxu(corpus8, scales, ids, q, k),
+            lambda: library_scan(corpus8, scales, ids, q, k),
+            N_ROWS * DIM + 8 * N_ROWS + nq * DIM, INT8_OPS_PER_S),
+        "topk_scan_stream": (
+            lambda: T.topk_scan_stream(corpus, ids, q, k),
+            lambda: T.topk_scan_bf16(corpus, ids, q, k),
+            lambda: library_scan(corpus, None, ids, q, k),
+            2 * N_ROWS * DIM + 4 * N_ROWS + 2 * nq * DIM, BF16_OPS_PER_S)}
+    for name, (kern, twin, lib, nbytes, rate) in off_path.items():
+        t0 = time.time()
+        got, want = kern(), twin()
+        torch.cuda.synchronize()
+        if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+            raise AssertionError(f"{name}: differs from "
+                                 f"{'its twin' if 'int8' in name else 'topk_scan_bf16'}")
+        err = check_against_plain(f"{name} main", got, want, ids, groups)
+        plain = (lambda: T.topk_plain(corpus, ids, q, k)) \
+            if name == "topk_scan_stream" else twin
+        entry = {"ms": cuda_ms(kern, 20), "plain_ms": cuda_ms(plain, 3),
+                 "library_ms": cuda_ms(lib, 3), "max_abs_err": err,
+                 **bound(nbytes + 8 * nq * k, 2.0 * nq * N_ROWS * DIM, rate)}
+        log(f"kernel-{name}-main", time.time() - t0, card_line, Q=nq,
+            N=N_ROWS, D=DIM, k=k, **fmt(entry))
+        report[(name, "main")] = dict(entry, shape={"Q": nq, "N": N_ROWS,
+                                                    "D": DIM, "k": k})
     del corpus, corpus8, scales, ids
     torch.cuda.empty_cache()
     return report
@@ -914,6 +1034,33 @@ def ivf_phase(card_line: str) -> dict:
             report[(name, case)] = dict(entry, shape={
                 "Q": nq, "k": k, "nprobe": I.NPROBE, "block_n": bn, "D": d,
                 "blocks_read": blocks.numel(), "N": I.N_ROWS})
+    # the manual-DMA alias of the probed kernel, once at Q 1: bit for bit
+    # the probed kernel, then held and timed against its own twin
+    t0 = time.time()
+    q = queries[:1].contiguous()
+    probes = b.probe(q.float(), I.NPROBE)
+    blocks = torch.unique(probes)
+    kern = lambda: V.ivf_probed_scan_dma(b.corpus, b.ids, q, probes,  # noqa: E731
+                                         TOP_K, bn)
+    plain = lambda: V.ivf_probed_plain(b.corpus, b.ids, q, probes,  # noqa: E731
+                                       TOP_K, bn)
+    lib = lambda: library_ivf(b.corpus, None, b.ids, q, probes,  # noqa: E731
+                              TOP_K, bn)
+    got, want = kern(), V.ivf_probed_scan(b.corpus, b.ids, q, probes, TOP_K,
+                                          bn)
+    torch.cuda.synchronize()
+    if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+        raise AssertionError("ivf_probed_scan_dma differs from ivf_probed_scan")
+    err = check_against_plain("ivf_probed_scan_dma q1", got, plain(), ids, [])
+    nbytes = (blocks.numel() * bn * (2 * d + 4) + 2 * d + 4 * probes.numel()
+              + 8 * TOP_K)
+    entry = {"ms": cuda_ms(kern, 20), "plain_ms": cuda_ms(plain, 3),
+             "library_ms": cuda_ms(lib, 3), "max_abs_err": err,
+             **bound(nbytes, 2.0 * probes.numel() * bn * d)}
+    log("kernel-ivf_probed_scan_dma-q1", time.time() - t0, card_line,
+        **fmt(entry))
+    report[("ivf_probed_scan_dma", "q1")] = dict(
+        entry, shape=report[("ivf_probed_scan", "q1")]["shape"])
     del index, b, b8
     torch.cuda.empty_cache()
     return {"kernels": report, "launches": launches, "recall_at_10": recall,
@@ -1226,14 +1373,15 @@ def recording_engine():
     return Recording
 
 
-def compare_runs(ref, test, label: str) -> dict:
+def compare_runs(ref, test, label: str, drift: float = LLM_DRIFT,
+                 gap: float = LLM_GAP) -> dict:
     """Request by request, walk the steps while both runs have fed the
-    model the same ids: the logits must agree within ``LLM_DRIFT`` at every
-    such step, and the greedy ids must be equal unless the reference's
-    top-2 gap there is under ``LLM_GAP`` = 2 x ``LLM_DRIFT`` (two logits
-    that each move by at most the drift can swap only there); the walk stops
-    at such a near tie. → steps compared, the largest drift at each step
-    index over the requests, and the near-tie swaps."""
+    model the same ids: the logits must agree within ``drift``
+    (``LLM_DRIFT`` by default) at every such step, and the greedy ids must
+    be equal unless the reference's top-2 gap there is under ``gap``
+    (``LLM_GAP`` by default); the walk stops at such a near tie. → steps
+    compared, the largest drift at each step index over the requests, and
+    the near-tie swaps."""
     import numpy as np
 
     by_step: dict = {}
@@ -1243,25 +1391,27 @@ def compare_runs(ref, test, label: str) -> dict:
         for i in range(min(len(a), len(b))):
             d = float(np.abs(a[i] - b[i]).max())
             by_step[i] = max(by_step.get(i, 0.0), d)
-            if not d <= LLM_DRIFT:
+            if not d <= drift:
                 raise AssertionError(f"{label}: request {rid} step {i}: "
-                                     f"logits drift {d} > {LLM_DRIFT}")
+                                     f"logits drift {d} > {drift}")
             compared += 1
             if int(a[i].argmax()) != int(b[i].argmax()):
                 top2 = np.partition(a[i], -2)[-2:]
-                gap = float(top2[1] - top2[0])
-                if not gap < LLM_GAP:
+                top_gap = float(top2[1] - top2[0])
+                if not top_gap < gap:
                     raise AssertionError(f"{label}: request {rid} step {i}: "
-                                         f"ids differ at a top-2 gap of {gap}")
-                ties.append((rid, i, gap))
+                                         f"ids differ at a top-2 gap of "
+                                         f"{top_gap}")
+                ties.append((rid, i, top_gap))
                 break
         else:
             if len(a) != len(b):
                 raise AssertionError(f"{label}: request {rid} ran {len(b)} "
                                      f"steps, the reference {len(a)}")
-    drift = [round(by_step[i], 6) for i in sorted(by_step)]
-    return {"steps_compared": compared, "max_logit_drift": max(drift),
-            "drift_by_step": drift, "near_tie_swaps": ties}
+    walk = [round(by_step[i], 6) for i in sorted(by_step)]
+    return {"steps_compared": compared, "max_logit_drift": max(walk),
+            "drift_by_step": walk, "near_tie_swaps": ties, "gate": drift,
+            "gap": gap}
 
 
 def engine_phase(card_line: str) -> dict:
@@ -1503,15 +1653,12 @@ def library_mlp(x, attn, lay, eps=1e-6):
                             lay["w_down_s"]).float()).to(x.dtype)
 
 
-def library_layer(x, c2, s2, lay, pi, off, kl, vl, tables, lens, eps=1e-6):
-    """Yardstick only, a composite of library calls for the decoder layer:
-    norms and RoPE in torch ops, dequantized ``torch.matmul`` products, the
-    rows written by index, ``scaled_dot_product_attention`` over the
-    gathered context."""
+def library_qkv(x, c2, s2, lay, hkv: int, eps=1e-6):
+    """Yardstick only: the attention norm, dequantized ``torch.matmul`` QKV,
+    head norms and RoPE in torch ops → q, k, v [S, H, Dh] float32."""
     import torch
 
     s, dh = x.shape[0], c2.shape[1]
-    hkv = kl.shape[2]
     xf = x.float()
     y = (xf * torch.rsqrt(xf.square().mean(-1, keepdim=True) + eps)
          * lay["attn_norm"]).to(torch.bfloat16)
@@ -1524,11 +1671,20 @@ def library_layer(x, c2, s2, lay, pi, off, kl, vl, tables, lens, eps=1e-6):
 
     q = nr(qkv[:, :hq * dh].reshape(s, hq, dh), lay["q_norm"])
     k = nr(qkv[:, hq * dh:(hq + hkv) * dh].reshape(s, hkv, dh), lay["k_norm"])
+    return q, k, qkv[:, (hq + hkv) * dh:].reshape(s, hkv, dh)
+
+
+def library_layer(x, c2, s2, lay, pi, off, kl, vl, tables, lens, eps=1e-6):
+    """Yardstick only, a composite of library calls for the decoder layer:
+    ``library_qkv``, the rows written by index,
+    ``scaled_dot_product_attention`` over the gathered context, the MLP."""
+    import torch
+
+    q, k, v = library_qkv(x, c2, s2, lay, kl.shape[2], eps)
     kl[pi.long(), off.long()] = k.to(kl.dtype)
-    vl[pi.long(), off.long()] = qkv[:, (hq + hkv) * dh:].reshape(
-        s, hkv, dh).to(vl.dtype)
+    vl[pi.long(), off.long()] = v.to(vl.dtype)
     attn = library_paged(q.to(torch.bfloat16), kl, vl, tables, lens)
-    return library_mlp(x, attn.reshape(s, hq * dh), lay, eps)
+    return library_mlp(x, attn.reshape(x.shape[0], -1), lay, eps)
 
 
 def held(got, want, tol: float, label: str) -> dict:
@@ -1920,6 +2076,412 @@ def int8_llm_phase(card_line: str) -> dict:
             "launches": launches}
 
 
+# ------------------------------------------- w8a8 and int8-KV LLM routes
+
+
+def library_w8a8(x, w_q, scale):
+    """Yardstick only: the activations quantized as the wrapper does, then
+    ``torch._int_mm`` (which takes at least 17 rows: M padded to 32) and
+    the two scales."""
+    import torch
+    from cmw_rag_tpu_torch.ops.int8_matmul import quantize_activations
+
+    xq, sx = quantize_activations(x)
+    m = xq.shape[0]
+    if m < 32:
+        xq = torch.cat([xq, xq.new_zeros((32 - m, xq.shape[1]))])
+    acc = torch._int_mm(xq, w_q)[:m]
+    return ((acc.float() * scale[None, :]) * sx[:, None]).to(x.dtype)
+
+
+def library_layer_kv8(x, c2, s2, lay, pi, off, kq, ks, vq, vs, tables, lens,
+                      eps=1e-6):
+    """Yardstick only, phase 9's composite over int8 pages: the new rows
+    quantized against their pages' scales by index, then the dequantizing
+    gather and ``scaled_dot_product_attention``."""
+    import torch
+    from cmw_rag_tpu_torch.ops.paged_attention import (KV_HEADROOM,
+                                                       quantize_kv_token)
+
+    q, k, v = library_qkv(x, c2, s2, lay, kq.shape[2], eps)
+    p, o = pi.long(), off.long()
+    fresh = (o == 0)[:, None]
+    for pool, plane, t in ((kq, ks, k), (vq, vs, v)):
+        t = t.to(torch.bfloat16).float()
+        new = torch.where(fresh, t.abs().amax(-1).clamp(min=1e-8)
+                          * (KV_HEADROOM / 127.0), plane[p])
+        pool[p, o] = quantize_kv_token(t, new)
+        plane[p] = new
+    attn = library_paged(q.to(torch.bfloat16), kq, vq, tables, lens, ks, vs)
+    return library_mlp(x, attn.reshape(x.shape[0], -1), lay, eps)
+
+
+def w8a8_kv8_kernel_phase(card_line: str) -> dict:
+    """Hold the W8A8 matmul, the int8-KV megakernel and the batched
+    attention alias against their twins at the main path's shapes (28
+    layers' weights read in turn); time each, its twin and a yardstick."""
+    import torch
+    from cmw_rag_tpu_torch.ops import decoder_layer as DL
+    from cmw_rag_tpu_torch.ops import int8_matmul as IM
+    from cmw_rag_tpu_torch.ops import paged_attention as PA
+
+    n_layers, d, hq, hkv, dh, f, page, maxp = 28, 1024, 16, 8, 128, 3072, 64, 32
+    a, a3 = hq * dh, (hq + 2 * hkv) * dh
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    t0 = time.time()
+    layers = int8_layers(n_layers, gen)
+    head_q, head_s = IM.quantize_weight(
+        torch.randn((d, 151680), generator=gen, device="cuda") * 0.02)
+    log("w8a8-kv8-setup", time.time() - t0, card_line, layers=n_layers)
+    report = {}
+
+    def timed(name, case, kern, plain, lib, nbytes, ops, rate, shape, extra,
+              iters=56):
+        t1 = time.time()
+        entry = {**extra, "ms": device_ms(kern, iters),
+                 "plain_ms": device_ms(plain, 5),
+                 "library_ms": device_ms(lib, 5),
+                 "call_ms": cuda_ms(kern, iters), **bound(nbytes, ops, rate)}
+        log(f"kernel-{name}-{case}", time.time() - t1, card_line,
+            **fmt(entry))
+        report[(name, case)] = dict(entry, shape=shape)
+
+    # W8A8: every product of a layer and the head, at 4 and 16 slots
+    products = {"qkv": ("wqkv_q", "wqkv_s", d, a3),
+                "wo": ("wo_q", "wo_s", a, d),
+                "gateup": ("w_gateup_q", "w_gateup_s", d, 2 * f),
+                "down": ("w_down_q", "w_down_s", f, d)}
+    for case in ("qkv-s4", "wo-s4", "gateup-s4", "down-s4", "head-s4",
+                 "qkv-s16", "down-s16", "head-s16"):
+        prod, slots = case.split("-")
+        m = int(slots[1:])
+        if prod == "head":
+            ws, k, n, xdt = [(head_q, head_s)], d, 151680, torch.float32
+        else:
+            wq_name, ws_name, k, n = products[prod]
+            ws = [(lay[wq_name], lay[ws_name]) for lay in layers]
+            xdt = torch.bfloat16
+        x = torch.randn((m, k), generator=gen, device="cuda").to(xdt)
+        got = IM.int8_matmul_w8a8(x, *ws[0])
+        want = IM.int8_matmul_w8a8_plain(x, *ws[0])
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"int8_matmul_w8a8 {case}: differs from its "
+                                 f"twin by {(got - want).abs().max().item()}")
+        xb = x.element_size()
+        timed("int8_matmul_w8a8", case,
+              cycling(lambda i: IM.int8_matmul_w8a8(x, *ws[i]), len(ws)),
+              cycling(lambda i: IM.int8_matmul_w8a8_plain(x, *ws[i]),
+                      len(ws)),
+              cycling(lambda i: library_w8a8(x, *ws[i]), len(ws)),
+              k * n + 4 * n + m * k * xb + m * n * xb, 2.0 * m * k * n,
+              INT8_OPS_PER_S, {"M": m, "K": k, "N": n, "x": str(xdt)},
+              {"max_abs_err": 0.0, "bit_equal": True})
+
+    # the int8-KV megakernel at 4 slots, one idle slot
+    s = 4
+    n_pages = 1 + s * maxp
+    for case, lens in (("s4", [65, 200, 384]), ("s4-long", [1, 700, 2047])):
+        shape = (n_layers, n_pages, page, hkv, dh)
+        kq, ks = PA.quantize_kv_page(torch.randn(shape, generator=gen,
+                                                 device="cuda"))
+        vq, vs = PA.quantize_kv_page(torch.randn(shape, generator=gen,
+                                                 device="cuda"))
+        lens_t = torch.tensor(lens + [1], dtype=torch.int32, device="cuda")
+        perm = torch.randperm(n_pages - 1, generator=gen, device="cuda") + 1
+        tables = perm[:s * maxp].reshape(s, maxp).to(torch.int32)
+        tables[-1] = 0                                    # the idle slot
+        pos = (lens_t - 1).long()
+        page_idx = tables.long().gather(1, (pos // page)[:, None])[:, 0]
+        page_idx[-1] = 0
+        page_idx = page_idx.to(torch.int32)
+        off = (pos % page).to(torch.int32)
+        off[-1] = 0
+        x = torch.randn((s, d), generator=gen, device="cuda").bfloat16()
+        ang = torch.rand((s, dh // 2), generator=gen, device="cuda") * 6.28
+        c2, s2 = DL.make_rope_maps(torch.cos(ang), torch.sin(ang))
+
+        def kern(li, kq=kq, ks=ks, vq=vq, vs=vs, tables=tables):
+            return DL.decoder_layer_int8_kv8(
+                x, c2, s2, *[layers[li][k] for k in LAYER_KEYS], page_idx,
+                off, kq, ks[li], vq, vs[li], lens_t, layer=li,
+                tables=tables)[0]
+
+        def plain(li, kq=kq, ks=ks, vq=vq, vs=vs, tables=tables):
+            return DL.decoder_layer_int8_kv8_plain(
+                x, c2, s2, *[layers[li][k] for k in LAYER_KEYS], page_idx,
+                off, kq, ks[li], vq, vs[li], lens_t, layer=li,
+                tables=tables)[0]
+
+        def lib(li, kq=kq, ks=ks, vq=vq, vs=vs, tables=tables):
+            return library_layer_kv8(x, c2, s2, layers[li], page_idx, off,
+                                     kq[li], ks[li], vq[li], vs[li], tables,
+                                     lens_t)
+        li = 5
+        before = [t[li].clone() for t in (kq, ks, vq, vs)]
+        got = kern(li)
+        torch.cuda.synchronize()
+        after = [t[li].clone() for t in (kq, ks, vq, vs)]
+        for t, b0 in zip((kq, ks, vq, vs), before):
+            t[li].copy_(b0)
+        want = plain(li)
+        act = slice(0, s - 1)
+        rows = (page_idx[act].long(), off[act].long())
+        pages = page_idx[act].long()
+        checks = held(got[act], want[act], INT8_LAYER_TOL,
+                      f"decoder_layer_int8_kv8 {case}")
+        for label, g_pool, w_pool, b_pool in (("k", after[0], kq[li],
+                                               before[0]),
+                                              ("v", after[2], vq[li],
+                                               before[2])):
+            keep = torch.ones(g_pool.shape[:2], dtype=torch.bool,
+                              device="cuda")
+            keep[rows] = False
+            keep[0] = False                               # the null page
+            if not (torch.equal(g_pool[keep], b_pool[keep])
+                    and torch.equal(w_pool[keep], b_pool[keep])):
+                raise AssertionError(f"decoder_layer_int8_kv8 {case}: {label}"
+                                     f" rows other than the new ones changed")
+            diff = (g_pool[rows].int() - w_pool[rows].int()).abs().max()
+            if diff.item() > 1:
+                raise AssertionError(f"decoder_layer_int8_kv8 {case}: a "
+                                     f"written {label} value {diff.item()} "
+                                     f"from the twin's")
+            checks[f"{label}_rows_max_diff"] = diff.item()
+        for label, g_pl, w_pl, b_pl in (("k", after[1], ks[li], before[1]),
+                                        ("v", after[3], vs[li], before[3])):
+            keep = torch.ones(g_pl.shape[0], dtype=torch.bool, device="cuda")
+            keep[pages] = False
+            keep[0] = False
+            if not torch.equal(g_pl[keep], b_pl[keep]):
+                raise AssertionError(f"decoder_layer_int8_kv8 {case}: {label}"
+                                     f" scales of other pages changed")
+            steps = ((g_pl[pages] - w_pl[pages]).abs()
+                     / bf16_step(w_pl[pages]).clamp(min=1e-30)).max().item()
+            if steps > 1:
+                raise AssertionError(f"decoder_layer_int8_kv8 {case}: a "
+                                     f"{label} scale {steps} bf16 steps from "
+                                     f"the twin's")
+            checks[f"{label}_scale_max_bf16_steps"] = steps
+        positions = sum(lens) + 1
+        used = sum(-(-n // page) for n in lens) + 1
+        w_bytes = d * a3 + a * d + d * 2 * f + f * d
+        timed("decoder_layer_int8_kv8", case, cycling(kern, n_layers),
+              cycling(plain, n_layers), cycling(lib, n_layers),
+              w_bytes + 4 * (a3 + 4 * d + 2 * f + 2 * dh) + 2 * 2 * s * d
+              + 2 * 4 * s * dh + 2 * positions * hkv * dh
+              + 2 * 4 * used * hkv + 12 * s,
+              2.0 * s * w_bytes + 4.0 * hq * dh * positions, BF16_OPS_PER_S,
+              {"S": s, "D": d, "Hq": hq, "Hkv": hkv, "Dh": dh, "F": f,
+               "page": page, "lens": lens + [1]}, checks)
+        del kq, vq, ks, vs, before, after
+        torch.cuda.empty_cache()
+
+    # the batched attention alias at 4 x 2048, bit for bit the paged kernel
+    xin = paged_inputs(4, 32, [1, 63, 2047], n_layers, seed=40)
+    q, kp, vp, tables, lens_t = (xin[k] for k in ("q", "kp", "vp", "tables",
+                                                  "lens"))
+    got = PA.paged_decode_attention_dma_batched(q, kp, vp, tables, lens_t,
+                                                layer=3)
+    want = PA.paged_decode_attention_dma(q, kp, vp, tables, lens_t, layer=3)
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        raise AssertionError("paged_decode_attention_dma_batched differs "
+                             "from paged_decode_attention_dma")
+    pos = int(lens_t.sum().item())
+    twin = PA.paged_decode_attention_xla(q, kp[3], vp[3], tables, lens_t)
+    timed("paged_decode_attention_dma_batched", "serving",
+          cycling(lambda li: PA.paged_decode_attention_dma_batched(
+              q, kp, vp, tables, lens_t, layer=li), n_layers),
+          cycling(lambda li: PA.paged_decode_attention_xla(
+              q, kp[li], vp[li], tables, lens_t), n_layers),
+          cycling(lambda li: library_paged(q, kp[li], vp[li], tables, lens_t),
+                  n_layers),
+          2 * pos * hkv * dh * 2 + 2 * 2 * q.numel() + tables.numel() * 4
+          + 4 * 4, 4.0 * hq * dh * pos, BF16_OPS_PER_S,
+          {"S": 4, "Hq": hq, "Hkv": hkv, "Dh": dh, "page": page, "maxp": 32,
+           "lens": [1, 63, 2047, 1], "layers": n_layers},
+          {"max_abs_err": (got[:3].float() - twin[:3].float()).abs().max()
+           .item(), "bit_equal_to": "paged_decode_attention_dma"})
+    del layers, head_q, head_s, xin, q, kp, vp
+    torch.cuda.empty_cache()
+    return report
+
+
+def w8a8_kv8_engine_phase(card_line: str) -> dict:
+    """The full-width engine on the routes a caller selects: w8a8 at 4 and
+    16 slots, the int8-KV megakernel at 4 slots, attn_batched at 4 slots,
+    each against its golden route; the first-step logits of w8a8 against
+    int8 weights; profiled steps of w8a8, the int8-KV megakernel and the
+    two ablations."""
+    import types
+
+    import numpy as np
+    import torch
+    from cmw_rag_tpu_torch.scripts import local_llm as LL
+
+    t0 = time.time()
+    cfg = LL.config()
+    params = LL.build_params(cfg, seed=0, device="cuda")
+    prompts = LL.chat_prompts() + [LL.long_chat_prompt()]
+    torch.cuda.synchronize()
+    log("w8a8-kv8-llm-setup", time.time() - t0, card_line, spec=LL.SPEC,
+        requests=len(prompts))
+    Rec = route_recording_engine()
+    n_l = cfg.num_layers
+    names = (list(W8A8_KV8_KERNELS) + list(INT8_KERNELS)
+             + list(PAGED_KERNELS))
+
+    def want_w8a8(eng):
+        return {"int8_matmul_w8a8": (4 * n_l + 1) * eng.decode_steps,
+                "paged_decode_attention_dma_scatter": n_l * eng.decode_steps}
+
+    def want_kv8(eng):
+        return {"decoder_layer_int8_kv8": n_l * eng.decode_steps,
+                "int8_matmul": eng.decode_steps}
+
+    def want_batched(eng):
+        return {"paged_decode_attention_dma_batched": n_l * eng.decode_steps}
+
+    def staggered(eng):
+        """The chats first, the long request 8 steps later."""
+        reqs = [eng.submit(p, max_new_tokens=LL.MAX_NEW_TOKENS)
+                for p in prompts[:-1]]
+        for _ in range(8):
+            eng.step()
+        reqs.append(eng.submit(prompts[-1], max_new_tokens=LL.MAX_NEW_TOKENS))
+        eng.run_until_done(reqs)
+        return reqs
+
+    # W8A8's own noise floor, no kernel: the golden route with bucketed and
+    # with chunked prefill; the W8A8 routes are held to twice it
+    t1 = time.time()
+    floor = {}
+    for label, kw in (("bucketed", {}), ("chunked", dict(prefill_chunk=256))):
+        eng = LL.build_engine(params, cfg, engine_cls=Rec, weights="w8a8",
+                              use_kernel=False, **kw)
+        LL.run_requests(eng, prompts[:-1])
+        floor[label] = types.SimpleNamespace(trace=eng.trace)
+        del eng
+    w8a8_floor = compare_runs(floor["bucketed"], floor["chunked"],
+                              "w8a8 floor", W8A8_FLOOR_MAX)
+    w8a8_gate = 2 * w8a8_floor["max_logit_drift"]
+    result = {"runs": {}, "w8a8_floor": w8a8_floor, "w8a8_gate": w8a8_gate}
+    log("w8a8-floor", time.time() - t1, card_line,
+        max_logit_drift=w8a8_floor["max_logit_drift"],
+        floor_max=W8A8_FLOOR_MAX, gate=w8a8_gate)
+    runs = [("w8a8-s4", dict(weights="w8a8"), want_w8a8, w8a8_gate),
+            ("w8a8-s16", dict(weights="w8a8", max_slots=16), want_w8a8,
+             w8a8_gate),
+            ("kv8-megakernel", dict(weights="int8", kv_dtype="int8",
+                                    layer_fused=True), want_kv8, LLM_DRIFT),
+            ("batched", dict(attn_batched=True, scatter_fused=False),
+             want_batched, LLM_DRIFT)]
+    for label, kw, want_fn, gate in runs:
+        traces = {}
+        for route in ("golden", "kernel"):
+            t1 = time.time()
+            rkw = dict(kw, use_kernel=route == "kernel")
+            if route == "golden":   # knobs of the kernel route only
+                for knob in ("layer_fused", "attn_batched", "scatter_fused"):
+                    rkw.pop(knob, None)
+            eng = LL.build_engine(params, cfg, engine_cls=Rec, **rkw)
+            n0 = read_counts()
+            reqs = staggered(eng)
+            torch.cuda.synchronize()
+            wall = time.time() - t1
+            n1 = read_counts()
+            bad = [(r.rid, r.finish_reason) for r in reqs
+                   if not r.done or r.finish_reason not in ("length", "stop")]
+            if bad:
+                raise AssertionError(f"{label} {route}: unfinished {bad}")
+            launches = {k: n1[k] - n0[k] for k in names}
+            want = {k: 0 for k in names}
+            if route == "kernel":
+                want.update(want_fn(eng))
+            if launches != want:
+                raise AssertionError(f"{label} {route}: launches {launches}, "
+                                     f"want {want} ({eng.decode_steps} "
+                                     f"decode steps)")
+            run = {"decode_steps": eng.decode_steps,
+                   "tokens": sum(len(r.out) for r in reqs), "wall_s": wall,
+                   "ms_per_step": 1e3 * wall / eng.decode_steps,
+                   "layer_fused": eng.layer_fused, "w8a8": eng.w8a8,
+                   "kv_int8": eng.kv_int8, "attn_batched": eng.attn_batched,
+                   "kernel_launches": sum(launches.values())}
+            traces[route] = types.SimpleNamespace(trace=eng.trace)
+            if route == "kernel":
+                run.update(compare_runs(traces["golden"], traces["kernel"],
+                                        label, gate))
+            log(f"w8a8-kv8-llm-{label}-{route}", wall, card_line, **fmt(
+                {k: v for k, v in run.items() if k != "drift_by_step"}),
+                drift_by_step=json.dumps(run.get("drift_by_step", [])))
+            result["runs"][f"{label}-{route}"] = run
+            del eng
+            torch.cuda.empty_cache()
+    # first-step logits of w8a8 against int8 weights (golden routes)
+    t1 = time.time()
+    firsts = {}
+    for weights in ("int8", "w8a8"):
+        eng = LL.build_engine(params, cfg, engine_cls=Rec, weights=weights,
+                              use_kernel=False)
+        LL.run_requests(eng, prompts[:6], max_new_tokens=2)
+        # the second sample is the first decode step's (the first, prefill,
+        # dequantizes the same weights for both)
+        firsts[weights] = [eng.trace[rid][1] for rid in sorted(eng.trace)]
+        del eng
+    cos = [float(np.dot(a, b) / (np.linalg.norm(a) * np.linalg.norm(b)))
+           for a, b in zip(firsts["int8"], firsts["w8a8"])]
+    same = sum(int(a.argmax() == b.argmax())
+               for a, b in zip(firsts["int8"], firsts["w8a8"]))
+    result["first_decode_step_w8a8_vs_int8"] = {
+        "cosine": cos, "min_cosine": min(cos), "same_greedy_id": same}
+    log("w8a8-vs-int8", time.time() - t1, card_line,
+        min_cosine=f"{min(cos):.6f}", same_greedy_id=f"{same}/{len(cos)}")
+    # profiled decode steps: 4 active slots each
+    profiles = {}
+    for label, kw in (("w8a8", dict(weights="w8a8")),
+                      ("kv8-megakernel", dict(weights="int8",
+                                              kv_dtype="int8",
+                                              layer_fused=True)),
+                      ("ablate-noattn", dict(ablate="noattn")),
+                      ("ablate-noscatter", dict(ablate="noscatter"))):
+        t1 = time.time()
+        eng = LL.build_engine(params, cfg, **kw)
+        for p in prompts[:4]:
+            eng.submit(p, max_new_tokens=64)
+        for _ in range(16):
+            eng.step()
+        prof = LL.profile_decode(eng, names=LL.profile_names(eng))
+        log(f"w8a8-kv8-profile-{label}", time.time() - t1, card_line,
+            **fmt({k: v for k, v in prof.items()
+                   if not isinstance(v, (list, dict))}))
+        profiles[label] = prof
+        del eng
+        torch.cuda.empty_cache()
+    result["decode_profiles"] = profiles
+    del params
+    torch.cuda.empty_cache()
+    return result
+
+
+def w8a8_kv8_phase(card_line: str) -> dict:
+    """Phase 10: the new kernels against their twins, then the main path
+    (the engine runs, the profiled steps and the w8a8 transport) with every
+    count set to 0 before it."""
+    kernels = w8a8_kv8_kernel_phase(card_line)
+    reset_counts()
+    engine = w8a8_kv8_engine_phase(card_line)
+    transport = transport_phase(card_line, weights="w8a8")
+    launches = read_counts()
+    for name in W8A8_KV8_KERNELS:
+        if launches[name] < 1:
+            raise AssertionError(f"{name} was launched no time on the w8a8 "
+                                 f"and int8-KV LLM path")
+    return {"kernels": kernels, "engine": engine, "transport": transport,
+            "launches": launches}
+
+
 def main() -> int:
     import torch
 
@@ -1955,11 +2517,15 @@ def main() -> int:
     t_int8 = time.time()
     int8 = int8_llm_phase(card_line)
     int8_seconds = time.time() - t_int8
+    t_new = time.time()
+    w8a8 = w8a8_kv8_phase(card_line)
+    w8a8_seconds = time.time() - t_new
 
     by_path = {"fused": fused["launches"], "long_context": long_ctx["launches"],
                "ivf": ivf["launches"], "segmented": segmented["launches"],
                "local_llm": llm["launches"],
-               "local_llm_int8": int8["launches"]}
+               "local_llm_int8": int8["launches"],
+               "local_llm_w8a8_kv8": w8a8["launches"]}
     rows = []
     for name in ("topk_scan_bf16", "topk_scan_int8"):
         main_shape = scans[(name, "main")]
@@ -2064,6 +2630,43 @@ def main() -> int:
                 "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
                 "max_abs_err", "shape")}
         rows.append(row)
+    new_cases = {"int8_matmul_w8a8": ("qkv-s4", "wo-s4", "gateup-s4",
+                                      "down-s4", "head-s4", "qkv-s16",
+                                      "down-s16", "head-s16"),
+                 "decoder_layer_int8_kv8": ("s4", "s4-long"),
+                 "paged_decode_attention_dma_batched": ("serving",)}
+    new_runs = w8a8["engine"]["runs"]
+    for name, (replaces, source) in W8A8_KV8_KERNELS.items():
+        cases = new_cases[name]
+        main_case = w8a8["kernels"][(name, cases[0])]
+        row = {"name": name, "route": "cuda", "source": source,
+               "replaces": replaces,
+               "launches": sum(p[name] for p in by_path.values()),
+               "launches_by_path": {p: c[name] for p, c in by_path.items()},
+               "decode_steps_by_run": {r: v["decode_steps"]
+                                       for r, v in new_runs.items()},
+               "max_abs_err": max(w8a8["kernels"][(name, c)]["max_abs_err"]
+                                  for c in cases)}
+        row.update({k: main_case[k] for k in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")})
+        for case in cases[1:]:
+            row[case] = {k: w8a8["kernels"][(name, case)][k] for k in (
+                "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+                "max_abs_err", "shape")}
+        rows.append(row)
+    off_path = {"topk_scan_int8mxu": scans[("topk_scan_int8mxu", "main")],
+                "topk_scan_stream": scans[("topk_scan_stream", "main")],
+                "ivf_probed_scan_dma":
+                    ivf["kernels"][("ivf_probed_scan_dma", "q1")]}
+    for name, (replaces, source) in OFF_PATH_KERNELS.items():
+        entry = off_path[name]
+        rows.append({"name": name, "route": "cuda", "source": source,
+                     "replaces": replaces,
+                     "launches": sum(p[name] for p in by_path.values()),
+                     "on_a_main_path": False,
+                     **{k: entry[k] for k in (
+                         "max_abs_err", "ms", "plain_ms", "bound_ms",
+                         "bound_by", "library_ms", "shape")}})
     print(json.dumps({"kernels": rows, "pipeline_qps": fused["qps"],
                       "card_vs_cpu": card_cpu,
                       "long_context": {k: v for k, v in long_ctx.items()
@@ -2079,6 +2682,10 @@ def main() -> int:
                       "local_llm_int8": {"engine": int8["engine"],
                                          "transport": int8["transport"]},
                       "local_llm_int8_phase_seconds": round(int8_seconds, 3),
+                      "local_llm_w8a8_kv8": {"engine": w8a8["engine"],
+                                             "transport": w8a8["transport"]},
+                      "local_llm_w8a8_kv8_phase_seconds":
+                          round(w8a8_seconds, 3),
                       "seconds": round(time.time() - t_all, 3),
                       "card": card_line}), flush=True)
     print(card_line, flush=True)

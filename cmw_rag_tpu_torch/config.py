@@ -238,6 +238,6 @@ class Settings:
     local_llm_slots: int = 4
     local_llm_max_ctx: int = 2048
     local_llm_checkpoint: str = ""       # npz params; "" = random init
-    local_llm_weights: str = "native"    # native | int8 ("w8a8" not ported)
+    local_llm_weights: str = "native"    # native | int8 | w8a8
     local_llm_kv_dtype: str = "native"   # native | int8 KV pages
     local_llm_layer_fused: bool | None = None  # needs int8 weights

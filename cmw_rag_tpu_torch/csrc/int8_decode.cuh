@@ -34,7 +34,13 @@
 //   zeroes them with a where). 16-byte loads (8 bf16), Dh / 8 threads a row,
 //   4 rows in flight per thread. Pool rows are read with ld.global.cg: the
 //   decoder-layer megakernel writes this step's row earlier in the same
-//   launch, and L1 is not coherent across SMs.
+//   launch, and L1 is not coherent across SMs. int8 pools (the int8-KV
+//   megakernel) carry a float32 scale per (page, KV head), [P, Hkv], also
+//   read with ld.global.cg: a score is (q . k_int8) * k_scale / sqrt(Dh)
+//   and a probability is multiplied by v_scale before it weights v_int8, as
+//   the TPU's int8 pipeline folds them (paged_attention.py:685); a thread
+//   loads 8 bytes (8 int8 values) of a row, so the layout of threads over
+//   a row is the bf16 one.
 //
 // mlp_phases - wo -> residual -> RMSNorm -> gate/up -> SiLU * up -> down ->
 //   residual, the fused MLP (csrc/fused_mlp.cu) and the back half of the
@@ -233,15 +239,56 @@ struct TablePages {
   __device__ int64_t operator()(int j) const { return row[j]; }
 };
 
+// 8 values of a pool row: 16 bytes of bf16 or 8 bytes of int8, loaded raw
+// with ld.global.cg (zeros when `live` is false) and turned into floats
+// where they are used.
+template <typename TP>
+struct Row8;
+
+template <>
+struct Row8<__nv_bfloat16> {
+  using Raw = uint4;
+  __device__ static Raw load(const __nv_bfloat16* pool, int64_t at,
+                             bool live) {
+    return live ? __ldcg(reinterpret_cast<const uint4*>(pool + at))
+                : make_uint4(0u, 0u, 0u, 0u);
+  }
+  __device__ static void cvt(const Raw& u, float* f) {
+    const __nv_bfloat162* h2 = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float2 t = __bfloat1622float2(h2[e]);
+      f[2 * e] = t.x;
+      f[2 * e + 1] = t.y;
+    }
+  }
+};
+
+template <>
+struct Row8<int8_t> {
+  using Raw = uint2;
+  __device__ static Raw load(const int8_t* pool, int64_t at, bool live) {
+    return live ? __ldcg(reinterpret_cast<const uint2*>(pool + at))
+                : make_uint2(0u, 0u);
+  }
+  __device__ static void cvt(const Raw& u, float* f) {
+    const int8_t* b = reinterpret_cast<const int8_t*>(&u);
+#pragma unroll
+    for (int e = 0; e < 8; ++e) f[e] = static_cast<float>(b[e]);
+  }
+};
+
 // One (slot, KV head g): q [Hq, DH] of the slot (float or bf16), pools of
-// one layer [P, page, hkv, DH] bf16, out [Hq, DH] of the slot. Every thread
-// of the block must call it. Uses attend_smem(DH) bytes of smem.
-template <int DH, typename TQ, typename TO, class PageOf>
-__device__ void attend(const TQ* q, int g, int rep,
-                       const __nv_bfloat16* k_pool,
-                       const __nv_bfloat16* v_pool, int hkv, int page,
-                       const PageOf& page_of, int len, TO* out, float* smem) {
-  constexpr int E = 8;           // bf16 values in 16 bytes
+// one layer [P, page, hkv, DH] bf16, or int8 with scales [P, hkv]
+// (k_scale, v_scale; null for bf16), out [Hq, DH] of the slot. Every
+// thread of the block must call it. Uses attend_smem(DH) bytes of smem.
+template <int DH, typename TQ, typename TP, typename TO, class PageOf>
+__device__ void attend(const TQ* q, int g, int rep, const TP* k_pool,
+                       const TP* v_pool, int hkv, int page,
+                       const PageOf& page_of, int len, TO* out, float* smem,
+                       const float* k_scale = nullptr,
+                       const float* v_scale = nullptr) {
+  constexpr int E = 8;           // values a thread loads of a row
   constexpr int TPR = DH / E;    // threads a row
   constexpr int NG = kThreads / TPR;  // rows a pass
   static_assert(32 % TPR == 0, "a row's threads share a warp");
@@ -274,30 +321,28 @@ __device__ void attend(const TQ* q, int g, int rep,
     return page_of(p / page) * page_stride + (p % page) * row_stride +
            g * DH + c * E;
   };
+  // the page's scale of position p (1 for bf16 pools: d * 1 is d)
+  auto scale_at = [&](const float* plane, int p, bool live) -> float {
+    if (plane == nullptr || !live) return 1.f;
+    return __ldcg(plane + page_of(p / page) * hkv + g);
+  };
 
   for (int c0 = 0; c0 < len; c0 += kAttnChunk) {
     const int rows = min(kAttnChunk, len - c0);
     for (int i0 = 0; i0 < rows; i0 += NG * kAttnUnroll) {
-      uint4 raw[kAttnUnroll];
+      typename Row8<TP>::Raw raw[kAttnUnroll];
 #pragma unroll
       for (int u = 0; u < kAttnUnroll; ++u) {
         const int p = i0 + u * NG + rg;
-        raw[u] = p < rows ? __ldcg(reinterpret_cast<const uint4*>(
-                                k_pool + row_at(c0 + p)))
-                          : make_uint4(0u, 0u, 0u, 0u);
+        raw[u] = Row8<TP>::load(k_pool, p < rows ? row_at(c0 + p) : 0,
+                                p < rows);
       }
 #pragma unroll
       for (int u = 0; u < kAttnUnroll; ++u) {
-        const __nv_bfloat162* h2 =
-            reinterpret_cast<const __nv_bfloat162*>(&raw[u]);
         float kf[E];
-#pragma unroll
-        for (int e = 0; e < E / 2; ++e) {
-          const float2 t = __bfloat1622float2(h2[e]);
-          kf[2 * e] = t.x;
-          kf[2 * e + 1] = t.y;
-        }
+        Row8<TP>::cvt(raw[u], kf);
         const int p = i0 + u * NG + rg;
+        const float ks = scale_at(k_scale, c0 + p, p < rows);
 #pragma unroll
         for (int r = 0; r < kMaxRep; ++r) {
           if (r < rep) {
@@ -308,7 +353,7 @@ __device__ void attend(const TQ* q, int g, int rep,
 #pragma unroll
             for (int o = TPR / 2; o > 0; o >>= 1)
               d += __shfl_xor_sync(0xffffffffu, d, o);
-            if (c == 0 && p < rows) sc[r * kAttnChunk + p] = d * inv_sqrt;
+            if (c == 0 && p < rows) sc[r * kAttnChunk + p] = d * ks * inv_sqrt;
           }
         }
       }
@@ -347,33 +392,27 @@ __device__ void attend(const TQ* q, int g, int rep,
       }
     }
     for (int i0 = 0; i0 < rows; i0 += NG * kAttnUnroll) {
-      uint4 raw[kAttnUnroll];
+      typename Row8<TP>::Raw raw[kAttnUnroll];
 #pragma unroll
       for (int u = 0; u < kAttnUnroll; ++u) {
         const int p = i0 + u * NG + rg;
-        raw[u] = p < rows ? __ldcg(reinterpret_cast<const uint4*>(
-                                v_pool + row_at(c0 + p)))
-                          : make_uint4(0u, 0u, 0u, 0u);
+        raw[u] = Row8<TP>::load(v_pool, p < rows ? row_at(c0 + p) : 0,
+                                p < rows);
       }
 #pragma unroll
       for (int u = 0; u < kAttnUnroll; ++u) {
         const int p = i0 + u * NG + rg;
         if (p < rows) {  // rows past the length are skipped, not weighted 0
-          const __nv_bfloat162* h2 =
-              reinterpret_cast<const __nv_bfloat162*>(&raw[u]);
           float vf[E];
-#pragma unroll
-          for (int e = 0; e < E / 2; ++e) {
-            const float2 t = __bfloat1622float2(h2[e]);
-            vf[2 * e] = t.x;
-            vf[2 * e + 1] = t.y;
-          }
+          Row8<TP>::cvt(raw[u], vf);
+          const float vs = scale_at(v_scale, c0 + p, true);
 #pragma unroll
           for (int r = 0; r < kMaxRep; ++r) {
             if (r < rep) {
-              const float pr = sc[r * kAttnChunk + p];
+              const float pr = sc[r * kAttnChunk + p] * vs;
 #pragma unroll
-              for (int e = 0; e < E; ++e) acc[r][e] = fmaf(pr, vf[e], acc[r][e]);
+              for (int e = 0; e < E; ++e)
+                acc[r][e] = fmaf(pr, vf[e], acc[r][e]);
             }
           }
         }

@@ -46,10 +46,24 @@
 //     n_blocks sorted lists. Order is by (score, id) alone, so the result
 //     does not depend on block scheduling.
 // Ids must be unique (the pipeline passes row slots).
+//
+// int8 queries (topk_scan_int8mxu). Replaces cmw_rag_tpu/ops/topk.py:290
+// topk_pallas_int8mxu (body _fused_topk_int8mxu_kernel :255): the queries
+// are quantized per row by the wrapper (quantize_rows_int8, outside the
+// kernel as in the JAX package), the product is int8 x int8 with an exact
+// int32 sum (at most 5,120 x 127^2 = 8.3e7), and the score is
+// (float(acc) * q_scale[q]) * scale[n], the TPU kernel's order. The same
+// schedule as above, with the int8 query chunk staged in shared memory and
+// one mma.sync m16n8k32 (s8 in, s32 accumulate) per 32-wide step: a thread
+// loads 8 consecutive bytes of a row, the first 4 as logical k 4t..4t+3 and
+// the next 4 as 4t+16..4t+19, for both operands. Bound: the int8 corpus
+// and its scales, N * (D + 8) bytes, as the bf16-query int8 scan.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -81,6 +95,25 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], uint32_t a0,
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ void mma_s8(int (&c)[4], uint32_t a0, uint32_t a1,
+                                       uint32_t a2, uint32_t a3, uint32_t b0,
+                                       uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+// 8 consecutive int8 values of `row` from column `col`, raw (zeros past the
+// last row or column).
+__device__ __forceinline__ uint2 load_raw8(const int8_t* corpus, int64_t row,
+                                           int col, int64_t n, int d) {
+  if (row < n && col < d)
+    return __ldg(reinterpret_cast<const uint2*>(corpus + row * d + col));
+  return make_uint2(0u, 0u);
 }
 
 __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
@@ -168,14 +201,20 @@ __device__ __forceinline__ void fold_large(
   __syncwarp();
 }
 
-template <typename T, bool kLarge>
+// kI8Q: int8 queries [nq, d] with float32 row scales q_scale (T int8).
+template <typename T, bool kLarge, bool kI8Q = false>
 __global__ void __launch_bounds__(kThreads, 2)
-scan_kernel(const __nv_bfloat16* __restrict__ queries,
+scan_kernel(const void* __restrict__ queries_v,
             const T* __restrict__ corpus, const float* __restrict__ scales,
             const int* __restrict__ ids, int nq, int64_t n, int d, int k,
-            float* part_s, int* part_i, float* alt_s, int* alt_i) {
+            float* part_s, int* part_i, float* alt_s, int* alt_i,
+            const float* __restrict__ q_scale = nullptr) {
   extern __shared__ __align__(16) unsigned char smem[];
+  const __nv_bfloat16* queries =
+      static_cast<const __nv_bfloat16*>(queries_v);
+  const int8_t* queries8 = static_cast<const int8_t*>(queries_v);
   __nv_bfloat16* q_sh = reinterpret_cast<__nv_bfloat16*>(smem);
+  int8_t* q8_sh = reinterpret_cast<int8_t*>(smem);  // kI8Q: [kQT][kQStride]
   float* sc = reinterpret_cast<float*>(smem + kQT * kQStride * 2);
   // small k: sorted running lists [kQT, k]; large k: candidate staging
   // [kWarps, kRows] (the running lists are in part_* / alt_*)
@@ -210,53 +249,91 @@ scan_kernel(const __nv_bfloat16* __restrict__ queries,
 
   for (int64_t tile = tile_begin; tile < tile_end; ++tile) {
     const int64_t row0 = tile * kRows + warp * (kMT * 16);
-    float acc[kMT][kNT][4];
+    // exact int32 sums for int8 queries, float32 otherwise
+    using Acc = typename std::conditional<kI8Q, int, float>::type;
+    Acc acc[kMT][kNT][4];
 #pragma unroll
     for (int mt = 0; mt < kMT; ++mt)
 #pragma unroll
       for (int nt = 0; nt < kNT; ++nt)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
+        for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0;
 
-    for (int dc = 0; dc < d; dc += kDC) {
-      __syncthreads();  // the previous chunk's (and tile's) readers are done
-      for (int v = threadIdx.x; v < kQT * (kDC / 8); v += kThreads) {
-        const int qr = v / (kDC / 8), c8 = (v % (kDC / 8)) * 8;
-        uint4 val = make_uint4(0u, 0u, 0u, 0u);
-        if (qr < nqb && dc + c8 < d)
-          val = *reinterpret_cast<const uint4*>(
-              queries + static_cast<int64_t>(q0 + qr) * d + dc + c8);
-        *reinterpret_cast<uint4*>(q_sh + qr * kQStride + c8) = val;
-      }
-      __syncthreads();
-      const int width = min(kDC, d - dc);
-#pragma unroll 2
-      for (int s = 0; s * 32 < width; ++s) {
-        const int col = dc + s * 32 + t * 8;
-        uint32_t a[kMT][2][4];
-#pragma unroll
-        for (int mt = 0; mt < kMT; ++mt)
-#pragma unroll
-          for (int h = 0; h < 2; ++h)
-            load_row8(corpus, row0 + mt * 16 + g + h * 8, col, n, d, a[mt][h]);
-        uint32_t b[kNT][4];
-#pragma unroll
-        for (int nt = 0; nt < kNT; ++nt) {
-          const uint4 v = *reinterpret_cast<const uint4*>(
-              q_sh + (nt * 8 + g) * kQStride + s * 32 + t * 8);
-          b[nt][0] = v.x; b[nt][1] = v.y; b[nt][2] = v.z; b[nt][3] = v.w;
+    if constexpr (kI8Q) {
+      for (int dc = 0; dc < d; dc += kDC) {
+        __syncthreads();  // the previous chunk's (and tile's) readers are done
+        for (int v = threadIdx.x; v < kQT * (kDC / 8); v += kThreads) {
+          const int qr = v / (kDC / 8), c8 = (v % (kDC / 8)) * 8;
+          uint2 val = make_uint2(0u, 0u);
+          if (qr < nqb && dc + c8 < d)
+            val = *reinterpret_cast<const uint2*>(
+                queries8 + static_cast<int64_t>(q0 + qr) * d + dc + c8);
+          *reinterpret_cast<uint2*>(q8_sh + qr * kQStride + c8) = val;
         }
-        // Logical k (2t+e) <-> physical column 8t+e and (8+2t+e) <-> 8t+2+e
-        // in the first mma; +4 physical columns in the second.
+        __syncthreads();
+        const int width = min(kDC, d - dc);
+#pragma unroll 2
+        for (int st = 0; st * 32 < width; ++st) {
+          const int col = dc + st * 32 + t * 8;
+          uint2 a[kMT][2];
 #pragma unroll
-        for (int mt = 0; mt < kMT; ++mt)
+          for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+            for (int h = 0; h < 2; ++h)
+              a[mt][h] = load_raw8(corpus, row0 + mt * 16 + g + h * 8, col, n,
+                                   d);
 #pragma unroll
           for (int nt = 0; nt < kNT; ++nt) {
-            mma_bf16(acc[mt][nt], a[mt][0][0], a[mt][1][0], a[mt][0][1],
-                     a[mt][1][1], b[nt][0], b[nt][1]);
-            mma_bf16(acc[mt][nt], a[mt][0][2], a[mt][1][2], a[mt][0][3],
-                     a[mt][1][3], b[nt][2], b[nt][3]);
+            const uint2 b = *reinterpret_cast<const uint2*>(
+                q8_sh + (nt * 8 + g) * kQStride + st * 32 + t * 8);
+#pragma unroll
+            for (int mt = 0; mt < kMT; ++mt)
+              mma_s8(acc[mt][nt], a[mt][0].x, a[mt][1].x, a[mt][0].y,
+                     a[mt][1].y, b.x, b.y);
           }
+        }
+      }
+    } else {
+      for (int dc = 0; dc < d; dc += kDC) {
+        __syncthreads();  // the previous chunk's (and tile's) readers are done
+        for (int v = threadIdx.x; v < kQT * (kDC / 8); v += kThreads) {
+          const int qr = v / (kDC / 8), c8 = (v % (kDC / 8)) * 8;
+          uint4 val = make_uint4(0u, 0u, 0u, 0u);
+          if (qr < nqb && dc + c8 < d)
+            val = *reinterpret_cast<const uint4*>(
+                queries + static_cast<int64_t>(q0 + qr) * d + dc + c8);
+          *reinterpret_cast<uint4*>(q_sh + qr * kQStride + c8) = val;
+        }
+        __syncthreads();
+        const int width = min(kDC, d - dc);
+#pragma unroll 2
+        for (int s = 0; s * 32 < width; ++s) {
+          const int col = dc + s * 32 + t * 8;
+          uint32_t a[kMT][2][4];
+#pragma unroll
+          for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+            for (int h = 0; h < 2; ++h)
+              load_row8(corpus, row0 + mt * 16 + g + h * 8, col, n, d, a[mt][h]);
+          uint32_t b[kNT][4];
+#pragma unroll
+          for (int nt = 0; nt < kNT; ++nt) {
+            const uint4 v = *reinterpret_cast<const uint4*>(
+                q_sh + (nt * 8 + g) * kQStride + s * 32 + t * 8);
+            b[nt][0] = v.x; b[nt][1] = v.y; b[nt][2] = v.z; b[nt][3] = v.w;
+          }
+          // Logical k (2t+e) <-> physical column 8t+e and (8+2t+e) <-> 8t+2+e
+          // in the first mma; +4 physical columns in the second.
+#pragma unroll
+          for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+            for (int nt = 0; nt < kNT; ++nt) {
+              mma_bf16(acc[mt][nt], a[mt][0][0], a[mt][1][0], a[mt][0][1],
+                       a[mt][1][1], b[nt][0], b[nt][1]);
+              mma_bf16(acc[mt][nt], a[mt][0][2], a[mt][1][2], a[mt][0][3],
+                       a[mt][1][3], b[nt][2], b[nt][3]);
+            }
+        }
       }
     }
 
@@ -274,9 +351,16 @@ scan_kernel(const __nv_bfloat16* __restrict__ queries,
 #pragma unroll
         for (int nt = 0; nt < kNT; ++nt)
 #pragma unroll
-          for (int e = 0; e < 2; ++e)
-            sc[(nt * 8 + 2 * t + e) * kScStride + rl] =
-                acc[mt][nt][h * 2 + e] * scale;
+          for (int e = 0; e < 2; ++e) {
+            const int qc = nt * 8 + 2 * t + e;
+            if constexpr (kI8Q) {
+              const float qs = qc < nqb ? q_scale[q0 + qc] : 0.f;
+              sc[qc * kScStride + rl] =
+                  (static_cast<float>(acc[mt][nt][h * 2 + e]) * qs) * scale;
+            } else {
+              sc[qc * kScStride + rl] = acc[mt][nt][h * 2 + e] * scale;
+            }
+          }
       }
     __syncthreads();
 
@@ -437,40 +521,43 @@ size_t scan_smem_bytes(int k) {
          static_cast<size_t>(run) * 8;
 }
 
-template <typename T, bool kLarge>
+template <typename T, bool kLarge, bool kI8Q>
 cudaError_t launch_scan(const void* queries, const T* corpus,
                         const float* scales, const int* ids, int nq,
                         long long n, int d, int k, int n_blocks, float* part_s,
                         int* part_i, float* alt_s, int* alt_i,
-                        cudaStream_t st) {
+                        const float* q_scale, cudaStream_t st) {
   const size_t smem = scan_smem_bytes(k);
   cudaError_t err = cudaFuncSetAttribute(
-      scan_kernel<T, kLarge>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+      scan_kernel<T, kLarge, kI8Q>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   const dim3 grid(n_blocks, (nq + kQT - 1) / kQT);
-  scan_kernel<T, kLarge><<<grid, kThreads, smem, st>>>(
-      static_cast<const __nv_bfloat16*>(queries), corpus, scales, ids, nq,
-      static_cast<int64_t>(n), d, k, part_s, part_i, alt_s, alt_i);
+  scan_kernel<T, kLarge, kI8Q><<<grid, kThreads, smem, st>>>(
+      queries, corpus, scales, ids, nq, static_cast<int64_t>(n), d, k, part_s,
+      part_i, alt_s, alt_i, q_scale);
   return cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, bool kI8Q = false>
 int launch(const void* queries, const T* corpus, const float* scales,
            const int* ids, int nq, long long n, int d, int k, int n_blocks,
            float* part_s, int* part_i, float* alt_s, int* alt_i, float* out_s,
-           int* out_i, void* stream) {
+           int* out_i, void* stream, const float* q_scale = nullptr) {
   if (nq < 1 || n < 1 || d < 8 || d % 8 != 0 || k < 1 ||
       n_blocks < 1 || n_blocks > kMergeLists ||
-      (k > kMaxK && (alt_s == nullptr || alt_i == nullptr)))
+      (k > kMaxK && (alt_s == nullptr || alt_i == nullptr)) ||
+      (kI8Q && q_scale == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err =
       k > kMaxK
-          ? launch_scan<T, true>(queries, corpus, scales, ids, nq, n, d, k,
-                                 n_blocks, part_s, part_i, alt_s, alt_i, st)
-          : launch_scan<T, false>(queries, corpus, scales, ids, nq, n, d, k,
-                                  n_blocks, part_s, part_i, alt_s, alt_i, st);
+          ? launch_scan<T, true, kI8Q>(queries, corpus, scales, ids, nq, n, d,
+                                       k, n_blocks, part_s, part_i, alt_s,
+                                       alt_i, q_scale, st)
+          : launch_scan<T, false, kI8Q>(queries, corpus, scales, ids, nq, n,
+                                        d, k, n_blocks, part_s, part_i, alt_s,
+                                        alt_i, q_scale, st);
   if (err != cudaSuccess) return static_cast<int>(err);
   merge_kernel<<<nq, kThreads, 0, st>>>(part_s, part_i, n_blocks, nq, k,
                                         out_s, out_i);
@@ -510,6 +597,20 @@ int topk_scan_int8(const void* queries, const void* corpus,
   return launch(queries, static_cast<const int8_t*>(corpus), scales, ids, nq,
                 n, d, k, n_blocks, part_s, part_i, alt_s, alt_i, out_s, out_i,
                 stream);
+}
+
+// int8 queries [nq, d] with float32 row scales q_scale [nq] (quantized by
+// the caller) over an int8 corpus [n, d] with f32 row scales [n].
+// Otherwise as topk_scan_int8.
+int topk_scan_int8q(const void* queries, const void* corpus,
+                    const float* q_scale, const float* scales, const int* ids,
+                    int nq, long long n, int d, int k, int n_blocks,
+                    float* part_s, int* part_i, float* alt_s, int* alt_i,
+                    float* out_s, int* out_i, void* stream) {
+  return launch<int8_t, true>(queries, static_cast<const int8_t*>(corpus),
+                              scales, ids, nq, n, d, k, n_blocks, part_s,
+                              part_i, alt_s, alt_i, out_s, out_i, stream,
+                              q_scale);
 }
 
 }  // extern "C"

@@ -186,9 +186,11 @@ def create_local_llm_transport(spec: Optional[GuardModelSpec] = None,
     given or loaded from ``checkpoint`` (an npz in the JAX layout); with
     ``continuous_batching`` a ``PagedLLMEngine`` behind a started
     ``EngineLoop`` serves the transport, else one ``generate`` call per
-    request. ``layer_fused`` folds as the JAX factory folds it: on only
-    with the kernel route and int8 weights, ``None`` keeps the engine's
-    default. The other half, wrapping the transport in an ``LLMManager``,
+    request. ``weights`` is "native", "int8" or "w8a8" and reaches the
+    engine as it is, as does ``kv_dtype``; ``layer_fused`` folds as the JAX
+    factory folds it: on only with the kernel route and int8 weights,
+    ``None`` keeps the engine's default. The other half, wrapping the
+    transport in an ``LLMManager``,
     waits for the port's manager, whose request and response schemas need
     pydantic (``ROADMAP.md`` Queue 1 item 13); hence this name and the
     ``LocalLLM`` it returns instead of a manager."""

@@ -1,5 +1,5 @@
 """Continuous-batching LLM engine with a paged KV cache
-(port of ``cmw_rag_tpu/models/engine.py``, native weights).
+(port of ``cmw_rag_tpu/models/engine.py``).
 
 vLLM's role in the reference topology: sequences hold page tables into a
 shared pool, so device memory is allocated in fixed pages, and new requests
@@ -35,10 +35,23 @@ partitioned pool (``attn_slot``) while each slot's context fits
 ``SLOT_ATTN_VMEM_LIMIT``, paged attention past it. Past 8 slots, the fused
 QKV ``int8_matmul``, slot-major attention (or, past the limit, the scatter
 kernel) and the fused MLP (``ops/fused_mlp``, ``mlp_fused``). The head is
-``int8_matmul`` on every int8 step. Not ported yet, each raising
-``NotImplementedError`` that names ``ROADMAP.md``: ``weights="w8a8"``,
-``layer_fused`` with int8 KV pages, cross-slot batched attention
-(``attn_batched``) and the perf ablations (``ablate``).
+``int8_matmul`` on every int8 step. With int8 KV pages the megakernel runs
+only when forced (``layer_fused=True``): ``decoder_layer_int8_kv8`` on the
+paged route, at any slot count, each layer's [P, Hkv] scale planes updated
+in place.
+
+``weights="w8a8"`` quantizes the same tree and, in decode, quantizes the
+activations too (``int8_matmul_w8a8`` for QKV, wo, gate-up, down and the
+head on float32 x); by the JAX defaults it runs neither fused MLP, nor
+megakernel, nor slot-major attention, and the scatter kernel. The JAX
+refusals hold: ``mlp_fused`` or ``layer_fused`` with w8a8, ``attn_batched``
+with int8 KV raise ``ValueError``. ``attn_batched`` takes the batched alias
+of the paged kernel (and ``batched=True`` of the scatter kernel and the
+megakernel, the same kernels). ``ablate`` (a diagnosis knob, wrong outputs
+on purpose, ``_paged_decode``'s argument in the JAX package): ``"noattn"``
+makes the unfused layers' attention return q, ``"noscatter"`` skips their
+page writes, and either turns the fused scatter off; the megakernel routes
+ignore it, as in the JAX engine.
 """
 
 from __future__ import annotations
@@ -64,12 +77,16 @@ from cmw_rag_tpu_torch.models.qwen3 import Qwen3Config
 from cmw_rag_tpu_torch.models.quantize import (dequantize_layer,
                                                quantize_qwen3_params)
 from cmw_rag_tpu_torch.ops.decoder_layer import (decoder_layer_int8,
+                                                 decoder_layer_int8_kv8,
                                                  make_rope_maps)
 from cmw_rag_tpu_torch.ops.fused_mlp import fused_mlp_int8
-from cmw_rag_tpu_torch.ops.int8_matmul import int8_matmul, int8_matmul_xla
+from cmw_rag_tpu_torch.ops.int8_matmul import (int8_matmul, int8_matmul_w8a8,
+                                               int8_matmul_w8a8_xla,
+                                               int8_matmul_xla)
 from cmw_rag_tpu_torch.ops.paged_attention import (
     KV_HEADROOM,
     paged_decode_attention_dma,
+    paged_decode_attention_dma_batched,
     paged_decode_attention_dma_kv_int8,
     paged_decode_attention_dma_scatter,
     paged_decode_attention_dma_slot,
@@ -221,7 +238,8 @@ def _paged_decode(params, k_pool, v_pool, k_scale, v_scale, tables, lens,
                   kv_int8: bool = False, scatter_fused: bool = False,
                   ablate: str = "", weights_int8: bool = False,
                   mlp_fused: bool = False, layer_fused: bool = False,
-                  attn_slot: bool = False, slot_cap: int = 0):
+                  attn_slot: bool = False, slot_cap: int = 0,
+                  w8a8: bool = False, attn_batched: bool = False):
     """One decode step for every slot: the new token ``cur_ids[s]`` sits at
     logical position ``lens[s]``. → float32 logits [S, V]; the pools (and
     int8 scales) are updated in place. Idle slots write their K/V into the
@@ -229,10 +247,9 @@ def _paged_decode(params, k_pool, v_pool, k_scale, v_scale, tables, lens,
     positions (``make_rope``; the engine makes them once). The int8-weight
     routes follow the JAX engine's (``engine.py:229-513``); ``attn_slot``
     needs the partitioned pool and ``slot_cap`` pages covering every
-    length."""
-    if ablate:
-        raise NotImplementedError("decode ablations are not ported: "
-                                  "ROADMAP.md Queue 2 #9")
+    length. ``ablate`` (diagnosis only, wrong outputs): "noattn" makes the
+    unfused layers' attention a passthrough of q, "noscatter" skips their
+    K/V page writes."""
     s = cur_ids.shape[0]
     page = k_pool.shape[2]
     maxp = tables.shape[1]
@@ -255,27 +272,40 @@ def _paged_decode(params, k_pool, v_pool, k_scale, v_scale, tables, lens,
     off = (lens % page).to(torch.int32)
     lens1 = (lens + 1).to(torch.int32)
     if weights_int8:
-        mm_fn = int8_matmul if use_kernel else int8_matmul_xla
+        # w8a8: the activations are quantized per token too (int8 x int8)
+        if w8a8:
+            mm_fn = int8_matmul_w8a8 if use_kernel else int8_matmul_w8a8_xla
+        else:
+            mm_fn = int8_matmul if use_kernel else int8_matmul_xla
 
         def mm(y, layer, name):
             return mm_fn(y, layer[name + "_q"], layer[name + "_s"])
     if layer_fused:
         # ONE launch a layer: norm, QKV, head norms, RoPE, K/V write,
-        # attention, wo, norm, FFN (ops/decoder_layer.py)
+        # attention, wo, norm, FFN (ops/decoder_layer.py); with int8 KV the
+        # kernel also quantizes the new rows and updates this layer's
+        # [P, Hkv] scale planes in place
         c2, s2 = make_rope_maps(cos, sin)
         for li, layer in enumerate(params["layers"]):
-            x, _, _ = decoder_layer_int8(
-                x, c2, s2, layer["attn_norm"], layer["wqkv_q"],
-                layer["wqkv_s"], layer["q_norm"], layer["k_norm"],
-                layer["wo_q"], layer["wo_s"], layer["ffn_norm"],
-                layer["w_gateup_q"], layer["w_gateup_s"], layer["w_down_q"],
-                layer["w_down_s"], page_idx, off, k_pool, v_pool, lens1,
-                layer=li, attn_slot=attn_slot, slot_cap=slot_cap,
-                slot_maxp=maxp, tables=tables)
+            weights = (layer["attn_norm"], layer["wqkv_q"], layer["wqkv_s"],
+                       layer["q_norm"], layer["k_norm"], layer["wo_q"],
+                       layer["wo_s"], layer["ffn_norm"], layer["w_gateup_q"],
+                       layer["w_gateup_s"], layer["w_down_q"],
+                       layer["w_down_s"])
+            if kv_int8:
+                x = decoder_layer_int8_kv8(
+                    x, c2, s2, *weights, page_idx, off, k_pool, k_scale[li],
+                    v_pool, v_scale[li], lens1, layer=li, tables=tables)[0]
+            else:
+                x = decoder_layer_int8(
+                    x, c2, s2, *weights, page_idx, off, k_pool, v_pool, lens1,
+                    layer=li, batched=attn_batched, attn_slot=attn_slot,
+                    slot_cap=slot_cap, slot_maxp=maxp, tables=tables)[0]
         x = rms_norm(x, params["final_norm"])
         return mm_fn(x.float(), params["head_q"],
                      params["head_s"])[:, :cfg.vocab_size]
-    fused = scatter_fused and use_kernel and not kv_int8 and not attn_slot
+    fused = (scatter_fused and use_kernel and not kv_int8 and not ablate
+             and not attn_slot)
     for li, layer in enumerate(params["layers"]):
         y = rms_norm(x, layer["attn_norm"])
         if weights_int8:
@@ -293,16 +323,20 @@ def _paged_decode(params, k_pool, v_pool, k_scale, v_scale, tables, lens,
             attn, _, _ = paged_decode_attention_dma_scatter(
                 q, k.to(k_pool.dtype).contiguous(),
                 v.to(v_pool.dtype).contiguous(), page_idx, off, k_pool, v_pool,
-                tables, lens1, layer=li)
+                tables, lens1, layer=li, batched=attn_batched)
         else:
             pi, of = page_idx.long(), off.long()
-            if kv_int8:
+            if ablate == "noscatter":
+                pass
+            elif kv_int8:
                 _write_token_int8(k_pool, k_scale, li, pi, of, k)
                 _write_token_int8(v_pool, v_scale, li, pi, of, v)
             else:
                 k_pool[li, pi, of] = k.to(k_pool.dtype)
                 v_pool[li, pi, of] = v.to(v_pool.dtype)
-            if use_kernel and attn_slot and not kv_int8:
+            if ablate == "noattn":
+                attn = q                  # diagnosis passthrough
+            elif use_kernel and attn_slot and not kv_int8:
                 attn = paged_decode_attention_dma_slot(
                     q.contiguous(), k_pool, v_pool, lens1, layer=li,
                     cap=slot_cap, maxp_slot=maxp)
@@ -310,6 +344,9 @@ def _paged_decode(params, k_pool, v_pool, k_scale, v_scale, tables, lens,
                 attn = paged_decode_attention_dma_kv_int8(
                     q, k_pool, k_scale, v_pool, v_scale, tables, lens1,
                     layer=li)
+            elif use_kernel and attn_batched:
+                attn = paged_decode_attention_dma_batched(
+                    q, k_pool, v_pool, tables, lens1, layer=li)
             elif use_kernel:
                 attn = paged_decode_attention_dma(q, k_pool, v_pool, tables,
                                                   lens1, layer=li)
@@ -386,13 +423,14 @@ class PagedLLMEngine:
         prefill_buckets: Optional[tuple[int, ...]] = None,
         prefill_chunk: int = 0,    # > 0: chunked prefill, C tokens a step
         seed: int = 0,
-        weights: str = "native",   # "native" | "int8" ("w8a8": not ported)
+        weights: str = "native",   # "native" | "int8" | "w8a8"
         kv_dtype: str = "native",  # "native" (cfg.dtype) | "int8" pages
         mlp_fused: Optional[bool] = None,    # fused int8 MLP kernel
         scatter_fused: Optional[bool] = None,  # K/V write inside the kernel
         layer_fused: Optional[bool] = None,  # decoder-layer megakernel
-        attn_batched: bool = False,
+        attn_batched: bool = False,          # the batched attention alias
         attn_slot: Optional[bool] = None,    # slot-major attention
+        ablate: str = "",                    # "noattn" | "noscatter"
         device: str | torch.device = "cuda",
     ):
         if max_ctx % page_size:
@@ -438,16 +476,11 @@ class PagedLLMEngine:
                 raise ValueError(
                     "attn_slot requires the full partitioned pool: "
                     "num_pages >= 1 + max_slots * max_ctx/page_size")
-        if weights == "w8a8":
-            raise NotImplementedError("weights='w8a8' (int8 activations) is "
-                                      "not ported: ROADMAP.md Queue 2 #6")
-        if layer_fused and kv_dtype == "int8":
-            raise NotImplementedError("the int8-KV megakernel is not ported: "
-                                      "ROADMAP.md Queue 2 #8")
-        if attn_batched:
-            raise NotImplementedError("attn_batched is not ported: "
-                                      "ROADMAP.md Queue 2 #9")
-        self.weights_int8 = weights == "int8"
+        if ablate not in ("", "noattn", "noscatter"):
+            raise ValueError(f"ablate={ablate!r}: '', 'noattn' or "
+                             f"'noscatter'")
+        self.weights_int8 = weights in ("int8", "w8a8")
+        self.w8a8 = weights == "w8a8"
         if self.weights_int8:
             params = quantize_qwen3_params(params, cfg)
         self.params = params
@@ -481,7 +514,9 @@ class PagedLLMEngine:
         self.scatter_fused = scatter_fused
         self.mlp_fused = mlp_fused
         self.layer_fused = layer_fused
+        self.attn_batched = attn_batched
         self.attn_slot = attn_slot
+        self.ablate = ablate
         # partitioned allocator: slot s's logical page j is always physical
         # 1 + s * maxp + j (contiguous per slot, the slot kernel's contract);
         # allocation and free leave the shared pool alone
@@ -784,9 +819,10 @@ class PagedLLMEngine:
             mx = int(self.lens[active].max()) + 1
             slot_cap = min(-(-mx // self.page), self.maxp)
         return dict(kv_int8=self.kv_int8, scatter_fused=self.scatter_fused,
-                    weights_int8=self.weights_int8, mlp_fused=self.mlp_fused,
-                    layer_fused=self.layer_fused, attn_slot=self.attn_slot,
-                    slot_cap=slot_cap)
+                    weights_int8=self.weights_int8, w8a8=self.w8a8,
+                    mlp_fused=self.mlp_fused, layer_fused=self.layer_fused,
+                    attn_batched=self.attn_batched, attn_slot=self.attn_slot,
+                    slot_cap=slot_cap, ablate=self.ablate)
 
     def _active_mask(self) -> np.ndarray:
         return np.asarray(

@@ -20,8 +20,22 @@ float32 accumulator once per output element.
   dtype, shape or contiguity raises: there is no fallback. ``block_n`` is
   the TPU kernel's column block and changes nothing here.
 
-The W8A8 variant (:133, dynamic int8 activations) waits for the next slice
-(``ROADMAP.md`` Queue 2 #6).
+W8A8 (:105-171, ``weights="w8a8"``): the activations are quantized too,
+per row and dynamically (``quantize_activations`` :105, torch ops in the
+wrapper, as the JAX package keeps them outside its ``pallas_call``), and
+the product is int8 x int8 with an exact int32 sum.
+
+- ``int8_matmul_w8a8_xla`` (:118) is the golden: ``acc · x_scale[m] ·
+  scale[n]`` in float32.
+- ``int8_matmul_w8a8_plain`` is the twin of the TPU kernel (:133, body
+  ``_w8a8_kernel`` :126), whose order it keeps: ``float(acc) · scale[n]``
+  in the body, ``· x_scale[m]`` on the output (:171), cast to x's dtype.
+  The sum is taken in float64, which holds it exactly.
+- ``int8_matmul_w8a8`` is the wrapper. On CUDA tensors it launches the
+  ``int8_matmul_w8a8`` kernel of ``csrc/int8_matmul.cu`` (x bf16 or
+  float32 [M, K], any M, K a multiple of 64, N of 16) and adds one to its
+  ``launches`` count; it equals the twin bit for bit. The TPU's padding of
+  M to 32 and its ``block_n`` search are dropped.
 """
 
 from __future__ import annotations
@@ -85,6 +99,8 @@ def _lib() -> ctypes.CDLL:
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.int8_matmul.argtypes = [p, i, p, p, i, i, i, i, p, p, p]
         lib.int8_matmul.restype = ctypes.c_int
+        lib.int8_matmul_w8a8.argtypes = [p, p, p, p, i, i, i, i, p, p, i, p]
+        lib.int8_matmul_w8a8.restype = ctypes.c_int
         lib._typed = True
     return lib
 
@@ -125,3 +141,74 @@ def int8_matmul(x: torch.Tensor, w_q: torch.Tensor, scale: torch.Tensor,
 
 
 int8_matmul.launches = 0
+
+
+# ------------------------------------------------------------------- W8A8
+
+
+def quantize_activations(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-row (per-token) symmetric int8: → (x_int8 [M, K], scale [M]
+    float32) with ``x ≈ x_int8 * scale[:, None]``: ``max(absmax, 1e-8) /
+    127``, a division by it, round half to even, a clip to ±127."""
+    xf = x.float()
+    scale = torch.clamp(xf.abs().amax(dim=1), min=1e-8) / 127.0
+    q = torch.clamp(torch.round(xf / scale[:, None]), -127, 127)
+    return q.to(torch.int8).contiguous(), scale.contiguous()
+
+
+def _w8a8_acc(xq: torch.Tensor, w_q: torch.Tensor) -> torch.Tensor:
+    """The exact int32 sums of int8 x int8, as float32 (each rounded once,
+    as the kernel converts them): float64 holds every sum exactly."""
+    return (xq.double() @ w_q.double()).float()
+
+
+def int8_matmul_w8a8_xla(x: torch.Tensor, w_q: torch.Tensor,
+                         scale: torch.Tensor) -> torch.Tensor:
+    """Golden: quantize x per row, int32 sums, ``acc · x_scale · scale``."""
+    xq, sx = quantize_activations(x)
+    return (_w8a8_acc(xq, w_q) * sx[:, None] * scale[None, :]).to(x.dtype)
+
+
+def int8_matmul_w8a8_plain(x: torch.Tensor, w_q: torch.Tensor,
+                           scale: torch.Tensor) -> torch.Tensor:
+    """Twin of the kernel: ``(float(acc) · scale[n]) · x_scale[m]``."""
+    xq, sx = quantize_activations(x)
+    return ((_w8a8_acc(xq, w_q) * scale[None, :]) * sx[:, None]).to(x.dtype)
+
+
+def int8_matmul_w8a8(x: torch.Tensor, w_q: torch.Tensor, scale: torch.Tensor,
+                     block_n: int = 512) -> torch.Tensor:
+    """y = quantize_activations(x) [M, K] @ int8 w_q [K, N], rescaled →
+    [M, N] in x.dtype (``int8_matmul_w8a8_plain``'s arithmetic)."""
+    if on_cpu(x, w_q, scale):
+        return int8_matmul_w8a8_plain(x, w_q, scale)
+    if x.dim() != 2 or w_q.dim() != 2:
+        raise ValueError("x must be [M, K] and w_q [K, N]")
+    m, k = x.shape
+    n = w_q.shape[1]
+    need(x, "x", (torch.bfloat16, torch.float32), (m, k))
+    need(w_q, "w_q", torch.int8, (k, n))
+    need(scale, "scale", torch.float32, (n,))
+    if k % K_TILE or n % 16 or m < 1:
+        raise ValueError(f"K={k} must be a multiple of {K_TILE} and N={n} of "
+                         f"16")
+    xq, sx = quantize_activations(x)
+    tiles = -(-m // m_tile(m)) * -(-n // N_TILE)
+    ks = k_split(k, tiles, 2 * sm_count(x.device))
+    out = torch.empty((m, n), dtype=x.dtype, device=x.device)
+    partial = (torch.empty((ks, m, n), dtype=torch.int32, device=x.device)
+               if ks > 1 else None)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = _lib().int8_matmul_w8a8(
+            xq.data_ptr(), sx.data_ptr(), w_q.data_ptr(), scale.data_ptr(),
+            m, k, n, ks, None if partial is None else partial.data_ptr(),
+            out.data_ptr(), int(x.dtype == torch.float32), stream)
+    if err != 0:
+        raise RuntimeError(f"int8_matmul_w8a8 launch failed: CUDA error "
+                           f"{err}")
+    int8_matmul_w8a8.launches += 1
+    return out
+
+
+int8_matmul_w8a8.launches = 0

@@ -13,6 +13,9 @@ descending, id ascending) order; slots with no valid row hold
 - ``ivf_probed_scan`` / ``ivf_probed_scan_int8``: query q scans its own
   blocks ``block_idx[q, :]`` (replacing ``ivf_probed_scan`` :95 and
   ``ivf_probed_scan_int8`` :567).
+- ``ivf_probed_scan_dma`` (:231, ``_ivf_dma_kernel``) is the TPU's manual
+  DMA schedule of ``ivf_probed_scan`` with the same results: an alias of
+  it here, with its own ``launches`` count.
 - ``ivf_union_scan`` / ``ivf_union_scan_int8``: every query scans every
   block of ``block_list[:n_unique]`` (replacing ``ivf_union_scan`` :340 and
   ``ivf_union_scan_int8`` :452). The order is exact over all rows scanned:
@@ -199,6 +202,18 @@ def ivf_probed_scan(corpus: torch.Tensor, ids: torch.Tensor,
     return out
 
 
+def ivf_probed_scan_dma(corpus: torch.Tensor, ids: torch.Tensor,
+                        queries: torch.Tensor, block_idx: torch.Tensor, k: int,
+                        block_n: int = 1024):
+    """Alias of ``ivf_probed_scan`` (the TPU's manual-DMA schedule)."""
+    if on_cpu(corpus, ids, queries, block_idx):
+        return ivf_probed_plain(corpus, ids, queries, block_idx, k, block_n)
+    out = _launch("ivf_scan_bf16", corpus, None, ids, queries, block_idx,
+                  None, True, k, block_n)
+    ivf_probed_scan_dma.launches += 1
+    return out
+
+
 def ivf_probed_scan_int8(corpus: torch.Tensor, scales: torch.Tensor,
                          ids: torch.Tensor, queries: torch.Tensor,
                          block_idx: torch.Tensor, k: int, block_n: int = 1024):
@@ -247,6 +262,7 @@ def ivf_union_scan_int8(corpus: torch.Tensor, scales: torch.Tensor,
 
 
 ivf_probed_scan.launches = 0
+ivf_probed_scan_dma.launches = 0
 ivf_probed_scan_int8.launches = 0
 ivf_union_scan.launches = 0
 ivf_union_scan_int8.launches = 0

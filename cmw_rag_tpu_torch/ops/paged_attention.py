@@ -34,8 +34,14 @@ to q's dtype. int8 pools carry page-granular float32 scales ``[L, P, Hkv]``.
   golden over that table (``slot_tables``). On CUDA tensors it launches
   ``csrc/slot_attention.cu`` (bf16; Dh 64 or 128, Hq / Hkv at most 8).
 
-The batched kernel (:1241) belongs to the opt-in ``attn_batched`` and raises
-``NotImplementedError`` (``ROADMAP.md`` Queue 2 #9).
+- ``paged_decode_attention_dma_batched`` (:1241, body
+  ``_paged_dma_batched_kernel`` :1111, the engine's opt-in ``attn_batched``)
+  runs the TPU kernel's iterations across slots over a flat worklist; its
+  docstring gives it the semantics of ``paged_decode_attention_xla``
+  (:1256-1257), which is all of its content beyond the TPU schedule. Here
+  it is an alias of the bf16 kernel with its own ``launches`` count, as is
+  the scatter wrapper with ``batched=True``. ``make_decode_worklist_flat``
+  (:1086) stays for callers of that signature.
 """
 
 from __future__ import annotations
@@ -132,6 +138,34 @@ def make_decode_worklist(tables: torch.Tensor, lens: torch.Tensor, page: int,
     wl_slot = torch.cat([wl_slot, torch.full((chunk,), s, dtype=torch.int32,
                                              device=dev)])
     wl_n = occupied.sum().to(torch.int32)[None]
+    return wl_slot, wl_page, wl_j, wl_n
+
+
+def make_decode_worklist_flat(tables: torch.Tensor, lens: torch.Tensor,
+                              page: int, chunk: int = 1):
+    """The (slot, physical page, logical page) worklist of the TPU's batched
+    kernel: every occupied page once, slot-major, then ``chunk`` dummies
+    (slot S, page 0, logical page ``maxp``); ``wl_n`` is the occupied count
+    rounded up to a ``chunk`` multiple. → (wl_slot, wl_page, wl_j, wl_n)
+    int32."""
+    s, maxp = tables.shape
+    dev = tables.device
+    used = (lens.long() + page - 1) // page
+    j_idx = torch.arange(maxp, device=dev)[None, :]
+    real = j_idx < used[:, None]
+    s_idx = torch.arange(s, device=dev)[:, None].expand(s, maxp)
+    order = torch.argsort((~real).reshape(-1).to(torch.int32), stable=True)
+    wl_slot = torch.where(real, s_idx, s).reshape(-1)[order].to(torch.int32)
+    wl_page = torch.where(real, tables.long(), 0).reshape(-1)[order].to(torch.int32)
+    wl_j = torch.where(real, j_idx, maxp).reshape(-1)[order].to(torch.int32)
+
+    def tail(v):
+        return torch.full((chunk,), v, dtype=torch.int32, device=dev)
+    wl_slot = torch.cat([wl_slot, tail(s)])
+    wl_page = torch.cat([wl_page, tail(0)])
+    wl_j = torch.cat([wl_j, tail(maxp)])
+    n_real = real.sum().to(torch.int32)
+    wl_n = ((n_real + chunk - 1) // chunk * chunk)[None]
     return wl_slot, wl_page, wl_j, wl_n
 
 
@@ -250,11 +284,8 @@ def paged_decode_attention_dma_scatter(q, k_new, v_new, page_idx, off,
     as the JAX kernel aliases them. (page_idx[s], off[s]) must be position
     lens[s] - 1 of slot s, and active slots must write distinct rows (the
     engine's idle slots all write row 0 of the null page 0, which only they
-    read): the kernel's block for slot s takes that row from k_new/v_new."""
-    if batched:
-        raise NotImplementedError(
-            "batched=True (cross-slot iterations, the opt-in attn_batched) is "
-            "not ported: ROADMAP.md Queue 2 #9")
+    read): the kernel's block for slot s takes that row from k_new/v_new.
+    ``batched`` (the TPU's cross-slot iterations) changes nothing."""
     if on_cpu(q, k_new, v_new, page_idx, off, k_pools, v_pools, tables, lens):
         kp, vp = _layer(k_pools, layer), _layer(v_pools, layer)
         kp[page_idx.long(), off.long()] = k_new.to(kp.dtype)
@@ -384,15 +415,28 @@ def paged_decode_attention_dma_slot(q: torch.Tensor, k_pools: torch.Tensor,
     return out
 
 
-def paged_decode_attention_dma_batched(*args, **kwargs):
-    raise NotImplementedError(
-        "cross-slot batched attention (attn_batched) is not ported: "
-        "ROADMAP.md Queue 2 #9")
+def paged_decode_attention_dma_batched(q: torch.Tensor, k_pools: torch.Tensor,
+                                       v_pools: torch.Tensor,
+                                       tables: torch.Tensor,
+                                       lens: torch.Tensor, layer: int,
+                                       worklist=None, chunk: int = 8,
+                                       n_buf: int = 4) -> torch.Tensor:
+    """Alias of ``paged_decode_attention_dma`` (the TPU's cross-slot
+    batched schedule of the same function) → [S, Hq, Dh]; ``worklist``,
+    ``chunk`` and ``n_buf`` are TPU schedule and change nothing."""
+    if on_cpu(q, k_pools, v_pools, tables, lens):
+        return paged_decode_attention_xla(q, _layer(k_pools, layer),
+                                          _layer(v_pools, layer), tables, lens)
+    out = _launch(q, _layer(k_pools, layer), _layer(v_pools, layer), tables,
+                  lens)
+    paged_decode_attention_dma_batched.launches += 1
+    return out
 
 
 WRAPPERS = (paged_decode_attention_dma, paged_decode_attention_dma_scatter,
             paged_decode_attention_dma_kv_int8, paged_decode_attention,
-            paged_decode_attention_pooled, paged_decode_attention_dma_slot)
+            paged_decode_attention_pooled, paged_decode_attention_dma_slot,
+            paged_decode_attention_dma_batched)
 
 
 def reset_launches() -> None:

@@ -20,6 +20,17 @@ the tail is empty slots.
 - ``topk_plain`` / ``topk_plain_int8`` are the plain twins: float32 scores
   over chunks of rows (never a float32 copy of the whole corpus), then a
   stable sort that keeps ties in id order.
+- ``topk_scan_int8mxu`` replaces ``topk_pallas_int8mxu`` (:290, body
+  ``_fused_topk_int8mxu_kernel`` :255): the queries are quantized per row
+  (``quantize_rows_int8``, torch ops in the wrapper as in the JAX
+  package), the product is int8 x int8 with an exact int32 sum, and the
+  score is ``(float(acc) · q_scale) · scale``. It launches the int8-query
+  instantiation of the same kernel; its twin ``topk_plain_int8mxu`` takes
+  the sums in float64, which holds them exactly, so the two agree bit for
+  bit. No caller outside the tests, as in the JAX package.
+- ``topk_scan_stream`` is ``topk_pallas_stream`` (:418), the TPU's
+  streaming schedule of ``topk_pallas``: an alias of ``topk_scan_bf16``
+  with its own ``launches`` count (``tile_n`` is TPU schedule).
 """
 
 from __future__ import annotations
@@ -79,6 +90,19 @@ def topk_plain_int8(corpus: torch.Tensor, scales: torch.Tensor,
         corpus.shape[0], ids, q.shape[0], k, corpus.device, chunk_rows)
 
 
+def topk_plain_int8mxu(corpus: torch.Tensor, scales: torch.Tensor,
+                       ids: torch.Tensor, queries: torch.Tensor, k: int,
+                       chunk_rows: int = PLAIN_CHUNK_ROWS):
+    """Plain twin of ``topk_scan_int8mxu``: queries quantized per row, exact
+    int8 x int8 sums, ``(float(acc) · q_scale) · scale``."""
+    q8, qs = quantize_rows_int8(queries)
+    qd = q8.double()
+    return _plain_scan(
+        lambda a, b: ((qd @ corpus[a:b].double().T).float() * qs[:, None])
+        * scales[a:b].float()[None, :],
+        corpus.shape[0], ids, q8.shape[0], k, corpus.device, chunk_rows)
+
+
 def merge_topk(scores: torch.Tensor, ids: torch.Tensor, k: int):
     """Merge candidate pools [Q, M] → top ``k`` per row, ids < 0 masked
     (``lax.top_k`` order: ties keep the lower column first)."""
@@ -106,7 +130,9 @@ def _lib() -> ctypes.CDLL:
         tail = [i, ll, i, i, i, p, p, p, p, p, p, p]
         lib.topk_scan_bf16.argtypes = [p, p, p] + tail
         lib.topk_scan_int8.argtypes = [p, p, p, p] + tail
-        for fn in ("topk_scan_bf16", "topk_scan_int8", "topk_scan_tile_rows",
+        lib.topk_scan_int8q.argtypes = [p, p, p, p, p] + tail
+        for fn in ("topk_scan_bf16", "topk_scan_int8", "topk_scan_int8q",
+                   "topk_scan_tile_rows",
                    "topk_scan_max_blocks", "topk_scan_max_shared_k"):
             getattr(lib, fn).restype = ctypes.c_int
         lib._typed = True
@@ -124,7 +150,8 @@ def _check(name: str, t: torch.Tensor, dtype: torch.dtype, shape) -> None:
         raise ValueError(f"{name} must be 16-byte aligned")
 
 
-def _launch(fn_name: str, corpus, extra, ids, queries, k: int):
+def _launch(fn_name: str, corpus, extra, ids, queries, k: int,
+            query_dtype: torch.dtype = torch.bfloat16):
     if corpus.dim() != 2 or queries.dim() != 2:
         raise ValueError("corpus and queries must be 2-D")
     n, d = corpus.shape
@@ -135,7 +162,7 @@ def _launch(fn_name: str, corpus, extra, ids, queries, k: int):
         raise ValueError(f"D={d} must be a multiple of 8")
     if n < 1 or nq < 1:
         raise ValueError("empty corpus or query batch")
-    _check("queries", queries, torch.bfloat16, (nq, d))
+    _check("queries", queries, query_dtype, (nq, d))
     _check("ids", ids, torch.int32, (n,))
     lib = _lib()
     dev = corpus.device
@@ -188,5 +215,35 @@ def topk_scan_int8(corpus: torch.Tensor, scales: torch.Tensor,
     return out
 
 
+def topk_scan_int8mxu(corpus: torch.Tensor, scales: torch.Tensor,
+                      ids: torch.Tensor, queries: torch.Tensor, k: int,
+                      tile_n: int = 1024):
+    """int8 corpus [N, D] with f32 row scales [N], ids [N] int32, float
+    queries [Q, D] (quantized per row here) → (scores [Q, k] f32, ids
+    [Q, k] int32)."""
+    if on_cpu(corpus, scales, ids, queries):
+        return topk_plain_int8mxu(corpus, scales, ids, queries, k)
+    _check("corpus", corpus, torch.int8, corpus.shape)
+    _check("scales", scales, torch.float32, (corpus.shape[0],))
+    q8, qs = quantize_rows_int8(queries)
+    out = _launch("topk_scan_int8q", corpus, (qs.contiguous(), scales), ids,
+                  q8.contiguous(), k, query_dtype=torch.int8)
+    topk_scan_int8mxu.launches += 1
+    return out
+
+
+def topk_scan_stream(corpus: torch.Tensor, ids: torch.Tensor,
+                     queries: torch.Tensor, k: int, tile_n: int = 1024):
+    """Alias of ``topk_scan_bf16`` (the TPU's streaming schedule)."""
+    if on_cpu(corpus, ids, queries):
+        return topk_plain(corpus, ids, queries, k)
+    _check("corpus", corpus, torch.bfloat16, corpus.shape)
+    out = _launch("topk_scan_bf16", corpus, (), ids, queries, k)
+    topk_scan_stream.launches += 1
+    return out
+
+
 topk_scan_bf16.launches = 0
 topk_scan_int8.launches = 0
+topk_scan_int8mxu.launches = 0
+topk_scan_stream.launches = 0

@@ -1,8 +1,9 @@
 """The local LLM serving path, as ``chip_smoke.py`` drives it.
 
-    python -m cmw_rag_tpu_torch.scripts.local_llm [--weights int8]
-        [--slots 16] [--kv-dtype int8] [--prefill-chunk 256] [--reference]
-        [--device cuda]
+    python -m cmw_rag_tpu_torch.scripts.local_llm [--weights int8|w8a8]
+        [--slots 16] [--kv-dtype int8] [--layer-fused] [--attn-batched]
+        [--ablate noattn|noscatter] [--prefill-chunk 256] [--reference]
+        [--profile] [--device cuda]
 
 Model: ``qwen3guard-0.6b`` (``cmw_rag_tpu/config/models.yaml:310-331``), the
 spec the JAX package's ``create_local_llm_manager`` serves by default, at
@@ -17,7 +18,12 @@ native weights and KV pages. The int8 configuration is the reference's own
 ``local_llm_weights = "int8"`` ("half memory", ``settings.py:130``): at 4
 slots each layer is one decoder-layer megakernel launch, at 16 slots the
 fused QKV ``int8_matmul``, slot-major attention and the fused MLP
-(``INT8_SLOTS``). Requests: ChatML (``format_chatml``) of the 8
+(``INT8_SLOTS``). ``--weights w8a8`` quantizes the activations too
+(``int8_matmul_w8a8`` for every product and the head); ``--kv-dtype int8
+--layer-fused`` forces the int8-KV megakernel; ``--attn-batched`` takes the
+batched attention alias; ``--ablate`` runs a diagnosis ablation (wrong
+outputs on purpose). ``--profile`` then profiles one decode step at 4
+active slots (``profile_decode``) and prints it as JSON. Requests: ChatML (``format_chatml``) of the 8
 bilingual texts that the shipping path plants (``scripts/shipping.py``),
 greedy, 32 new tokens each; with more requests than slots, later ones are
 admitted mid-flight.
@@ -32,6 +38,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import json
 import time
 from collections import defaultdict
 
@@ -59,8 +66,10 @@ INT8_SLOTS = {4: "decoder-layer megakernel", 16: "int8_matmul + slot "
               "attention + fused MLP"}
 #: device-side names of the paged attention kernel and its combine pass
 PAGED_KERNEL_NAMES = ("paged_decode_kernel", "combine_kernel")
-#: device-side name of the decoder-layer megakernel
+#: device-side name of the decoder-layer megakernel (both pool types)
 LAYER_KERNEL_NAMES = ("decoder_layer_kernel",)
+#: device-side names of the W8A8 matmul and its combine pass
+W8A8_KERNEL_NAMES = ("w8a8_kernel", "w8a8_combine_kernel")
 
 
 def spec_with_tokenizer_vocab(slug: str = SPEC):
@@ -187,26 +196,46 @@ def profile_decode(engine: PagedLLMEngine,
             sorted(kernels.items(), key=lambda kv: -kv[1])[:10]}
 
 
+def profile_names(engine: PagedLLMEngine) -> tuple:
+    """The kernels whose share ``profile_decode`` reports for the engine's
+    route: the megakernel, the W8A8 matmul, or the paged kernel."""
+    if engine.layer_fused:
+        return LAYER_KERNEL_NAMES
+    return W8A8_KERNEL_NAMES if engine.w8a8 else PAGED_KERNEL_NAMES
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
-    ap.add_argument("--weights", default="native", choices=("native", "int8"))
+    ap.add_argument("--weights", default="native",
+                    choices=("native", "int8", "w8a8"))
     ap.add_argument("--slots", type=int, default=None,
                     help="serving slots (default: the settings' 4)")
     ap.add_argument("--kv-dtype", default="native", choices=("native", "int8"))
+    ap.add_argument("--layer-fused", action="store_true",
+                    help="force the decoder-layer megakernel (int8 weights)")
+    ap.add_argument("--attn-batched", action="store_true",
+                    help="the batched attention alias (native KV)")
+    ap.add_argument("--ablate", default="", choices=("", "noattn",
+                                                     "noscatter"))
     ap.add_argument("--prefill-chunk", type=int, default=0)
     ap.add_argument("--reference", action="store_true",
                     help="the gather golden instead of the paged kernel")
+    ap.add_argument("--profile", action="store_true",
+                    help="then profile one decode step at 4 active slots")
     ap.add_argument("--max-new-tokens", type=int, default=MAX_NEW_TOKENS)
     args = ap.parse_args()
     cfg = config()
     params = build_params(cfg, args.seed, args.device)
-    slots = {} if args.slots is None else dict(max_slots=args.slots)
+    kw = {} if args.slots is None else dict(max_slots=args.slots)
+    if args.layer_fused:
+        kw["layer_fused"] = True
     engine = build_engine(params, cfg, args.device, kv_dtype=args.kv_dtype,
                           prefill_chunk=args.prefill_chunk,
-                          weights=args.weights, **slots,
-                          use_kernel=False if args.reference else None)
+                          weights=args.weights,
+                          attn_batched=args.attn_batched, ablate=args.ablate,
+                          use_kernel=False if args.reference else None, **kw)
     t0 = time.perf_counter()
     reqs = run_requests(engine, chat_prompts(), args.max_new_tokens)
     if engine.device.type == "cuda":
@@ -218,6 +247,12 @@ def main() -> None:
     n_out = sum(len(r.out) for r in reqs)
     print(f"decode steps {engine.decode_steps}, {n_out} tokens in {wall:.3f} s "
           f"(host clock, prefill included)")
+    if args.profile:
+        for p in chat_prompts(4):
+            engine.submit(p, max_new_tokens=64)
+        for _ in range(16):
+            engine.step()
+        print(json.dumps(profile_decode(engine, profile_names(engine))))
 
 
 if __name__ == "__main__":

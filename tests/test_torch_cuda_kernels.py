@@ -24,7 +24,12 @@ megakernel to one bf16 step plus 1e-3 of the largest |output| (both round
 the normed input, y and h to bf16, and sums in another order can put one of
 those a step apart, which moves every product it feeds), the megakernel's
 written pool rows within the same of the twin's and every other row
-unchanged, bit for bit.
+unchanged, bit for bit. The W8A8 matmul and the int8 x int8 scan equal
+their twins bit for bit (exact integer sums, the same scale order); the
+int8-KV megakernel's output as the megakernel's, its written int8 rows
+within one step of the twin's and its updated scales within one bf16 step,
+every other row and scale (the null page's excepted) bit for bit; the
+batched, stream and DMA aliases equal the kernels they alias.
 """
 
 import numpy as np
@@ -384,10 +389,14 @@ def test_paged_attention_wrappers_refuse_what_the_kernel_does_not_take(card):
                                       layer=0)
     with pytest.raises(ValueError):
         PA.paged_decode_attention_dma(q, kp, vp, tables.cpu(), lens, layer=0)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # the batched schedules take the kernel's checks (nothing is deferred)
+    with pytest.raises(TypeError):
+        PA.paged_decode_attention_dma_batched(q.float(), kp, vp, tables, lens,
+                                              layer=0)
+    with pytest.raises(TypeError):
         PA.paged_decode_attention_dma_scatter(
-            q, kp[0, 0, :2], vp[0, 0, :2], lens, lens, kp, vp, tables, lens,
-            layer=0, batched=True)
+            q, kp[0, 0, :2].float(), vp[0, 0, :2].float(), lens, lens, kp, vp,
+            tables, lens, layer=0, batched=True)
 
 
 def _close(got, want, tol):
@@ -575,3 +584,171 @@ def test_int8_wrappers_refuse_what_the_kernels_do_not_take(card):
         PA.paged_decode_attention_dma_slot(
             torch.randn((2, 72, 128), device=card).bfloat16(), kp, vp, lens,
             layer=0, cap=1, maxp_slot=4)
+
+
+@pytest.mark.parametrize("m,k,n", [(4, 1024, 4096), (16, 1024, 4096),
+                                   (4, 2048, 1024), (4, 1024, 6144),
+                                   (16, 3072, 1024), (4, 1024, 151680),
+                                   (1, 64, 16), (5, 256, 1040),
+                                   (33, 128, 512)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_w8a8_matmul_equals_plain_twin(card, m, k, n, dtype):
+    gen = torch.Generator(device=card).manual_seed(m * 7 + n)
+    wq, ws = _q8(card, gen, k, n)
+    x = torch.randn((m, k), generator=gen, device=card).to(dtype)
+    n0 = IM.int8_matmul_w8a8.launches
+    got = IM.int8_matmul_w8a8(x, wq, ws)
+    torch.cuda.synchronize()
+    assert IM.int8_matmul_w8a8.launches == n0 + 1
+    assert got.dtype == dtype and got.shape == (m, n)
+    assert torch.equal(got, IM.int8_matmul_w8a8_plain(x, wq, ws))
+
+
+def _kv8_case(card, s, hq, hkv, dh, d, f, page, maxp, lens, seed):
+    gen = torch.Generator(device=card).manual_seed(seed)
+    lay = _layer(card, gen, d, hq, hkv, dh, f)
+    n_pages = 1 + s * maxp
+    shape = (2, n_pages, page, hkv, dh)
+    kq, ks = PA.quantize_kv_page(torch.randn(shape, generator=gen,
+                                             device=card))
+    vq, vs = PA.quantize_kv_page(torch.randn(shape, generator=gen,
+                                             device=card))
+    lens_t = torch.tensor(lens + [1], dtype=torch.int32, device=card)
+    tables = (torch.randperm(n_pages - 1, generator=gen, device=card)
+              + 1).reshape(s, maxp).to(torch.int32)
+    tables[-1] = 0                                    # the idle slot
+    pos = (lens_t - 1).long()
+    page_idx = tables.long().gather(1, (pos // page)[:, None])[:, 0]
+    page_idx[-1] = 0
+    off = (pos % page).to(torch.int32)
+    off[-1] = 0
+    x = torch.randn((s, d), generator=gen, device=card).bfloat16()
+    ang = torch.rand((s, dh // 2), generator=gen, device=card) * 6.28
+    c2, s2 = DL.make_rope_maps(torch.cos(ang), torch.sin(ang))
+    args = (x, c2, s2, *[lay[k] for k in LAYER], page_idx.to(torch.int32),
+            off)
+    return args, (kq, ks, vq, vs), lens_t, tables
+
+
+@pytest.mark.parametrize("case", [
+    # S, Hq, Hkv, Dh, D, F, page, maxp, lens (fresh pages among them)
+    (4, 16, 8, 128, 1024, 3072, 64, 32, [65, 200, 384]),
+    (4, 16, 8, 128, 1024, 3072, 64, 32, [2047, 129, 64]),
+    (9, 8, 2, 64, 256, 384, 16, 4, [1, 16, 17, 30, 33, 48, 63, 64])])
+def test_decoder_layer_kv8_matches_plain_twin(card, case):
+    s, hq, hkv, dh, d, f, page, maxp, lens = case
+    args, (kq, ks, vq, vs), lens_t, tables = _kv8_case(
+        card, s, hq, hkv, dh, d, f, page, maxp, lens, seed=s + len(lens))
+    before = [t.clone() for t in (kq, ks, vq, vs)]
+    twin = [t.clone() for t in (kq, ks, vq, vs)]
+    n0 = DL.decoder_layer_int8_kv8.launches
+    got = DL.decoder_layer_int8_kv8(*args, kq, ks[1], vq, vs[1], lens_t,
+                                    layer=1, tables=tables)
+    want = DL.decoder_layer_int8_kv8_plain(
+        *args, twin[0], twin[1][1], twin[2], twin[3][1], lens_t, layer=1,
+        tables=tables)
+    torch.cuda.synchronize()
+    assert DL.decoder_layer_int8_kv8.launches == n0 + 1
+    assert got[1] is kq and got[3] is vq
+    assert got[2].data_ptr() == ks[1].data_ptr()
+    _close(got[0][:s - 1], want[0][:s - 1], 1e-3)
+    page_idx, off = args[-2].long(), args[-1].long()
+    act = slice(0, s - 1)
+    rows = (page_idx[act], off[act])
+    for pool, tw, old in ((kq, twin[0], before[0]), (vq, twin[2], before[2])):
+        keep = torch.ones(pool.shape[:3], dtype=torch.bool, device=card)
+        keep[1][rows] = False
+        keep[1][0] = False                             # the null page
+        assert torch.equal(pool[keep], old[keep])
+        assert (pool[1][rows].int() - tw[1][rows].int()).abs().max() <= 1
+    for plane, tw, old in ((ks, twin[1], before[1]), (vs, twin[3], before[3])):
+        keep = torch.ones(plane.shape[:2], dtype=torch.bool, device=card)
+        keep[1][page_idx[act]] = False
+        keep[1][0] = False
+        assert torch.equal(plane[keep], old[keep])
+        p = page_idx[act]
+        assert ((plane[1][p] - tw[1][p]).abs()
+                <= _bf16_step(tw[1][p])).all()
+
+
+@pytest.mark.parametrize("kv8", [False, True])
+def test_megakernel_noattn_matches_plain_twin(card, kv8):
+    """The ablation: the attention output is q, in kernel and twin."""
+    args, (kq, ks, vq, vs), lens_t, tables = _kv8_case(
+        card, 4, 16, 8, 128, 1024, 3072, 64, 8, [65, 200, 384], seed=5)
+    if kv8:
+        got = DL.decoder_layer_int8_kv8(*args, kq.clone(), ks[1].clone(),
+                                        vq.clone(), vs[1].clone(), lens_t,
+                                        layer=1, tables=tables,
+                                        ablate="noattn")[0]
+        want = DL.decoder_layer_int8_kv8_plain(
+            *args, kq.clone(), ks[1].clone(), vq.clone(), vs[1].clone(),
+            lens_t, layer=1, tables=tables, ablate="noattn")[0]
+    else:
+        kp = (kq.float() * ks[:, :, None, :, None]).bfloat16()
+        vp = (vq.float() * vs[:, :, None, :, None]).bfloat16()
+        got = DL.decoder_layer_int8(*args, kp.clone(), vp.clone(), lens_t,
+                                    layer=1, tables=tables,
+                                    ablate="noattn")[0]
+        want = DL.decoder_layer_int8_plain(*args, kp.clone(), vp.clone(),
+                                           lens_t, layer=1, tables=tables,
+                                           ablate="noattn")[0]
+    torch.cuda.synchronize()
+    _close(got[:3], want[:3], 1e-3)
+
+
+def test_batched_stream_and_dma_aliases_equal_their_kernels(card):
+    q, kp, vp, tables, lens = _paged_case(card, 4, 16, 8, 128, 64, 32,
+                                          [1, 63, 2047], seed=7)
+    n0 = PA.paged_decode_attention_dma_batched.launches
+    got = PA.paged_decode_attention_dma_batched(q, kp, vp, tables, lens,
+                                                layer=1)
+    want = PA.paged_decode_attention_dma(q, kp, vp, tables, lens, layer=1)
+    torch.cuda.synchronize()
+    assert PA.paged_decode_attention_dma_batched.launches == n0 + 1
+    assert torch.equal(got, want)
+    gen = torch.Generator(device=card).manual_seed(8)
+    kn = torch.randn((4, 8, 128), generator=gen, device=card).bfloat16()
+    pos = (lens - 1).long()                  # each slot's row lens - 1
+    pi = tables.long().gather(1, (pos // 64)[:, None])[:, 0].to(torch.int32)
+    off = (pos % 64).to(torch.int32)
+    outs = [PA.paged_decode_attention_dma_scatter(
+        q, kn, kn, pi, off, kp.clone(), vp.clone(), tables, lens, layer=0,
+        batched=b)[0] for b in (False, True)]
+    assert torch.equal(outs[0], outs[1])
+    c = torch.from_numpy(_unit(3000, 64, 4)).to(card).bfloat16()
+    qs = torch.from_numpy(_unit(5, 64, 5)).to(card).bfloat16()
+    ids = torch.arange(3000, dtype=torch.int32, device=card)
+    ids[::37] = -1
+    n0 = T.topk_scan_stream.launches
+    got = T.topk_scan_stream(c, ids, qs, 20)
+    want = T.topk_scan_bf16(c, ids, qs, 20)
+    torch.cuda.synchronize()
+    assert T.topk_scan_stream.launches == n0 + 1
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    corpus, _, vids, vq = _ivf_case(card, False)
+    table = torch.tensor([[0, 3, 5], [2, 2, 9], [15, 1, 4]],
+                         dtype=torch.int32, device=card)
+    n0 = V.ivf_probed_scan_dma.launches
+    got = V.ivf_probed_scan_dma(corpus, vids, vq[:3].contiguous(), table, 20,
+                                192)
+    want = V.ivf_probed_scan(corpus, vids, vq[:3].contiguous(), table, 20,
+                             192)
+    torch.cuda.synchronize()
+    assert V.ivf_probed_scan_dma.launches == n0 + 1
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("k", [1, 20, 129, 1000])
+def test_int8mxu_scan_equals_plain_twin(card, k):
+    c8, sc = T.quantize_rows_int8(torch.from_numpy(_unit(3000, 128, 6))
+                                  .to(card))
+    q = torch.from_numpy(_unit(9, 128, 7)).to(card)
+    ids = torch.arange(3000, dtype=torch.int32, device=card)
+    ids[::29] = -1
+    n0 = T.topk_scan_int8mxu.launches
+    got = T.topk_scan_int8mxu(c8, sc, ids, q, k)
+    want = T.topk_plain_int8mxu(c8, sc, ids, q, k)
+    torch.cuda.synchronize()
+    assert T.topk_scan_int8mxu.launches == n0 + 1
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])

@@ -12,7 +12,20 @@ attention routes it meets the JAX Pallas kernel in interpret mode within
 rounding moved one step moves an output by ~1e-5), and the float32 golden
 within the JAX tests' 0.05 (x) and 0.02 (pools). The pools are written in
 place and only at the new rows. The slot-major twin meets the JAX kernel
-within the JAX test's 2e-5.
+within the JAX test's 2e-5. ``batched=True`` (TPU schedule) changes
+nothing, and ``ablate="noattn"`` meets the JAX kernel's ablation as the
+routes do.
+
+The int8-KV megakernel (``decoder_layer_int8_kv8``) takes this layer's
+[P, Hkv] scale planes where JAX takes the head-major [Hkv, P] plane; its
+twin keeps the JAX kernel's rounding points (the new rows rounded to x's
+dtype before the amax, division, round half to even) and meets it in
+interpret mode within 1e-4 in x, one int8 step in the written rows and
+1e-6 relative in the scales (the QKV sums in another float32 order move a
+row's amax by a float32 step, and a value within a step of a half rounds
+the other way), every other row and scale bit for bit; and the JAX golden
+within the JAX test's 0.06 in x, one int8 step in the rows and 2e-2
+relative in the scales.
 """
 
 import jax.numpy as jnp
@@ -22,11 +35,12 @@ import torch
 
 from cmw_rag_tpu.ops import decoder_layer as J
 from cmw_rag_tpu.ops.paged_attention import (make_decode_worklist,
+                                             make_decode_worklist_flat,
                                              paged_decode_attention_dma_slot)
 from cmw_rag_tpu_torch.ops import decoder_layer as T
 from cmw_rag_tpu_torch.ops import paged_attention as PA
 from tests.test_decoder_layer import (DH, HKV, HQ, MAXP, PAGE, S, _setup,
-                                      _setup_partitioned)
+                                      _setup_kv8, _setup_partitioned)
 
 WEIGHTS = ("attn_norm", "wqkv_q", "wqkv_s", "q_norm", "k_norm", "wo_q",
            "wo_s", "ffn_norm", "w_gateup_q", "w_gateup_s", "w_down_q",
@@ -110,16 +124,122 @@ def test_rope_maps_match_jax():
 
 
 def test_megakernel_refuses_what_is_not_ported():
+    """Nothing of the megakernel's signature is refused any more but a
+    paged call without its block table and an unknown ablation."""
     setup = _setup()
-    for kw in (dict(batched=True), dict(ablate="noattn")):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            _run_port(setup, kw)
     layer, x, kp, vp, tables, cur, cos, sin, pi, off = setup
     c2, s2 = T.make_rope_maps(_t(cos), _t(sin))
     with pytest.raises(ValueError, match="tables"):
         T.decoder_layer_int8(_t(x), c2, s2, *[_t(layer[n]) for n in WEIGHTS],
                              _t(pi), _t(off), _t(kp), _t(vp), _t(cur + 1),
                              layer=1)
+    with pytest.raises(ValueError, match="ablate"):
+        _run_port(setup, dict(ablate="nomlp"))
+
+
+@pytest.mark.parametrize("kw", [dict(batched=True), dict(ablate="noattn")],
+                         ids=["batched", "noattn"])
+def test_megakernel_batched_and_noattn_match_jax_kernel(kw):
+    setup = _setup()
+    layer, x, kp, vp, tables, cur, cos, sin, pi, off = setup
+    c2, s2 = J.make_rope_maps(cos, sin)
+    wl = make_decode_worklist(tables, cur + 1, PAGE, chunk=1)
+    if kw.get("batched"):
+        wl = make_decode_worklist_flat(tables, cur + 1, PAGE, chunk=1)
+    kx, kkp, kvp = J.decoder_layer_int8(
+        x, c2, s2, *[layer[n] for n in WEIGHTS], pi, off, kp, vp, cur + 1,
+        wl, layer=1, block_f=128, interpret=True, **kw)
+    (ox, okp, ovp), _, _ = _run_port(setup, kw)
+    np.testing.assert_allclose(ox.numpy(), np.asarray(kx), rtol=0, atol=1e-4)
+    np.testing.assert_allclose(okp.numpy(), np.asarray(kkp), rtol=0,
+                               atol=1e-4)
+    (bx, _, _), _, _ = _run_port(setup, {})
+    assert torch.equal(ox, bx) == bool(kw.get("batched"))
+
+
+def _kv8_port(setup, li, **kw):
+    layer, x, kq, ks, vq, vs, tables, cur, cos, sin, pi, off = setup
+    c2, s2 = T.make_rope_maps(_t(cos), _t(sin))
+    tkq, tks, tvq, tvs = _t(kq), _t(ks), _t(vq), _t(vs)
+    out = T.decoder_layer_int8_kv8(
+        _t(x), c2, s2, *[_t(layer[n]) for n in WEIGHTS], _t(pi), _t(off),
+        tkq, tks[li], tvq, tvs[li], _t(cur + 1), layer=li,
+        tables=_t(tables), **kw)
+    return out, tkq, tks, tvq, tvs
+
+
+@pytest.mark.parametrize("lens", [(0, 17, 30, 63), (1, 16, 32, 48)],
+                         ids=["mid-page", "fresh-pages"])
+def test_kv8_megakernel_matches_jax_kernel_and_golden(lens):
+    setup = _setup_kv8(lens=lens)
+    layer, x, kq, ks, vq, vs, tables, cur, cos, sin, pi, off = setup
+    li = 1
+    c2, s2 = J.make_rope_maps(cos, sin)
+    wl = make_decode_worklist(tables, cur + 1, PAGE, chunk=1)
+    kx, kkp, kks_l, kvp, kvs_l = J.decoder_layer_int8_kv8(
+        x, c2, s2, *[layer[n] for n in WEIGHTS], pi, off, kq, ks[li].T, vq,
+        vs[li].T, cur + 1, wl, layer=li, block_f=128, interpret=True)
+    gx, gkp, gks, gvp, gvs = J.decoder_layer_int8_kv8_xla(
+        x, cos, sin, layer, pi, off, kq, ks, vq, vs, tables, cur + 1, li,
+        hq=HQ, hkv=HKV, dh=DH)
+    (ox, okp, oks, ovp, ovs), tkq, tks, tvq, tvs = _kv8_port(setup, li)
+    assert okp is tkq and ovp is tvq                      # in place
+    assert oks.data_ptr() == tks[li].data_ptr()           # this layer's plane
+    np.testing.assert_allclose(ox.numpy(), np.asarray(kx), rtol=0, atol=1e-4)
+    for got, want in ((okp, kkp), (ovp, kvp)):
+        np.testing.assert_allclose(got.numpy().astype(np.int32),
+                                   np.asarray(want).astype(np.int32), atol=1)
+    for got, want in ((oks, kks_l), (ovs, kvs_l)):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want).T,
+                                   rtol=1e-6, atol=0)
+    rows = np.zeros(okp.shape[:3], bool)
+    rows[li, np.asarray(pi), np.asarray(off)] = True
+    for got, before in ((okp, kq), (ovp, vq)):
+        np.testing.assert_array_equal(got.numpy()[~rows],
+                                      np.asarray(before)[~rows])
+    fresh_pages = np.asarray(pi)[np.asarray(off) == 0]
+    keep = np.ones(oks.shape[0], bool)
+    keep[fresh_pages] = False
+    np.testing.assert_array_equal(oks.numpy()[keep], np.asarray(ks[li])[keep])
+    np.testing.assert_allclose(ox.numpy(), np.asarray(gx), rtol=0, atol=0.06)
+    for got, want in ((okp, gkp), (ovp, gvp)):
+        np.testing.assert_allclose(got.numpy().astype(np.int32),
+                                   np.asarray(want).astype(np.int32), atol=1)
+    np.testing.assert_allclose(tks.numpy(), np.asarray(gks), rtol=2e-2)
+    np.testing.assert_allclose(tvs.numpy(), np.asarray(gvs), rtol=2e-2)
+    # the other layer's pools and planes are untouched
+    np.testing.assert_array_equal(okp.numpy()[0], np.asarray(kq)[0])
+    np.testing.assert_array_equal(tks.numpy()[0], np.asarray(ks)[0])
+
+
+def test_kv8_noattn_matches_jax_kernel():
+    setup = _setup_kv8()
+    layer, x, kq, ks, vq, vs, tables, cur, cos, sin, pi, off = setup
+    c2, s2 = J.make_rope_maps(cos, sin)
+    wl = make_decode_worklist(tables, cur + 1, PAGE, chunk=1)
+    kx = J.decoder_layer_int8_kv8(
+        x, c2, s2, *[layer[n] for n in WEIGHTS], pi, off, kq, ks[1].T, vq,
+        vs[1].T, cur + 1, wl, layer=1, block_f=128, interpret=True,
+        ablate="noattn")[0]
+    (ox, *_), *_ = _kv8_port(setup, 1, ablate="noattn")
+    np.testing.assert_allclose(ox.numpy(), np.asarray(kx), rtol=0, atol=1e-4)
+
+
+def test_kv8_golden_matches_jax_golden():
+    setup = _setup_kv8()
+    layer, x, kq, ks, vq, vs, tables, cur, cos, sin, pi, off = setup
+    gx, gkp, gks, gvp, gvs = J.decoder_layer_int8_kv8_xla(
+        x, cos, sin, layer, pi, off, kq, ks, vq, vs, tables, cur + 1, 1,
+        hq=HQ, hkv=HKV, dh=DH)
+    ox, okp, oks, ovp, ovs = T.decoder_layer_int8_kv8_xla(
+        _t(x), _t(cos), _t(sin), {k: _t(v) for k, v in layer.items()},
+        _t(pi), _t(off), _t(kq), _t(ks), _t(vq), _t(vs), _t(tables),
+        _t(cur + 1), 1, hq=HQ, hkv=HKV, dh=DH)
+    np.testing.assert_allclose(ox.numpy(), np.asarray(gx), rtol=0, atol=1e-5)
+    for got, want in ((okp, gkp), (ovp, gvp)):
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    np.testing.assert_allclose(oks.numpy(), np.asarray(gks), rtol=1e-6)
+    np.testing.assert_allclose(ovs.numpy(), np.asarray(gvs), rtol=1e-6)
 
 
 @pytest.mark.parametrize("cap", [4, 6])

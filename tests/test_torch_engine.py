@@ -307,13 +307,18 @@ def test_concurrent_streams_share_the_batch():
 
 
 def test_deferred_and_invalid_knobs_raise():
-    for kw in (dict(weights="w8a8"),
-               dict(weights="int8", use_kernel=True, kv_dtype="int8",
-                    layer_fused=True),
-               dict(weights="int8", use_kernel=True, attn_batched=True),
-               dict(use_kernel=True, attn_batched=True)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            port_engine(**kw)
+    """Nothing is deferred any more: W8A8, the int8-KV megakernel,
+    ``attn_batched`` and the ablations construct (their routes are held to
+    the JAX engine in ``tests/test_torch_engine_int8.py``); every
+    combination the JAX engine refuses still raises ValueError."""
+    for kw, knob in ((dict(weights="w8a8"), "w8a8"),
+                     (dict(weights="int8", use_kernel=True, kv_dtype="int8",
+                           layer_fused=True), "layer_fused"),
+                     (dict(weights="int8", use_kernel=True,
+                           attn_batched=True), "attn_batched"),
+                     (dict(use_kernel=True, attn_batched=True),
+                      "attn_batched")):
+        assert getattr(port_engine(**kw), knob)
     for kw in (dict(mlp_fused=True), dict(layer_fused=True),
                dict(use_kernel=False, scatter_fused=True),
                dict(use_kernel=True, kv_dtype="int8", scatter_fused=True),
@@ -333,11 +338,12 @@ def test_deferred_and_invalid_knobs_raise():
     assert port_engine(use_kernel=True, attn_slot=True).slot_pages
     eng = port_engine()
     z = torch.zeros((2,), dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        E._paged_decode(eng.params, eng.k_pool, eng.v_pool, eng.k_scale,
-                        eng.v_scale, torch.from_numpy(eng.tables), z, z,
-                        torch.ones((2,), dtype=torch.bool), eng.cfg, False,
-                        eng._rope, ablate="noattn")
+    logits = E._paged_decode(eng.params, eng.k_pool, eng.v_pool, eng.k_scale,
+                             eng.v_scale, torch.from_numpy(eng.tables), z, z,
+                             torch.ones((2,), dtype=torch.bool), eng.cfg,
+                             False, eng._rope, ablate="noattn")
+    assert logits.shape == (2, eng.cfg.vocab_size)
+    assert torch.isfinite(logits).all()
 
 
 def test_engine_defaults_to_the_card_with_the_kernel():

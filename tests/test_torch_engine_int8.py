@@ -12,8 +12,16 @@ engine's defaults is held: the decoder-layer megakernel with slot-major
 attention and with paged attention, the unfused int8 route (slot-major
 attention and the fused MLP), the int8 products without the fused MLP, int8
 KV pages, slot-major attention with native weights, the float32 golden and
-chunked prefill. Ids are held equal: float32 sums in another order move the
-logits by ~1e-6, and these runs meet no top-2 gap that small.
+chunked prefill; and the routes a caller selects: W8A8 weights, the int8-KV
+megakernel (``layer_fused=True`` with int8 KV) and the batched attention
+alias (native weights through the unfused scatter-free route, and int8
+weights, where the megakernel gets ``batched=True``). Ids are held equal:
+float32 sums in another order move the logits by ~1e-6, and these runs
+meet no top-2 gap that small (the W8A8 twin's activation scale is one
+float32 step from the jitted JAX one at most, ``tests/test_torch_w8a8.py``).
+The decode ablations, diagnosis knobs with wrong outputs on purpose, are
+held by their logits: one ``_paged_decode`` step from the same state in
+both packages, within 1e-4 (float32 sums in another order).
 """
 
 import jax
@@ -69,6 +77,20 @@ ROUTES = {
                dict(layer_fused=False, attn_slot=False, mlp_fused=False)),
     "chunked": (dict(weights="int8", use_kernel=True, prefill_chunk=32),
                 dict(layer_fused=True, attn_slot=True)),
+    "w8a8": (dict(weights="w8a8", use_kernel=True),
+             dict(layer_fused=False, mlp_fused=False, attn_slot=False,
+                  scatter_fused=True, w8a8=True)),
+    "w8a8-golden": (dict(weights="w8a8", use_kernel=False),
+                    dict(layer_fused=False, w8a8=True)),
+    "int8-kv-megakernel": (dict(weights="int8", use_kernel=True,
+                                kv_dtype="int8", layer_fused=True),
+                           dict(layer_fused=True, attn_slot=False)),
+    "attn-batched": (dict(use_kernel=True, attn_batched=True,
+                          scatter_fused=False),
+                     dict(attn_batched=True, attn_slot=False)),
+    "attn-batched-int8": (dict(weights="int8", use_kernel=True,
+                               attn_batched=True, attn_slot=False),
+                          dict(attn_batched=True, layer_fused=True)),
 }
 #: the wrappers each route's kernel steps must reach (their twins, here)
 REACHES = {"megakernel-slot": ("decoder_layer_int8", "int8_matmul"),
@@ -80,10 +102,19 @@ REACHES = {"megakernel-slot": ("decoder_layer_int8", "int8_matmul"),
            "int8-kv": ("paged_decode_attention_dma_kv_int8",
                        "fused_mlp_int8", "int8_matmul"),
            "native-slot": ("paged_decode_attention_dma_slot",),
-           "golden": (), "chunked": ("decoder_layer_int8", "int8_matmul")}
+           "golden": (), "chunked": ("decoder_layer_int8", "int8_matmul"),
+           "w8a8": ("paged_decode_attention_dma_scatter", "int8_matmul_w8a8"),
+           "w8a8-golden": (),
+           "int8-kv-megakernel": ("decoder_layer_int8_kv8", "int8_matmul"),
+           "attn-batched": ("paged_decode_attention_dma_batched",),
+           "attn-batched-int8": ("decoder_layer_int8", "int8_matmul")}
 WRAPPERS = {"decoder_layer_int8": DL.decoder_layer_int8,
+            "decoder_layer_int8_kv8": DL.decoder_layer_int8_kv8,
             "fused_mlp_int8": FM.fused_mlp_int8,
             "int8_matmul": IM.int8_matmul,
+            "int8_matmul_w8a8": IM.int8_matmul_w8a8,
+            "paged_decode_attention_dma_batched":
+                PA.paged_decode_attention_dma_batched,
             "paged_decode_attention_dma_slot":
                 PA.paged_decode_attention_dma_slot,
             "paged_decode_attention_dma_scatter":
@@ -130,7 +161,7 @@ def test_int8_routes_give_the_jax_greedy_ids(route, monkeypatch):
     eng = port_engine(**kw)
     for knob, value in picks.items():
         assert getattr(eng, knob) == value, knob
-    assert eng.weights_int8 == (kw.get("weights") == "int8")
+    assert eng.weights_int8 == (kw.get("weights") in ("int8", "w8a8"))
     calls: dict = {}
     _spy(monkeypatch, calls)
     assert run(eng, prompts, 10) == want
@@ -186,13 +217,16 @@ def test_slot_route_falls_back_as_in_jax(monkeypatch):
 
 
 def test_deferred_and_invalid_int8_knobs_raise():
-    for kw in (dict(weights="w8a8"),
-               dict(weights="int8", use_kernel=True, kv_dtype="int8",
-                    layer_fused=True),
-               dict(weights="int8", use_kernel=True, attn_batched=True)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            port_engine(**kw)
+    """Every combination the JAX engine refuses raises ValueError in both
+    packages (none is deferred any more: W8A8, the int8-KV megakernel and
+    attn_batched are routes above); an unknown ablation raises in the
+    port, whose engine takes the knob."""
     for kw in (dict(weights="w8a8", mlp_fused=True),
+               dict(weights="w8a8", use_kernel=True, mlp_fused=True),
+               dict(weights="w8a8", use_kernel=True, layer_fused=True),
+               dict(weights="int8", use_kernel=True, kv_dtype="int8",
+                    attn_batched=True),
+               dict(use_kernel=False, attn_batched=True),
                dict(weights="int8", use_kernel=True, kv_dtype="int8",
                     attn_slot=True),
                dict(weights="int8", use_kernel=True, num_pages=8,
@@ -202,12 +236,53 @@ def test_deferred_and_invalid_int8_knobs_raise():
             port_engine(**kw)
         with pytest.raises(ValueError):
             jax_engine(**kw)
+    with pytest.raises(ValueError, match="ablate"):
+        port_engine(use_kernel=True, ablate="nomlp")
+
+
+def _same_state(n_steps: int = 3, **kw):
+    """A JAX and a port engine after the same admissions and steps."""
+    je, pe = jax_engine(**kw), port_engine(**kw)
+    for eng in (je, pe):
+        for p in (RU, EN):
+            eng.submit(p, max_new_tokens=10)
+        for _ in range(n_steps):
+            eng.step()
+    assert je.lens.tolist() == pe.lens.tolist()
+    assert je.cur_ids.tolist() == pe.cur_ids.tolist()
+    return je, pe
+
+
+@pytest.mark.parametrize("ablate", ["noattn", "noscatter"])
+def test_ablations_give_the_jax_logits(ablate):
+    je, pe = _same_state(use_kernel=True)
+    active = pe._active_mask()
+    want, *_ = JE._paged_decode(
+        je.params, je.k_pool, je.v_pool, je.k_scale, je.v_scale,
+        jnp.asarray(je.tables), jnp.asarray(je.lens), jnp.asarray(je.cur_ids),
+        jnp.asarray(active), je.cfg, True, True, chunk=je.chunk,
+        ablate=ablate, scatter_fused=je.scatter_fused)
+    k_before = pe.k_pool.clone()
+    opts = pe.decode_options(active)
+    full = E._paged_decode(
+        pe.params, pe.k_pool.clone(), pe.v_pool.clone(), pe.k_scale,
+        pe.v_scale, pe._dev(pe.tables), pe._dev(pe.lens),
+        pe._dev(pe.cur_ids), pe._dev(active), pe.cfg, True, pe._rope, **opts)
+    got = E._paged_decode(
+        pe.params, pe.k_pool, pe.v_pool, pe.k_scale, pe.v_scale,
+        pe._dev(pe.tables), pe._dev(pe.lens), pe._dev(pe.cur_ids),
+        pe._dev(active), pe.cfg, True, pe._rope, **dict(opts, ablate=ablate))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
+                               atol=1e-4)
+    assert not torch.allclose(got, full, atol=1e-3)    # it did ablate
+    assert torch.equal(pe.k_pool, k_before) == (ablate == "noscatter")
 
 
 @pytest.mark.parametrize("layer_fused", [None, True, False])
 @pytest.mark.parametrize("weights,use_kernel", [("int8", True),
                                                 ("int8", False),
-                                                ("native", True)])
+                                                ("native", True),
+                                                ("w8a8", True)])
 def test_transport_folds_layer_fused_as_jax(layer_fused, weights, use_kernel,
                                             monkeypatch):
     """``create_local_llm_transport(layer_fused=...)`` hands the engine what
@@ -229,6 +304,34 @@ def test_transport_folds_layer_fused_as_jax(layer_fused, weights, use_kernel,
     want = (None if layer_fused is None else
             (layer_fused and use_kernel and weights == "int8"))
     assert seen["layer_fused"] == want and seen["weights"] == weights
+
+
+@pytest.mark.parametrize("kw,picks", [
+    (dict(weights="w8a8"), dict(w8a8=True, layer_fused=False)),
+    (dict(weights="int8", kv_dtype="int8", layer_fused=True),
+     dict(kv_int8=True, layer_fused=True)),
+    (dict(weights="w8a8", layer_fused=True),
+     dict(w8a8=True, layer_fused=False))],
+    ids=["w8a8", "int8-kv-megakernel", "w8a8-layer-fused-folds"])
+def test_transport_serves_the_new_routes(kw, picks):
+    """``create_local_llm_transport`` hands W8A8 weights and the forced
+    int8-KV megakernel to the engine, which serves a request on each;
+    ``layer_fused=True`` with W8A8 folds off as in the JAX factory instead
+    of reaching the engine's refusal."""
+    llm = T.create_local_llm_transport(
+        spec=TINY, tokenizer=TOK, max_len=256, page_size=16,
+        dtype=torch.float32, continuous_batching=True, use_kernel=True,
+        device="cpu", **kw)
+    try:
+        eng = llm.engine_loop.engine
+        for knob, value in picks.items():
+            assert getattr(eng, knob) == value, knob
+        req, q = llm.engine_loop.submit_stream(RU, max_new_tokens=4)
+        while q.get(timeout=120) is not None:
+            pass
+        assert req.done and req.out and llm.engine_loop.fatal is None
+    finally:
+        llm.engine_loop.stop()
 
 
 def test_transport_serves_int8_weights():

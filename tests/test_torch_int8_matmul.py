@@ -161,9 +161,16 @@ def test_build_hash_follows_included_headers(tmp_path, monkeypatch):
 
 
 def test_every_new_source_is_built():
-    for stem in ("int8_matmul", "slot_attention", "fused_mlp",
-                 "decoder_layer"):
+    """Each int8 decode source is built and hashed with the headers it
+    includes, recursively (the two megakernel sources share
+    ``decoder_layer.cuh``, which includes ``int8_decode.cuh``)."""
+    megakernel = ["decoder_layer.cuh", "int8_decode.cuh"]
+    for stem, want in (("int8_matmul", ["int8_decode.cuh"]),
+                       ("slot_attention", ["int8_decode.cuh"]),
+                       ("fused_mlp", ["int8_decode.cuh"]),
+                       ("decoder_layer", megakernel),
+                       ("decoder_layer_kv8", megakernel)):
         assert stem in cuda_build.SOURCES
         assert cuda_build.source(stem).is_file()
         assert [p.name for p in cuda_build.headers(cuda_build.source(stem))] \
-            == ["int8_decode.cuh"]
+            == want

@@ -256,3 +256,18 @@ def test_cpu_wrappers_take_the_twins_and_count_no_launch():
     after = (V.ivf_probed_scan.launches, V.ivf_union_scan.launches,
              V.ivf_probed_scan_int8.launches, V.ivf_union_scan_int8.launches)
     assert after == before
+
+
+@pytest.mark.parametrize("k", [5, 20])
+def test_probed_dma_alias_matches_its_pallas_kernel(k):
+    """``ivf_probed_scan_dma`` (the alias of ``ivf_probed_scan``) against
+    the TPU's manual-DMA schedule in interpret mode, as
+    ``tests/test_ivf.py:197-215`` runs it, and against the probed wrapper
+    itself: the same function, ties and a repeated block included."""
+    t, j = _case(False)
+    table = _probes()
+    table[2] = [4, 4, 6]
+    got = _port("ivf_probed_scan_dma", t, table, k)
+    _equal(got, _jax("ivf_probed_scan_dma", j, table, k))
+    _equal(got, _port("ivf_probed_scan", t, table, k), atol=0)
+    assert V.ivf_probed_scan_dma.launches == 0        # the twin counts none

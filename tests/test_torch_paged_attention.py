@@ -160,19 +160,28 @@ def test_make_decode_worklist_matches_jax(chunk):
 
 
 def test_deferred_routes_raise_naming_the_roadmap():
+    """No paged route is deferred any more: the batched schedules (the
+    scatter wrapper's ``batched=True`` and the batched wrapper) give what
+    their unbatched wrappers give, and the slot-major wrapper the gather
+    golden over the partitioned table."""
     t, _ = _case(SHAPES["gqa"], seed=9)
     s, _, hkv, dh = 4, 4, 2, 16
-    zeros = torch.zeros((s, hkv, dh))
-    idx = torch.zeros((s,), dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        PA.paged_decode_attention_dma_scatter(
-            t["q"], zeros, zeros, idx, idx, t["kp"], t["vp"], t["tables"],
-            t["lens"], layer=0, batched=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    rng = np.random.default_rng(9)
+    new = torch.from_numpy(rng.standard_normal((s, hkv, dh)).astype(np.float32))
+    idx = torch.tensor([1, 2, 3, 4], dtype=torch.int32)
+    off = torch.zeros((s,), dtype=torch.int32)
+    outs = []
+    for batched in (False, True):
+        kp, vp = t["kp"].clone(), t["vp"].clone()
+        outs.append(PA.paged_decode_attention_dma_scatter(
+            t["q"], new, new, idx, off, kp, vp, t["tables"], t["lens"],
+            layer=0, batched=batched))
+    assert all(torch.equal(a, b) for a, b in zip(*outs))
+    assert torch.equal(
         PA.paged_decode_attention_dma_batched(t["q"], t["kp"], t["vp"],
-                                              t["tables"], t["lens"], layer=0)
-    # the slot-major wrapper moved out of the list (ported with int8
-    # weights): the gather golden over the partitioned table
+                                              t["tables"], t["lens"], layer=1),
+        PA.paged_decode_attention_dma(t["q"], t["kp"], t["vp"], t["tables"],
+                                      t["lens"], layer=1))
     maxp = t["tables"].shape[1]
     lens = torch.clamp(t["lens"], max=2 * 16)
     got = PA.paged_decode_attention_dma_slot(t["q"], t["kp"], t["vp"], lens,
@@ -180,6 +189,36 @@ def test_deferred_routes_raise_naming_the_roadmap():
     want = PA.paged_decode_attention_xla(
         t["q"], t["kp"][0], t["vp"][0], PA.slot_tables(s, 2, maxp), lens)
     assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("chunk", [1, 3, 8])
+def test_batched_alias_matches_jax_batched_kernel(chunk):
+    """The batched alias against the TPU's cross-slot kernel in interpret
+    mode, over its flat worklist (a chunk that does not divide maxp too),
+    as ``tests/test_engine.py:682-711`` holds it to the golden."""
+    t, j = _case(SHAPES["gqa"], seed=11)
+    wl = J.make_decode_worklist_flat(j["tables"], j["lens"], 16, chunk=chunk)
+    for layer in (0, 1):
+        got = PA.paged_decode_attention_dma_batched(
+            t["q"], t["kp"], t["vp"], t["tables"], t["lens"], layer=layer,
+            chunk=chunk).numpy()
+        ker = J.paged_decode_attention_dma_batched(
+            j["q"], j["kp"], j["vp"], j["tables"], j["lens"], layer=layer,
+            interpret=True, worklist=wl, chunk=chunk)
+        np.testing.assert_allclose(got, np.asarray(ker), atol=TOL, rtol=0)
+
+
+@pytest.mark.parametrize("chunk", [1, 3, 4])
+def test_make_decode_worklist_flat_matches_jax(chunk):
+    rng = np.random.default_rng(12)
+    tables = rng.permutation(np.arange(1, 17)).reshape(4, 4).astype(np.int32)
+    lens = np.asarray([1, 17, 40, 64], np.int32)
+    got = PA.make_decode_worklist_flat(torch.from_numpy(tables),
+                                       torch.from_numpy(lens), 16, chunk=chunk)
+    want = J.make_decode_worklist_flat(jnp.asarray(tables),
+                                       jnp.asarray(lens), 16, chunk=chunk)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
 
 
 def test_wrappers_refuse_a_bad_layer():

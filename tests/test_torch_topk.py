@@ -4,6 +4,7 @@ interpret mode, on the same inputs. Ids must match exactly, ties and
 tombstones included; scores to 1e-6 (float32 sums in another order). The
 CUDA kernels themselves run only on the card (``chip_smoke.py``)."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -171,3 +172,49 @@ def test_plain_large_k_matches_xla_and_pallas(int8, k):
         np.testing.assert_allclose(ts.numpy(), np.asarray(ps), atol=1e-6,
                                    rtol=0)
 
+
+
+@pytest.mark.parametrize("k", [1, 10, 130])
+def test_int8mxu_twin_matches_pallas_kernel(k):
+    """``topk_scan_int8mxu`` on CPU tensors (its twin: queries quantized per
+    row, exact int8 x int8 sums, ``(float(acc) · q_scale) · scale``)
+    against ``topk_pallas_int8mxu`` in interpret mode, as
+    ``tests/test_topk.py:109-118`` runs it. The int8 queries are held equal
+    to the ones JAX's jitted wrapper makes (XLA turns its ``/ 127.0`` into a
+    reciprocal product; these rows quantize the same either way), so the
+    ids are equal, ties and tombstones included, and the scores within
+    1e-6 (a query scale a float32 step apart)."""
+    c, ids, qs = _case()
+    jc8, jsc = J.quantize_rows_int8(jnp.asarray(c))
+    tc8, tsc = torch.from_numpy(np.array(jc8)), torch.from_numpy(np.array(jsc))
+    np.testing.assert_array_equal(
+        T.quantize_rows_int8(torch.from_numpy(qs))[0].numpy(),
+        np.asarray(jax.jit(J.quantize_rows_int8)(jnp.asarray(qs))[0]))
+    ps, pi = J.topk_pallas_int8mxu(jc8, jsc, jnp.asarray(ids),
+                                   jnp.asarray(qs), k, tile_n=128,
+                                   interpret=True)
+    before = T.topk_scan_int8mxu.launches
+    ts, ti = T.topk_scan_int8mxu(tc8, tsc, torch.from_numpy(ids),
+                                 torch.from_numpy(qs), k)
+    assert T.topk_scan_int8mxu.launches == before     # the twin counts none
+    np.testing.assert_array_equal(ti.numpy(), np.asarray(pi))
+    np.testing.assert_allclose(ts.numpy(), np.asarray(ps), atol=1e-6, rtol=0)
+    if k >= 10:  # the tie group surfaces in id order, tombstone 103 never
+        assert ti[0, :9].tolist() == [5, 100, 101, 102, 104, 105, 106, 107,
+                                      108]
+
+
+def test_stream_alias_matches_pallas_stream_kernel():
+    """``topk_scan_stream`` (the alias of ``topk_scan_bf16``) against
+    ``topk_pallas_stream`` in interpret mode, as
+    ``tests/test_topk.py:127-136`` runs it: the same function."""
+    c, ids, qs = _case(seed=3)
+    jc, tc = _bf16(c)
+    jq, tq = _bf16(qs)
+    ps, pi = J.topk_pallas_stream(jc, jnp.asarray(ids), jq, 10, tile_n=128,
+                                  interpret=True)
+    ts, ti = T.topk_scan_stream(tc, torch.from_numpy(ids), tq, 10)
+    np.testing.assert_array_equal(ti.numpy(), np.asarray(pi))
+    np.testing.assert_allclose(ts.numpy(), np.asarray(ps), atol=1e-6, rtol=0)
+    want = T.topk_scan_bf16(tc, torch.from_numpy(ids), tq, 10)
+    assert torch.equal(ts, want[0]) and torch.equal(ti, want[1])
