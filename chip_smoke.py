@@ -187,8 +187,39 @@ Phases, each printed with its seconds beside the card's name and power limit:
    ablations (native weights, host ms a step); a JSON and an SSE chat
    through ``create_local_llm_transport(weights="w8a8")``.
 
+11. train - the flash attention backward and the contrastive trainer. The
+   dQ and dK/dV kernels (``csrc/flash_attention_bwd.cu``) against the
+   backward twin run over the kernels' 64 tile, on random bf16 q, k, v and
+   dO with ragged key masks and the forward kernel's o and lse, at the
+   trainer's shape (B 8, H 16, L 1024, D 128, causal), the window shape (B
+   1, H 16, L 8192, causal) and the trainer's shape without causality:
+   dQ, dK and dV each within one bf16 step of the twin's |value| plus
+   ``BWD_TOL`` of the tensor's largest |value| (both round ds to bf16; a ds
+   a float32 bit apart rounds one step apart and moves every product it
+   feeds). Times: each kernel, its twin, the backward of
+   ``scaled_dot_product_attention`` with the same boolean mask timed alone
+   (one call for dQ, dK and dV), and the bound (bytes: q, dO, lse, delta,
+   the mask and the outputs whole, k and v over the real keys; operations:
+   2 D per visible (query, real key) pair for each product, 3 for dQ, 4 for
+   dK/dV, 5 for the whole backward). Then ``ContrastiveTrainer`` on
+   full-width, full-depth ``qwen3-embedding-0.6b`` (bf16, random weights
+   from a seeded CPU generator) with ``use_flash=True``, last-token
+   pooling, 1024 tokens, a batch of 8 pairs of the checkout's markdown
+   (768-token windows of ``scripts/long_context.py``, each query the first
+   300 characters of the window after its document): (a) the first step's loss within
+   ``TRAIN_LOSS`` of plain attention's on the same weights and batch and
+   every leaf's gradient cosine at least ``TRAIN_COS`` (the plain route's
+   gradients by the chain rule from the pooled vectors, 4 rows at a time,
+   since its float32 [B, H, L, L] probabilities for both towers at once do
+   not fit the card); (b) 5 AdamW steps (lr 1e-4) through ``train``: every
+   loss finite, the last below the first; (c) exactly 56 forward, 56 dQ
+   and 56 dK/dV launches a step (28 layers, two towers); host ms a step,
+   device busy ms of one more step under ``torch.profiler``, peak memory
+   and tokens a second; (d) ``save``, then ``restore`` into a fresh
+   trainer: every parameter bit for bit.
+
 Every kernel's launch count is set to 0 just before each path (3, 5, 6, 7,
-8, 9 and 10) is driven and read just after; each kernel of a path must have launched. The
+8, 9, 10 and 11) is driven and read just after; each kernel of a path must have launched. The
 script then prints one JSON line with every kernel's numbers, the card's
 ``nvidia-smi`` name and power limit, and as its last line
 ``{"ok": true, "device": {...}}``. Any failed check raises and the script
@@ -247,6 +278,21 @@ INT8_MM_TOL = 1e-5
 # a weight: up to ~5e-4 of the output's scale (a K row two bf16 steps apart
 # in a card test)
 INT8_LAYER_TOL = 1e-3
+# the flash backward kernels against their twin: one bf16 step at the twin's
+# magnitude plus this share of the tensor's largest |value|. Both round ds to
+# bf16 before dS K and dS^T Q; where p or dP comes out a float32 bit apart
+# (expf against torch.exp, sums in another order) a ds rounds one bf16 step
+# (2^-8 of itself) apart, and every dQ or dK element it feeds moves by that
+# step times a K or Q value: up to 3.5e-4 of the largest |dQ| or |dK| at
+# the trainer's shape on the card, so this allows about three times that
+BWD_TOL = 1e-3
+# the trainer's first step, flash route against plain attention on the same
+# weights and batch: every leaf's gradient cosine at least TRAIN_COS, the
+# loss within TRAIN_LOSS (the two routes round p to bf16 against other
+# running maxima, which moves a pooled unit vector by ~1e-3 and a logit,
+# divided by the temperature 0.05, by a few hundredths)
+TRAIN_COS = 0.99
+TRAIN_LOSS = 0.05
 
 
 def log(phase: str, seconds: float, card_line: str, **fields) -> None:
@@ -361,6 +407,15 @@ W8A8_KV8_KERNELS = {
         "cmw_rag_tpu_torch/csrc/paged_attention.cu")}
 
 
+#: the flash backward wrappers: (TPU kernel replaced, CUDA source); both
+#: pallas_calls are in ``_fa_bwd_rule`` (``flash_attention.py:365``)
+BWD_KERNELS = {
+    "flash_attention_bwd_dq": ("cmw_rag_tpu/ops/flash_attention.py:388",
+                               "cmw_rag_tpu_torch/csrc/flash_attention_bwd.cu"),
+    "flash_attention_bwd_dkv": ("cmw_rag_tpu/ops/flash_attention.py:418",
+                                "cmw_rag_tpu_torch/csrc/flash_attention_bwd.cu")}
+
+
 def new_wrappers() -> dict:
     """The wrappers of phase 10 and the off-path aliases, by name."""
     from cmw_rag_tpu_torch.ops import decoder_layer as DL
@@ -416,6 +471,7 @@ def read_counts() -> dict:
     return {"topk_scan_bf16": T.topk_scan_bf16.launches,
             "topk_scan_int8": T.topk_scan_int8.launches,
             "flash_attention_fwd": F.total_launches(),
+            **{name: getattr(F, name).launches for name in BWD_KERNELS},
             **{name: getattr(V, name).launches for name in IVF_KERNELS},
             **{name: getattr(PA, name).launches for name in PAGED_KERNELS},
             **{name: fn.launches for name, fn in int8_wrappers().items()},
@@ -2481,6 +2537,398 @@ def w8a8_kv8_phase(card_line: str) -> dict:
     return {"kernels": kernels, "engine": engine, "transport": transport,
             "launches": launches}
 
+# ------------------------------------------------- contrastive training path
+
+
+def bwd_case(b: int, h: int, L: int, d: int, causal: bool, gen) -> dict:
+    """Random bf16 q, k, v, dO [B*H, L, D] with ragged key masks, and the
+    forward kernel's o and lse and delta over them."""
+    import torch
+    from cmw_rag_tpu_torch.ops import flash_attention as F
+
+    q, k, v, do = (torch.randn((b * h, L, d), generator=gen, device="cuda")
+                   .to(torch.bfloat16) for _ in range(4))
+    lens = torch.randint(L // 2, L + 1, (b,), generator=gen, device="cuda")
+    pos = torch.arange(L, device="cuda")
+    mask = (pos[None, :] < lens[:, None]).to(torch.int32)
+    o, lse = F.flash_attention_fwd(q, k, v, mask, h, causal)
+    return {"q": q, "k": k, "v": v, "do": do, "mask": mask, "lens": lens,
+            "o": o, "lse": lse, "delta": F.bwd_delta(o, do), "pos": pos}
+
+
+def bwd_bounds(c: dict, b: int, h: int, L: int, d: int, causal: bool) -> dict:
+    """The least time of each backward kernel's work on these inputs: bytes
+    (q, dO, lse, delta and the outputs whole; k and v over the real keys
+    only, which are all that the outputs depend on; the mask) and operations
+    (2 D per visible (query, real key) pair for each product: S, dP and dS K
+    for dQ; S, dP, P^T dO and dS^T Q for dK/dV; S, dP, dQ, dK and dV for the
+    whole backward, its five products)."""
+    pos, lens = c["pos"], c["lens"]
+    if causal:
+        pairs = int((pos[None, :] + 1).minimum(lens[:, None]).sum().item())
+    else:
+        pairs = L * int(lens.sum().item())
+    pairs *= h
+    bf = 2.0 * h * d
+    real_kv = 2 * bf * float(lens.sum().item())       # k and v, real keys
+    rows = bf * b * L                                 # one [B*H, L, D] tensor
+    stats = 4.0 * b * h * L * 2 + 4 * b * L            # lse, delta; the mask
+    per_pair = 2.0 * d
+    return {"dq": bound(rows * 2 + real_kv + stats + rows,
+                        3 * per_pair * pairs),
+            "dkv": bound(rows * 2 + real_kv + stats + 2 * rows,
+                         4 * per_pair * pairs),
+            "backward": bound(rows * 3 + real_kv + stats + 3 * rows,
+                              5 * per_pair * pairs)}
+
+
+def held_bwd(got, want, label: str) -> dict:
+    """``got`` within one bf16 step of ``want`` plus ``BWD_TOL`` of its
+    largest |value|; → (max abs err, max err past one step)."""
+    import torch
+
+    err = (got.float() - want.float()).abs()
+    past = (err - bf16_step(want)).max().item()
+    allowed = BWD_TOL * want.float().abs().max().item()
+    if not bool(torch.isfinite(got.float()).all()) or past > allowed:
+        raise AssertionError(f"{label}: {err.max().item()} from the twin, "
+                             f"{past} past one bf16 step (allowed {allowed})")
+    return {"max_abs_err": err.max().item(), "max_err_past_one_step": past,
+            "allowed_past_one_step": allowed}
+
+
+def library_bwd(c: dict, b: int, h: int, L: int, d: int, causal: bool):
+    """Yardstick only: the backward of ``scaled_dot_product_attention`` with
+    the same key mask and causality, as a closure to time alone."""
+    import torch
+    import torch.nn.functional as Fn
+
+    pos, mask = c["pos"], c["mask"]
+    keep = (mask[:, None, :] > 0)[:, None]                     # [B, 1, 1, L]
+    if causal:
+        keep = keep & (pos[:, None] >= pos[None, :])[None, None]
+    qs, ks, vs = (c[n].view(b, h, L, d).detach().requires_grad_()
+                  for n in ("q", "k", "v"))
+    out = Fn.scaled_dot_product_attention(qs, ks, vs, attn_mask=keep)
+    do = c["do"].view(b, h, L, d)
+    return lambda: torch.autograd.grad(out, (qs, ks, vs), do,
+                                       retain_graph=True)
+
+
+def flash_bwd_phase(card_line: str) -> dict:
+    """Hold the dQ and dK/dV kernels against the twin at the trainer's, the
+    window and a non-causal shape; time them, the twin and SDPA's backward."""
+    import torch
+    from cmw_rag_tpu_torch.ops import flash_attention as F
+
+    gen = torch.Generator(device="cuda").manual_seed(8642)
+    tile = F.kernel_tile()
+    report = {}
+    for case, (b, h, L, d, causal) in (("train", (8, 16, 1024, 128, True)),
+                                       ("window", (1, 16, 8192, 128, True)),
+                                       ("noncausal", (8, 16, 1024, 128, False))):
+        t0 = time.time()
+        c = bwd_case(b, h, L, d, causal, gen)
+        args = (c["q"], c["k"], c["v"], c["mask"], c["do"], c["lse"],
+                c["delta"], h, causal)
+        dq = F.flash_attention_bwd_dq(*args)
+        dk, dv = F.flash_attention_bwd_dkv(*args)
+        pdq = F.flash_attention_bwd_dq_plain(*args, tile, tile)
+        pdk, pdv = F.flash_attention_bwd_dkv_plain(*args, tile, tile)
+        torch.cuda.synchronize()
+        held = {"dq": held_bwd(dq, pdq, f"dQ {case}"),
+                "dk": held_bwd(dk, pdk, f"dK {case}"),
+                "dv": held_bwd(dv, pdv, f"dV {case}")}
+        bounds = bwd_bounds(c, b, h, L, d, causal)
+        lib_ms = cuda_ms(library_bwd(c, b, h, L, d, causal), 10)
+        shape = {"B": b, "H": h, "L": L, "D": d, "causal": causal}
+        entries = {
+            "flash_attention_bwd_dq": dict(
+                ms=cuda_ms(lambda: F.flash_attention_bwd_dq(*args), 20),
+                plain_ms=cuda_ms(lambda: F.flash_attention_bwd_dq_plain(
+                    *args, tile, tile), 2),
+                max_abs_err=held["dq"]["max_abs_err"],
+                max_err_past_one_step=held["dq"]["max_err_past_one_step"],
+                **bounds["dq"]),
+            "flash_attention_bwd_dkv": dict(
+                ms=cuda_ms(lambda: F.flash_attention_bwd_dkv(*args), 20),
+                plain_ms=cuda_ms(lambda: F.flash_attention_bwd_dkv_plain(
+                    *args, tile, tile), 2),
+                max_abs_err=max(held["dk"]["max_abs_err"],
+                                held["dv"]["max_abs_err"]),
+                max_err_past_one_step=max(held["dk"]["max_err_past_one_step"],
+                                          held["dv"]["max_err_past_one_step"]),
+                **bounds["dkv"])}
+        for name, entry in entries.items():
+            # one library call computes dQ, dK and dV together
+            entry.update(library_ms=lib_ms, shape=shape)
+            log(f"kernel-{name}-{case}", time.time() - t0, card_line,
+                B=b, H=h, L=L, D=d, causal=causal, **fmt(
+                    {k: v for k, v in entry.items() if k != "shape"}))
+            report[(name, case)] = entry
+        both = entries["flash_attention_bwd_dq"]["ms"] \
+            + entries["flash_attention_bwd_dkv"]["ms"]
+        report[("backward", case)] = dict(kernels_ms=both, library_ms=lib_ms,
+                                          **bounds["backward"],
+                                          errors=held, shape=shape)
+        log(f"flash-backward-{case}", time.time() - t0, card_line,
+            kernels_ms=f"{both:.4f}", sdpa_backward_ms=f"{lib_ms:.4f}",
+            bound_ms=f"{bounds['backward']['bound_ms']:.4f}",
+            bound_by=bounds["backward"]["bound_by"])
+        del c, args, dq, dk, dv, pdq, pdk, pdv
+        torch.cuda.empty_cache()
+    return report
+
+
+TRAIN_MODEL = "qwen3-embedding-0.6b"
+TRAIN_BATCH = 8
+TRAIN_TOKENS = 1024
+TRAIN_STEPS = 5
+TRAIN_LR = 1e-4
+
+
+def training_pairs(tokenizer, n: int) -> list[tuple[str, str]]:
+    """``n`` (query, document) pairs of real text: documents are 768-token
+    windows of the checkout's markdown (``scripts/long_context.py``), each
+    query the first 300 characters of the window that follows its document.
+    (A query that is its document's own prefix makes the pair trivial even
+    for random weights: causal last-token states of a shared prefix agree,
+    and the first loss was 0.0086.)"""
+    from cmw_rag_tpu_torch.scripts import long_context as lc
+
+    texts = lc.window_chunks(ROOT, tokenizer, n_chunks=2 * n)[0]
+    return [(texts[2 * i + 1][:300], texts[2 * i]) for i in range(n)]
+
+
+def build_trainer(seed: int = 0):
+    """``ContrastiveTrainer`` on full-width, full-depth qwen3-embedding-0.6b
+    (bf16, random weights from a seeded CPU generator) on the card, through
+    the flash kernels, with the spec's own prefixes and pooling."""
+    import torch
+    from cmw_rag_tpu_torch.config import get_embedding_model
+    from cmw_rag_tpu_torch.models.qwen3 import Qwen3Config
+    from cmw_rag_tpu_torch.tokenizer import get_tokenizer
+    from cmw_rag_tpu_torch.training import ContrastiveTrainer
+
+    spec = get_embedding_model(TRAIN_MODEL)
+    tok = get_tokenizer()
+    cfg = Qwen3Config(
+        vocab_size=-(-max(spec.vocab_size, tok.n_vocab) // 128) * 128,
+        d_model=spec.d_model, d_ff=spec.d_ff, num_layers=spec.num_layers,
+        num_heads=spec.num_heads, num_kv_heads=spec.num_kv_heads,
+        head_dim=spec.head_dim, dtype=torch.bfloat16)
+    return ContrastiveTrainer(
+        cfg, tokenizer=tok, learning_rate=TRAIN_LR, max_tokens=TRAIN_TOKENS,
+        seed=seed, query_prefix=spec.query_prefix,
+        document_prefix=spec.document_prefix, pooling=spec.pooling,
+        arch="qwen3", use_flash=True, device="cuda")
+
+
+def plain_route_grads(trainer, batch: dict, chunk: int = 4):
+    """The first step's loss and gradients on the plain attention route, on
+    the trainer's weights: the loss depends on the towers only through the
+    pooled unit vectors, so their gradients come first (no tower graph
+    kept), then each tower is run again ``chunk`` rows at a time with the
+    graph and back-propagated from its rows' vector gradients (the chain
+    rule, summed over rows). Plain attention keeps [B, H, L, L] float32
+    probabilities for its backward, which at B = 8 for both towers would
+    not fit the card."""
+    import torch
+    from cmw_rag_tpu_torch.models.pooling import pool_hidden
+    from cmw_rag_tpu_torch.models.qwen3 import qwen3_hidden_states
+    from cmw_rag_tpu_torch.training.contrastive import info_nce_loss
+
+    def embed(ids, mask):
+        h = qwen3_hidden_states(trainer.params, trainer.cfg, ids, mask)
+        return pool_hidden(h, mask, "last_token", normalize=True)
+
+    b = {k: torch.as_tensor(v).to(trainer.device) for k, v in batch.items()}
+    with torch.no_grad():
+        q, d = embed(b["q_ids"], b["q_mask"]), embed(b["d_ids"], b["d_mask"])
+    q.requires_grad_(True)
+    d.requires_grad_(True)
+    loss = info_nce_loss(q, d)
+    gq, gd = torch.autograd.grad(loss, (q, d))
+    trainer.optimizer.zero_grad(set_to_none=True)
+    for ids, mask, g in ((b["q_ids"], b["q_mask"], gq),
+                         (b["d_ids"], b["d_mask"], gd)):
+        for r in range(0, ids.shape[0], chunk):
+            rows = slice(r, r + chunk)
+            (embed(ids[rows], mask[rows]) * g[rows]).sum().backward()
+    from cmw_rag_tpu_torch.models.weights import tree_leaves
+
+    grads = [p.grad.detach().clone() for p in tree_leaves(trainer.params)]
+    trainer.optimizer.zero_grad(set_to_none=True)
+    return float(loss.detach()), grads
+
+
+def leaf_names(params) -> list[str]:
+    """Leaf names in tree order (``layers.3.wq``)."""
+    out = []
+
+    def walk(node, prefix):
+        if isinstance(node, dict):
+            for k in sorted(node):
+                walk(node[k], f"{prefix}{k}.")
+        elif isinstance(node, list):
+            for i, v in enumerate(node):
+                walk(v, f"{prefix}{i}.")
+        else:
+            out.append(prefix[:-1])
+
+    walk(params, "")
+    return out
+
+
+def train_phase(card_line: str) -> dict:
+    """ContrastiveTrainer at full width through the flash kernels: the first
+    step against plain attention, 5 AdamW steps, exact launch counts,
+    save and restore."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from cmw_rag_tpu_torch.models.weights import tree_leaves
+    from cmw_rag_tpu_torch.ops import flash_attention as F
+    from cmw_rag_tpu_torch.scripts.profile_query import _busy_us, _is_kernel
+
+    t0 = time.time()
+    trainer = build_trainer(seed=0)
+    pairs = training_pairs(trainer.tokenizer, TRAIN_BATCH)
+    batch = trainer.tokenize_pairs([p[0] for p in pairs],
+                                   [p[1] for p in pairs])
+    real = int(batch["q_mask"].sum() + batch["d_mask"].sum())
+    per_step = 2 * trainer.cfg.num_layers
+    torch.cuda.synchronize()
+    log("train-setup", time.time() - t0, card_line, model=TRAIN_MODEL,
+        layers=trainer.cfg.num_layers, d_model=trainer.cfg.d_model,
+        vocab=trainer.cfg.vocab_size, batch=TRAIN_BATCH, tokens=TRAIN_TOKENS,
+        real_tokens=real)
+
+    # (a) the first step's loss and gradients: flash against plain attention
+    t0 = time.time()
+    reset_counts()
+    trainer.optimizer.zero_grad(set_to_none=True)
+    loss_flash = trainer.loss(batch)
+    loss_flash.backward()
+    flash_grads = [p.grad.detach().clone() for p in tree_leaves(trainer.params)]
+    counts = read_counts()
+    want = {"flash_attention_fwd": per_step,
+            "flash_attention_bwd_dq": per_step,
+            "flash_attention_bwd_dkv": per_step}
+    if {k: counts[k] for k in want} != want:
+        raise AssertionError(f"first step launches {counts}, want {want}")
+    loss_flash = float(loss_flash.detach())
+    loss_plain, plain_grads = plain_route_grads(trainer, batch)
+    if read_counts()["flash_attention_fwd"] != per_step:
+        raise AssertionError("the plain route launched the flash kernel")
+    names = leaf_names(trainer.params)
+    cos = {}
+    for name, a, b in zip(names, flash_grads, plain_grads):
+        a, b = a.float().flatten(), b.float().flatten()
+        cos[name] = float((a @ b) / (a.norm() * b.norm()).clamp(min=1e-30))
+    del flash_grads, plain_grads
+    worst = min(cos, key=cos.get)
+    loss_gap = abs(loss_flash - loss_plain)
+    log("train-first-step", time.time() - t0, card_line,
+        loss_flash=f"{loss_flash:.6f}", loss_plain=f"{loss_plain:.6f}",
+        loss_gap=f"{loss_gap:.6f}", min_grad_cos=f"{cos[worst]:.6f}",
+        min_grad_cos_leaf=worst,
+        grad_cos_below_0999=sum(v < 0.999 for v in cos.values()))
+    if not np.isfinite(loss_flash) or loss_gap > TRAIN_LOSS:
+        raise AssertionError(f"first-step loss: flash {loss_flash}, plain "
+                             f"{loss_plain}")
+    if cos[worst] < TRAIN_COS:
+        raise AssertionError(f"gradient of {worst}: cosine {cos[worst]} "
+                             f"between the flash and plain routes")
+
+    # (b, c) the main path: 5 AdamW steps on one batch through the trainer's
+    # loop, every kernel launched exactly 56 times a step
+    t0 = time.time()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t_steps = time.perf_counter()
+    losses = trainer.train(pairs, batch_size=TRAIN_BATCH, epochs=TRAIN_STEPS)
+    step_wall = time.perf_counter() - t_steps
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    want = {k: TRAIN_STEPS * per_step for k in want}
+    if {k: launches[k] for k in want} != want:
+        raise AssertionError(f"training launches {launches}, want {want}")
+    if len(losses) != TRAIN_STEPS or not np.isfinite(losses).all() \
+            or not losses[-1] < losses[0]:
+        raise AssertionError(f"losses over {TRAIN_STEPS} steps: {losses}")
+    host_ms = 1e3 * step_wall / TRAIN_STEPS
+    # one more step under the profiler: device busy time, idle share and
+    # where the device time goes, by kernel name
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t_prof = time.perf_counter()
+        trainer.step(batch)
+        torch.cuda.synchronize()
+        prof_ms = 1e3 * (time.perf_counter() - t_prof)
+    events = [e for e in prof.events() if _is_kernel(e)]
+    busy_ms = _busy_us(events) / 1e3
+    by_name: dict = {}
+    for e in events:
+        by_name[e.name] = (by_name.get(e.name, 0.0)
+                           + (e.time_range.end - e.time_range.start) / 1e3)
+
+    def share(*parts):
+        return sum(v for k, v in by_name.items()
+                   if any(p in k.lower() for p in parts)) / busy_ms
+
+    stats = {"losses": losses, "host_ms_per_step": host_ms,
+             "device_busy_ms_per_step": busy_ms,
+             "idle_share": 1.0 - busy_ms / prof_ms,
+             "kernel_launches_per_step": len(events),
+             "flash_share_of_busy": share("flash_fwd_kernel",
+                                          "flash_bwd_dq_kernel",
+                                          "flash_bwd_dkv_kernel"),
+             # cuBLAS's Hopper GEMMs are named nvjet_*, older ones *gemm*
+             "gemm_share_of_busy": share("nvjet", "gemm", "xmma", "cutlass"),
+             "elementwise_share_of_busy": share("elementwise_kernel",
+                                                "reduce_kernel"),
+             "top_kernels_ms": [[k[:90], round(v, 3)] for k, v in sorted(
+                 by_name.items(), key=lambda kv: -kv[1])[:8]],
+             "peak_memory_gib": peak / 2 ** 30,
+             "tokens_per_s": 2 * TRAIN_BATCH * TRAIN_TOKENS / (host_ms / 1e3),
+             "real_tokens_per_s": real / (host_ms / 1e3)}
+    log("train-steps", time.time() - t0, card_line,
+        losses=json.dumps([round(x, 6) for x in losses]),
+        top_kernels_ms=json.dumps(stats["top_kernels_ms"]),
+        **fmt({k: v for k, v in stats.items()
+               if k not in ("losses", "top_kernels_ms")}))
+
+    # (d) save, then restore into a fresh trainer: params bit for bit
+    t0 = time.time()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "embedder.npz"
+        trainer.save(path)
+        fresh = build_trainer(seed=1)
+        fresh.restore(path)
+    same = all(torch.equal(a, b) for a, b in zip(tree_leaves(trainer.params),
+                                                 tree_leaves(fresh.params)))
+    if not same:
+        raise AssertionError("restored params differ from the saved ones")
+    log("train-save-restore", time.time() - t0, card_line, bit_equal=same)
+    del trainer, fresh
+    torch.cuda.empty_cache()
+    return {"first_step": {"loss_flash": loss_flash, "loss_plain": loss_plain,
+                           "loss_gap": loss_gap, "min_grad_cos": cos[worst],
+                           "min_grad_cos_leaf": worst},
+            "steps": stats, "launches": launches,
+            "launches_per_step": {k: v // TRAIN_STEPS for k, v in want.items()}}
+
+
+def training_phase(card_line: str) -> dict:
+    t0 = time.time()
+    kernels = flash_bwd_phase(card_line)
+    trained = train_phase(card_line)
+    return {"kernels": kernels, "train": trained,
+            "launches": trained.pop("launches"),
+            "seconds": time.time() - t0}
+
 
 def main() -> int:
     import torch
@@ -2520,12 +2968,14 @@ def main() -> int:
     t_new = time.time()
     w8a8 = w8a8_kv8_phase(card_line)
     w8a8_seconds = time.time() - t_new
+    train = training_phase(card_line)
 
     by_path = {"fused": fused["launches"], "long_context": long_ctx["launches"],
                "ivf": ivf["launches"], "segmented": segmented["launches"],
                "local_llm": llm["launches"],
                "local_llm_int8": int8["launches"],
-               "local_llm_w8a8_kv8": w8a8["launches"]}
+               "local_llm_w8a8_kv8": w8a8["launches"],
+               "train": train["launches"]}
     rows = []
     for name in ("topk_scan_bf16", "topk_scan_int8"):
         main_shape = scans[(name, "main")]
@@ -2654,6 +3104,24 @@ def main() -> int:
                 "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
                 "max_abs_err", "shape")}
         rows.append(row)
+    for name, (replaces, source) in BWD_KERNELS.items():
+        cases = ("train", "window", "noncausal")
+        main_case = train["kernels"][(name, cases[0])]
+        row = {"name": name, "route": "cuda", "source": source,
+               "replaces": replaces,
+               "launches": sum(p[name] for p in by_path.values()),
+               "launches_by_path": {p: c[name] for p, c in by_path.items()},
+               "launches_per_step": train["train"]["launches_per_step"][name],
+               "max_abs_err": max(train["kernels"][(name, c)]["max_abs_err"]
+                                  for c in cases)}
+        row.update({k: main_case[k] for k in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "max_err_past_one_step", "shape")})
+        for case in cases[1:]:
+            row[case] = {k: train["kernels"][(name, case)][k] for k in (
+                "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+                "max_abs_err", "max_err_past_one_step", "shape")}
+        rows.append(row)
     off_path = {"topk_scan_int8mxu": scans[("topk_scan_int8mxu", "main")],
                 "topk_scan_stream": scans[("topk_scan_stream", "main")],
                 "ivf_probed_scan_dma":
@@ -2686,6 +3154,12 @@ def main() -> int:
                                              "transport": w8a8["transport"]},
                       "local_llm_w8a8_kv8_phase_seconds":
                           round(w8a8_seconds, 3),
+                      "training": {
+                          **train["train"],
+                          "backward": {case: train["kernels"][("backward", case)]
+                                       for case in ("train", "window",
+                                                    "noncausal")}},
+                      "training_phase_seconds": round(train["seconds"], 3),
                       "seconds": round(time.time() - t_all, 3),
                       "card": card_line}), flush=True)
     print(card_line, flush=True)

@@ -102,6 +102,21 @@ class FlatIndex:
     def epoch(self) -> int:
         return self._snap.epoch
 
+    @property
+    def vecs(self) -> torch.Tensor:
+        """The corpus matrix [capacity, D] (bf16, or int8 rows)."""
+        return self._snap.vecs
+
+    @property
+    def ids(self) -> torch.Tensor:
+        """External ids [capacity] int32; -1 marks free and deleted slots."""
+        return self._snap.ids
+
+    @property
+    def scales(self) -> Optional[torch.Tensor]:
+        """Per-row float32 scales [capacity] of int8 rows; None for bf16."""
+        return self._snap.scales
+
     # ------------------------------------------------------------ storage
     def _alloc_vecs(self, cap: int) -> torch.Tensor:
         return torch.zeros((cap, self.dim), dtype=self.dtype, device=self.device)
@@ -218,6 +233,19 @@ class FlatIndex:
         return scores, ids
 
     # -------------------------------------------------------- persistence
+    @classmethod
+    def from_host(cls, vectors: np.ndarray, ids: np.ndarray,
+                  **kw) -> "FlatIndex":
+        """An index of the live rows (``ids >= 0``) of a ``to_host`` dump;
+        ``kw`` goes to the constructor (capacity defaults to the dump's
+        length)."""
+        kw.setdefault("capacity", max(len(ids), 1))
+        idx = cls(dim=vectors.shape[1], **kw)
+        live = ids >= 0
+        if live.any():
+            idx.add(vectors[live], ids[live])
+        return idx
+
     def to_host(self) -> tuple[np.ndarray, np.ndarray]:
         """(vectors f32 [n_slots, D], ids i32 [n_slots]), live and
         tombstoned; quantized rows come back dequantized."""

@@ -191,9 +191,10 @@ def create_local_llm_transport(spec: Optional[GuardModelSpec] = None,
     factory folds it: on only with the kernel route and int8 weights,
     ``None`` keeps the engine's default. The other half, wrapping the
     transport in an ``LLMManager``,
-    waits for the port's manager, whose request and response schemas need
-    pydantic (``ROADMAP.md`` Queue 1 item 13); hence this name and the
-    ``LocalLLM`` it returns instead of a manager."""
+    waits for the port of the manager (``llm/manager.py``, which imports no
+    pydantic) and its stdlib helpers, which is not done yet (``ROADMAP.md``
+    Queue 1 item 3); hence this name and the ``LocalLLM`` it returns
+    instead of a manager."""
     dev = resolve_device(device)
     tokenizer = tokenizer or get_tokenizer()
     spec = spec or get_guard_model("qwen3guard-0.6b")

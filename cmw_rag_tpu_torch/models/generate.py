@@ -122,9 +122,8 @@ def init_cache(cfg: Qwen3Config, batch: int, max_len: int, device="cpu"):
 
 
 def _head(params, cfg: Qwen3Config) -> torch.Tensor:
-    if not cfg.tie_embeddings:
-        raise NotImplementedError("untied lm_head is not ported")
-    return params["embed"].T
+    """The LM head [d, vocab]: the embedding's transpose, or ``lm_head``."""
+    return params["embed"].T if cfg.tie_embeddings else params["lm_head"]
 
 
 @torch.no_grad()

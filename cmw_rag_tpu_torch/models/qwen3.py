@@ -1,12 +1,17 @@
 """Qwen3-class causal decoder (port of ``cmw_rag_tpu/models/qwen3.py:90-160``).
 
 Pre-norm RMSNorm, per-head q/k RMSNorm before RoPE (rotate-half), grouped
-query attention, SwiGLU FFN, tied embeddings. Attention takes one of two
-routes, as in the JAX package: the plain one (``models/common.attention``
-under a causal padding bias), or, with ``use_flash=True``, the flash kernel
-(``ops/flash_attention.flash_attention_bhld``, causal, the key mask passed
-as is, K and V repeated to the full head count), which the embedder and
-the LLM reranker choose for sequences of 1024 tokens or more.
+query attention, SwiGLU FFN, tied embeddings, or an untied ``lm_head``
+[d, vocab] when ``tie_embeddings`` is False (JAX ``qwen3.py:69-70``).
+Attention takes one of two routes, as in the JAX package: the plain one
+(``models/common.attention`` under a causal padding bias), or, with
+``use_flash=True``, the flash kernels (``ops/flash_attention.flash_attention_bhld``,
+causal, the key mask passed as is, K and V repeated to the full head count,
+so that autograd sums dK and dV over each group as JAX does), which the
+embedder and the LLM reranker choose for sequences of 1024 tokens or more
+and the contrastive trainer takes with ``use_flash=True``. Both routes are
+differentiable: the flash route through ``FlashAttentionTrainable``, whose
+backward is the hand-written dQ and dK/dV kernels on a card.
 """
 
 from __future__ import annotations
@@ -40,8 +45,6 @@ class Qwen3Config(ModelConfig):
 
 def qwen3_layout(cfg: Qwen3Config) -> Params:
     """Shapes and dtypes of the parameter tree (checkpoint loading)."""
-    if not cfg.tie_embeddings:
-        raise NotImplementedError("untied lm_head is not ported")
     d, hq, hkv, dh, ff = (cfg.d_model, cfg.num_heads, cfg.kv_heads, cfg.hd,
                           cfg.d_ff)
     f32, w = torch.float32, cfg.dtype
@@ -53,14 +56,18 @@ def qwen3_layout(cfg: Qwen3Config) -> Params:
         "w_gate": Leaf((d, ff), w), "w_up": Leaf((d, ff), w),
         "w_down": Leaf((ff, d), w),
     }
-    return {"embed": Leaf((cfg.vocab_size, d), w),
-            "final_norm": Leaf((d,), f32),
-            "layers": [dict(layer) for _ in range(cfg.num_layers)]}
+    out = {"embed": Leaf((cfg.vocab_size, d), w),
+           "final_norm": Leaf((d,), f32),
+           "layers": [dict(layer) for _ in range(cfg.num_layers)]}
+    if not cfg.tie_embeddings:
+        out["lm_head"] = Leaf((d, cfg.vocab_size), w)
+    return out
 
 
 def init_qwen3(gen: torch.Generator, cfg: Qwen3Config,
                device="cpu") -> Params:
-    """Random parameters drawn from ``gen`` (a CPU generator)."""
+    """Random parameters drawn from ``gen`` (a CPU generator), in the JAX
+    package's order of draws: the embedding, the untied head, the layers."""
     d, hq, hkv, dh, ff = (cfg.d_model, cfg.num_heads, cfg.kv_heads, cfg.hd,
                           cfg.d_ff)
     params: Params = {
@@ -68,6 +75,8 @@ def init_qwen3(gen: torch.Generator, cfg: Qwen3Config,
         "final_norm": torch.ones((d,)),
         "layers": [],
     }
+    if not cfg.tie_embeddings:
+        params["lm_head"] = dense_init(gen, d, cfg.vocab_size, cfg.dtype)
     for _ in range(cfg.num_layers):
         params["layers"].append({
             "attn_norm": torch.ones((d,)),

@@ -1,4 +1,4 @@
-"""Checkpoint loading in the JAX package's layout
+"""Checkpoints in the JAX package's layout
 (port of ``cmw_rag_tpu/models/common.py:147-180 save/load_params_npz``).
 
 A checkpoint npz holds ``arr_0 … arr_n`` in JAX tree-leaf order, which
@@ -84,6 +84,20 @@ def load_params_npz(layout: Any, path, device="cpu") -> Any:
                              f"model {leaf.shape}")
         out.append(_to_tensor(arr, leaf.dtype, device))
     return tree_unflatten(layout, out)
+
+
+def save_params_npz(params: Any, path) -> None:
+    """Write ``params`` as ``arr_0 … arr_n`` in JAX tree-leaf order, the
+    layout ``load_params_npz`` here and in the JAX package read. bf16 leaves
+    are stored as float32 (numpy has no bf16); float32, float64, float16,
+    int32 and int64 leaves as they are, as the JAX writer keeps them."""
+    keep = (torch.float32, torch.float64, torch.float16, torch.int32,
+            torch.int64)
+    arrays = []
+    for t in tree_leaves(params):
+        t = t.detach()
+        arrays.append((t if t.dtype in keep else t.float()).cpu().numpy())
+    np.savez(path, *arrays)
 
 
 def params_from_jax(tree: Any, device="cpu") -> Any:

@@ -24,9 +24,9 @@ from cmw_rag_tpu_torch.device import REPO_ROOT
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 #: every kernel source of the port, by stem
-SOURCES = ("topk_scan", "flash_attention", "ivf_scan", "paged_attention",
-           "int8_matmul", "slot_attention", "fused_mlp", "decoder_layer",
-           "decoder_layer_kv8")
+SOURCES = ("topk_scan", "flash_attention", "flash_attention_bwd", "ivf_scan",
+           "paged_attention", "int8_matmul", "slot_attention", "fused_mlp",
+           "decoder_layer", "decoder_layer_kv8")
 BUILD_DIR = REPO_ROOT / "build" / "cmw_rag_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")

@@ -214,6 +214,9 @@ class TorchEmbedder:
     def dim(self) -> int:
         return self.spec.dimensions if self.spec.dimensions else self.cfg.d_model
 
+    def embed_query(self, text: str, task: str | None = None) -> np.ndarray:
+        return self.embed_queries([text], task)[0]
+
     def embed_queries(self, texts: Sequence[str],
                       task: str | None = None) -> np.ndarray:
         return self._embed([self.spec.format_query(t, task) for t in texts],

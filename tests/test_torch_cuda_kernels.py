@@ -29,7 +29,11 @@ their twins bit for bit (exact integer sums, the same scale order); the
 int8-KV megakernel's output as the megakernel's, its written int8 rows
 within one step of the twin's and its updated scales within one bf16 step,
 every other row and scale (the null page's excepted) bit for bit; the
-batched, stream and DMA aliases equal the kernels they alias.
+batched, stream and DMA aliases equal the kernels they alias. The flash
+backward kernels (dQ, dK/dV) against the backward twin over the kernels'
+64 tile: one bf16 step at the twin's magnitude plus 1e-3 of the tensor's
+largest |value| (both round ds to bf16, and a ds whose float32 value lands
+a bit apart rounds one step apart, moving the products it feeds).
 """
 
 import numpy as np
@@ -121,6 +125,68 @@ def test_flash_kernel_matches_twin(card, d, causal):
                        torch.ldexp(torch.ones_like(x), torch.frexp(x)[1] - 8))
     assert (err <= step + 2e-3).all()
     assert (lse - pl).abs().max().item() <= 1e-4
+
+
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_backward_kernels_match_twin(card, d, causal):
+    g = torch.Generator(device=card).manual_seed(10 * d + causal)
+    b, h, L = 2, 3, 256
+    q, k, v, do = (torch.randn((b * h, L, d), generator=g, device=card)
+                   .bfloat16() for _ in range(4))
+    mask = torch.ones((b, L), dtype=torch.int32, device=card)
+    mask[1, 150:] = 0
+    o, lse = F.flash_attention_fwd(q, k, v, mask, h, causal)
+    delta = F.bwd_delta(o, do)
+    before = (F.flash_attention_bwd_dq.launches,
+              F.flash_attention_bwd_dkv.launches)
+    dq = F.flash_attention_bwd_dq(q, k, v, mask, do, lse, delta, h, causal)
+    dk, dv = F.flash_attention_bwd_dkv(q, k, v, mask, do, lse, delta, h,
+                                       causal)
+    tile = F.kernel_tile()
+    want = F.flash_attention_bwd_plain(q, k, v, mask, o, lse, do, h, causal,
+                                       tile, tile)
+    torch.cuda.synchronize()
+    assert (F.flash_attention_bwd_dq.launches,
+            F.flash_attention_bwd_dkv.launches) == (before[0] + 1,
+                                                    before[1] + 1)
+    for got, ref in zip((dq, dk, dv), want):
+        assert got.dtype == torch.bfloat16
+        err = (got.float() - ref.float()).abs()
+        assert (err <= _bf16_step(ref) + 1e-3 * ref.float().abs().max()).all()
+
+
+def test_flash_trainable_backward_runs_the_kernels(card):
+    """``FlashAttentionTrainable`` on CUDA tensors: one forward, one dQ and
+    one dK/dV launch, gradients as the twin's."""
+    g = torch.Generator(device=card).manual_seed(3)
+    b, h, L, d = 2, 2, 128, 64
+    q, k, v, do = (torch.randn((b * h, L, d), generator=g, device=card)
+                   .bfloat16() for _ in range(4))
+    mask = torch.ones((b, L), dtype=torch.int32, device=card)
+    mask[0, 90:] = 0
+    F.reset_launches()
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    o = F.flash_attention_trainable(*leaves, mask, h, True)
+    got = torch.autograd.grad(o, leaves, do)
+    assert (F.total_launches(), F.flash_attention_bwd_dq.launches,
+            F.flash_attention_bwd_dkv.launches) == (1, 1, 1)
+    lse = F.flash_attention_fwd(q, k, v, mask, h, True)[1]
+    want = F.flash_attention_bwd_plain(q, k, v, mask, o.detach(), lse, do, h,
+                                       True, 64, 64)
+    for a, ref in zip(got, want):
+        err = (a.float() - ref.float()).abs()
+        assert (err <= _bf16_step(ref) + 1e-3 * ref.float().abs().max()).all()
+
+
+def test_flash_backward_refuses_what_the_kernel_does_not_take(card):
+    q = torch.zeros((2, 128, 64), dtype=torch.bfloat16, device=card)
+    mask = torch.ones((1, 128), dtype=torch.int32, device=card)
+    lse = torch.zeros((2, 128, 1), dtype=torch.float32, device=card)
+    with pytest.raises(TypeError, match="do"):
+        F.flash_attention_bwd_dq(q, q, q, mask, q.float(), lse, lse, 2)
+    with pytest.raises(ValueError, match="lse"):
+        F.flash_attention_bwd_dkv(q, q, q, mask, q, lse[:, :64], lse, 2)
 
 
 def test_flash_wrappers_refuse_what_the_kernel_does_not_take(card):

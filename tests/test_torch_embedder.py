@@ -176,3 +176,15 @@ def test_create_embedder_refuses_a_missing_checkpoint(monkeypatch):
     monkeypatch.setattr(T, "_bundled_checkpoint", lambda slug: None)
     with pytest.raises(ValueError, match="no checkpoint"):
         T.create_embedder(device="cpu")
+
+
+def test_embed_query_matches_jax(frida_f32):
+    """``embed_query`` (the reference's Embedder protocol) is the first row
+    of ``embed_queries``, as in JAX, and agrees with JAX's."""
+    jemb, temb = frida_f32
+    for text in [t for t in TEXTS if t][:3]:
+        got = temb.embed_query(text)
+        assert got.shape == (5120,) and got.dtype == np.float32
+        np.testing.assert_array_equal(got, temb.embed_queries([text])[0])
+        np.testing.assert_allclose(got, jemb.embed_query(text), atol=1e-4,
+                                   rtol=0)

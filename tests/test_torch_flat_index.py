@@ -246,3 +246,42 @@ def test_entry_points_default_to_the_card(monkeypatch):
         FlatIndex(dim=D)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         TorchVectorStore(dim=D)
+
+
+@pytest.mark.parametrize("quantize", [False, True])
+def test_from_host_and_snapshot_properties_match_jax(quantize):
+    """``from_host`` rebuilds an index from a ``to_host`` dump (tombstones
+    dropped) in both packages; ``vecs``, ``ids`` and ``scales`` expose the
+    published snapshot as JAX's properties do. Rebuilt int8 rows are
+    requantized from their dequantized floats: the int8 values are equal,
+    the live rows' scales within 1e-6 relative (the norm is summed in
+    another order; free slots hold scale 0 here, 1e-12 / 127 in JAX, and
+    are never read)."""
+    jidx, tidx = _pair(quantize=quantize)
+    vecs = _vecs(40, seed=7)
+    ids = np.arange(100, 140, dtype=np.int32)
+    jidx.add(vecs, ids)
+    tidx.add(vecs, ids)
+    jidx.delete([103, 117])
+    tidx.delete([103, 117])
+    jv, ji = jidx.to_host()
+    tv, ti = tidx.to_host()
+    np.testing.assert_array_equal(ti, ji)
+    np.testing.assert_array_equal(tv, jv)
+    jnew = JFlat.from_host(jv, ji, use_pallas=False, quantize=quantize)
+    tnew = FlatIndex.from_host(tv, ti, quantize=quantize, device="cpu")
+    assert tnew.n_live == jnew.n_live == 38
+    assert tnew.capacity == jnew.capacity
+    np.testing.assert_array_equal(tnew.ids.numpy(), np.asarray(jnew.ids))
+    np.testing.assert_array_equal(tnew.vecs.float().numpy(),
+                                  np.asarray(jnew.vecs, np.float32))
+    if quantize:
+        n = tnew.n_slots
+        assert tnew.scales.shape == jnew.scales.shape
+        np.testing.assert_allclose(tnew.scales[:n].numpy(),
+                                   np.asarray(jnew.scales)[:n], rtol=1e-6,
+                                   atol=0)
+    else:
+        assert tnew.scales is None and jnew.scales is None
+    assert tnew.vecs is tnew._snap.vecs and tnew.ids is tnew._snap.ids
+    _same(jnew, tnew, _vecs(5, seed=8), 10)

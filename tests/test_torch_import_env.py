@@ -7,7 +7,9 @@ qwen3-arch embedder and LLM reranker on their flash route, over a flat and
 then a segmented (IVF) store, and serves a JSON and an SSE chat through the
 local LLM transport over the paged engine's loop (kernel route, the twins
 on the CPU), then an int8-KV engine with chunked prefill, then an
-int8-weight engine on the decoder-layer megakernel's twin."""
+int8-weight engine on the decoder-layer megakernel's twin, then trains a
+tiny qwen3 embedder on its flash route (both directions on the twins) and
+runs ``scripts/train_embedder.py`` end to end on a two-pair dataset."""
 
 import ast
 import os
@@ -136,6 +138,40 @@ CHILD = textwrap.dedent("""
                         use_kernel=True, device="cpu")
     assert w8.layer_fused and w8.attn_slot
     assert w8.generate(["привет", "hello"], max_new_tokens=3)
+
+    import contextlib, io, os, tempfile
+    import numpy as np
+    from cmw_rag_tpu_torch.models.qwen3 import Qwen3Config
+    from cmw_rag_tpu_torch.scripts import train_embedder
+    from cmw_rag_tpu_torch.training import ContrastiveTrainer
+    trainer = ContrastiveTrainer(
+        Qwen3Config(vocab_size=16512, d_model=32, d_ff=64, num_layers=1,
+                    num_heads=2, num_kv_heads=1, head_dim=16,
+                    dtype=torch.float32),
+        learning_rate=1e-3, max_tokens=64, pooling="last_token",
+        arch="qwen3", use_flash=True, flash_block=32, device="cpu")
+    flash_calls.clear()
+    pairs = [("backup", "backup the database nightly"),
+             ("printer", "printer queue setup")]
+    losses = trainer.train(pairs, batch_size=2, epochs=2)
+    assert len(losses) == 2 and np.isfinite(losses).all(), losses
+    assert len(flash_calls) == 4, flash_calls  # 2 steps x 2 towers x 1 layer
+    with tempfile.TemporaryDirectory() as tmp:
+        ds = os.path.join(tmp, "ds.json")
+        with open(ds, "w", encoding="utf-8") as f:
+            json.dump({{"corpus": [{{"kb_id": str(i), "title": "t",
+                                   "content": d}}
+                                  for i, (_, d) in enumerate(pairs)],
+                       "queries": [{{"query": q, "judgments": {{str(i): 2}}}}
+                                   for i, (q, _) in enumerate(pairs)]}}, f)
+        out = os.path.join(tmp, "ckpt.npz")
+        with contextlib.redirect_stdout(io.StringIO()) as said:
+            assert train_embedder.main([
+                "--dataset", ds, "--model", "qwen3-mini", "--use-flash",
+                "--max-tokens", "64", "--batch-size", "2", "--epochs", "1",
+                "--fp32", "--device", "cpu", "--out", out]) == 0
+        assert "checkpoint saved" in said.getvalue()
+        assert os.path.getsize(out) > 0
 
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in REFUSED)
     assert not leaked, leaked
