@@ -16,10 +16,14 @@ Phases, each printed with its seconds beside the card's name and power limit:
    Scores must agree to 1e-4 absolute, ids wherever neighbouring scores
    differ by more than 1e-4, exact ties must come out in ascending id order.
    Flash attention forward, causal, bf16, with ragged key masks, at the
-   rerank shape (B 32, H 16, L 1024, D 128) and the window shape (B 1, H 16,
-   L 8192, D 128), against the twin run over the kernel's own 64-row,
-   64-key tiles, so that both round p to bf16 against the same running
-   maxima: O within one bf16 step of the twin's |O| (both round O to bf16,
+   rerank shape (B 32, H 16, L 1024, D 128), the window shape (B 1, H 16,
+   L 8192, D 128) and the trainer's (B 8, H 16, L 1024, D 128), and at the
+   rerank shape with every key real (``full``, also timed beside SDPA's
+   unmasked ``is_causal`` call), against the twin run over the kernel's own
+   blocks, 128 query rows and 64 keys (``kernel_tiles()``), so that both
+   round p to bf16 against the same running maxima: O within one bf16 step
+   of the twin's
+   |O| (both round O to bf16,
    so values a hair apart may round one step apart) plus ``O_ABS`` (a p
    may still round one step apart: the kernel's ``__expf`` and
    ``torch.exp`` differ in the last float32 bits), the log-sum-exp within
@@ -635,8 +639,9 @@ def scan_phase(card_line: str) -> dict:
 
 
 def flash_phase(card_line: str) -> dict:
-    """Hold the flash kernel against its plain twin at the rerank and the
-    window shapes; time it, the twin and SDPA."""
+    """Hold the flash kernel against its plain twin at the rerank, window,
+    trainer's and ``full`` (every key real) shapes; time it, the twin and
+    SDPA (masked; for ``full`` also unmasked)."""
     import torch
     import torch.nn.functional as Fn
     from cmw_rag_tpu_torch.ops import flash_attention as F
@@ -644,16 +649,20 @@ def flash_phase(card_line: str) -> dict:
     gen = torch.Generator(device="cuda").manual_seed(4321)
     report = {}
     for case, (b, h, L, d) in (("rerank", (32, 16, 1024, 128)),
-                               ("window", (1, 16, 8192, 128))):
+                               ("window", (1, 16, 8192, 128)),
+                               ("train", (8, 16, 1024, 128)),
+                               ("full", (32, 16, 1024, 128))):
         t0 = time.time()
         q, k, v = (torch.randn((b * h, L, d), generator=gen, device="cuda")
                    .to(torch.bfloat16) for _ in range(3))
-        lens = torch.randint(L // 2, L + 1, (b,), generator=gen, device="cuda")
+        lens = (torch.full((b,), L, device="cuda") if case == "full" else
+                torch.randint(L // 2, L + 1, (b,), generator=gen,
+                              device="cuda"))
         pos = torch.arange(L, device="cuda")
         mask = (pos[None, :] < lens[:, None]).to(torch.int32)
-        tile = F.kernel_tile()
+        tiles = F.kernel_tiles()
         o, lse = F.flash_attention_fwd(q, k, v, mask, h, True)
-        po, plse = F.flash_attention_plain(q, k, v, mask, h, True, tile, tile)
+        po, plse = F.flash_attention_plain(q, k, v, mask, h, True, *tiles)
         torch.cuda.synchronize()
         o_err = (o.float() - po.float()).abs()
         step = bf16_step(po)
@@ -680,10 +689,14 @@ def flash_phase(card_line: str) -> dict:
         entry = {"ms": cuda_ms(lambda: F.flash_attention_fwd(q, k, v, mask, h,
                                                               True), 20),
                  "plain_ms": cuda_ms(lambda: F.flash_attention_plain(
-                     q, k, v, mask, h, True, tile, tile), 3),
+                     q, k, v, mask, h, True, *tiles), 3),
                  "library_ms": cuda_ms(lib, 10),
                  "max_abs_err": o_err.max().item(), "lse_max_abs_err": lse_err,
                  "max_err_past_one_step": excess, **bound(nbytes, ops)}
+        if case == "full":   # every key real: SDPA may take its flash route
+            entry["library_unmasked_ms"] = cuda_ms(
+                lambda: Fn.scaled_dot_product_attention(qs, ks, vs,
+                                                        is_causal=True), 10)
         log(f"kernel-flash_attention_fwd-{case}", time.time() - t0, card_line,
             B=b, H=h, L=L, D=d, causal=True, **fmt(entry))
         report[case] = dict(entry, shape={"B": b, "H": h, "L": L, "D": d,
@@ -2622,7 +2635,7 @@ def flash_bwd_phase(card_line: str) -> dict:
     from cmw_rag_tpu_torch.ops import flash_attention as F
 
     gen = torch.Generator(device="cuda").manual_seed(8642)
-    tile = F.kernel_tile()
+    tile = F.bwd_kernel_tile()
     report = {}
     for case, (b, h, L, d, causal) in (("train", (8, 16, 1024, 128, True)),
                                        ("window", (1, 16, 8192, 128, True)),
@@ -3006,14 +3019,15 @@ def main() -> int:
                              for p, c in by_path.items()},
         "launches_by_stage": {"embed": long_ctx["embed_flash_launches"],
                               "rerank": long_ctx["rerank_flash_launches"]},
-        "max_abs_err": max(fa["max_abs_err"], flash["window"]["max_abs_err"]),
+        "max_abs_err": max(flash[c]["max_abs_err"] for c in flash),
         **{k: fa[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                               "library_ms", "lse_max_abs_err",
                               "max_err_past_one_step", "shape")},
-        "window": {k: flash["window"][k] for k in (
+        **{case: {k: flash[case][k] for k in (
             "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
             "max_abs_err", "lse_max_abs_err", "max_err_past_one_step",
-            "shape")},
+            "shape") + (("library_unmasked_ms",) if case == "full" else ())}
+           for case in ("window", "train", "full")},
     })
     ivf_cases = {"ivf_probed_scan": ("q1", "q8"),
                  "ivf_union_scan": ("q8", "q32", "q8k1000")}

@@ -18,10 +18,12 @@ log-sum-exp is ``m + log(max(l, 1e-30))`` in float32, [BH, L, 1].
   wrappers (``flash_attention_bhld``, the model adapter, reaches the second
   through ``FlashAttentionTrainable``). On CUDA tensors they launch
   ``csrc/flash_attention.cu`` (bf16, D in {32, 64, 128}, L a multiple of its
-  64-row tile), each adding one to its own ``launches`` count per launch
-  (``total_launches()`` sums the two); on CPU tensors they run the plain
-  twin. Wrong device, dtype, shape or contiguity raises: there is no
-  fallback.
+  128-row tile ``TILE``; TMA, wgmma and a warp-specialised pipeline built
+  from ``csrc/hopper.cuh``; its online softmax runs over 64-key blocks, so
+  the twin's blocks are ``TILES``), each adding one to its own
+  ``launches`` count per launch (``total_launches()`` sums the two); on CPU
+  tensors they run the plain twin. Wrong device, dtype, shape, contiguity
+  or alignment raises: there is no fallback.
 - ``flash_attention_plain`` is the plain twin: the TPU kernel's arithmetic
   over blocks of ``block_q`` queries and ``block_k`` keys.
 - The backward (``FlashAttentionTrainable``, a ``torch.autograd.Function``
@@ -52,6 +54,13 @@ from cmw_rag_tpu_torch.device import on_cpu
 from cmw_rag_tpu_torch.ops import cuda_build
 
 NEG_INF = -1e30
+#: query rows (and keys) per tile of the forward kernel: L must be a
+#: multiple of it (``flash_attention_tile()`` in ``csrc/flash_attention.cu``)
+TILE = 128
+#: the twin's (block_q, block_k) that round p against the kernel's running
+#: maxima: 128 query rows, 64-key online-softmax blocks
+#: (``flash_attention_tiles()``)
+TILES = (128, 64)
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -188,6 +197,8 @@ def _lib() -> ctypes.CDLL:
         lib.flash_attention_fwd.restype = ctypes.c_int
         lib.flash_attention_tile.argtypes = []
         lib.flash_attention_tile.restype = ctypes.c_int
+        lib.flash_attention_tiles.argtypes = [p, p]
+        lib.flash_attention_tiles.restype = None
         lib._typed = True
     return lib
 
@@ -209,10 +220,24 @@ def _bwd_lib() -> ctypes.CDLL:
 
 
 def kernel_tile() -> int:
-    """Query rows, and keys, per tile of the kernel: the twin run with
-    ``block_q = block_k = kernel_tile()`` rounds p against the same running
-    maxima as the kernel."""
+    """Query rows (and keys) per tile of the forward kernel (``TILE``), as
+    the built library reports it: L must be a multiple of it."""
     return _lib().flash_attention_tile()
+
+
+def kernel_tiles() -> tuple[int, int]:
+    """(block_q, block_k) of the forward kernel (``TILES``), as the built
+    library reports them: the twin run with these blocks rounds p against
+    the same running maxima as the kernel."""
+    bq, bk = ctypes.c_int(), ctypes.c_int()
+    _lib().flash_attention_tiles(ctypes.byref(bq), ctypes.byref(bk))
+    return bq.value, bk.value
+
+
+def bwd_kernel_tile() -> int:
+    """Query rows, and keys, per tile of the backward kernels: the
+    backward twin's blocks for a like-for-like comparison."""
+    return _bwd_lib().flash_attention_bwd_tile()
 
 
 def _check(q, k, v, mask, num_heads: int, tile: int, **more) -> None:
@@ -244,6 +269,9 @@ def _check(q, k, v, mask, num_heads: int, tile: int, **more) -> None:
 def _launch(q, k, v, mask, num_heads: int, causal: bool, with_lse: bool):
     lib = _lib()
     _check(q, k, v, mask, num_heads, kernel_tile())
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.data_ptr() % 16:   # TMA reads from 16-byte aligned addresses
+            raise ValueError(f"{name} must start on a 16-byte boundary")
     bh, L, d = q.shape
     o = torch.empty_like(q)
     lse = (torch.empty((bh, L, 1), dtype=torch.float32, device=q.device)
@@ -286,7 +314,7 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         block_k: int = 256):
     """[BH, L, D] q, k, v and a [B, L] key mask → (o [BH, L, D],
     lse [BH, L, 1] float32). ``block_q``/``block_k`` set the plain twin's
-    blocks; the kernel uses its own 64-row tile."""
+    blocks; the kernel uses its own (``TILES``)."""
     if on_cpu(q, k, v, mask):
         return flash_attention_plain(q, k, v, mask, num_heads, causal,
                                      block_q, block_k)

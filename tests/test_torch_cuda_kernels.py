@@ -102,19 +102,37 @@ def test_scan_kernels_match_plain_twins(card, int8, k):
     assert after[int(int8)] == before[int(int8)] + 1
 
 
+def _flash_masks(b, L, card):
+    """Key masks of ``b`` = 5 batch rows over three tiles: every key real; a
+    length that ends inside the second tile; leading zeros past tile 0 then
+    an end inside the third; no real key at all; holes in tile 0 and an end
+    inside it, so that the kernel skips the tiles past it."""
+    mask = torch.ones((b, L), dtype=torch.int32, device=card)
+    mask[1, 200:] = 0
+    mask[2, :150] = 0
+    mask[2, 300:] = 0
+    mask[3] = 0
+    mask[4, 5:10] = 0
+    mask[4, 100:] = 0
+    return mask
+
+
 @pytest.mark.parametrize("d", [32, 64, 128])
 @pytest.mark.parametrize("causal", [False, True])
 def test_flash_kernel_matches_twin(card, d, causal):
+    """L of three 128-row tiles (causal tiles below, on and above the
+    diagonal), over the masks of ``_flash_masks``: a row that sees no real
+    key takes p = 1 over every processed key in both."""
     g = torch.Generator(device=card).manual_seed(d + causal)
-    b, h, L = 2, 3, 192
+    b, h, L = 5, 3, 384
     q, k, v = (torch.randn((b * h, L, d), generator=g, device=card)
                .bfloat16() for _ in range(3))
-    mask = torch.ones((b, L), dtype=torch.int32, device=card)
-    mask[1, 130:] = 0
+    mask = _flash_masks(b, L, card)
     before = F.flash_attention_fwd.launches
     o, lse = F.flash_attention_fwd(q, k, v, mask, h, causal)
-    tile = F.kernel_tile()
-    po, pl = F.flash_attention_plain(q, k, v, mask, h, causal, tile, tile)
+    assert (F.kernel_tile(), F.kernel_tiles()) == (F.TILE, F.TILES)
+    po, pl = F.flash_attention_plain(q, k, v, mask, h, causal,
+                                     *F.kernel_tiles())
     o2 = F.flash_attention(q, k, v, mask, h, causal)
     torch.cuda.synchronize()
     assert F.flash_attention_fwd.launches == before + 1
@@ -143,7 +161,7 @@ def test_flash_backward_kernels_match_twin(card, d, causal):
     dq = F.flash_attention_bwd_dq(q, k, v, mask, do, lse, delta, h, causal)
     dk, dv = F.flash_attention_bwd_dkv(q, k, v, mask, do, lse, delta, h,
                                        causal)
-    tile = F.kernel_tile()
+    tile = F.bwd_kernel_tile()
     want = F.flash_attention_bwd_plain(q, k, v, mask, o, lse, do, h, causal,
                                        tile, tile)
     torch.cuda.synchronize()
@@ -197,6 +215,10 @@ def test_flash_wrappers_refuse_what_the_kernel_does_not_take(card):
     q = torch.zeros((2, 128, 48), dtype=torch.bfloat16, device=card)
     mask = torch.ones((1, 128), dtype=torch.int32, device=card)
     with pytest.raises(ValueError, match="head dim"):
+        F.flash_attention_fwd(q, q, q, mask, 2)
+    flat = torch.zeros(2 * 128 * 64 + 1, dtype=torch.bfloat16, device=card)
+    q = flat[1:].view(2, 128, 64)   # contiguous, 2 bytes off a boundary
+    with pytest.raises(ValueError, match="16-byte"):
         F.flash_attention_fwd(q, q, q, mask, 2)
     with pytest.raises(TypeError):
         F.flash_attention_fwd(q.float(), q.float(), q.float(), mask, 2)

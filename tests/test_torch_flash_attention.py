@@ -9,7 +9,9 @@ flash tolerance (tests/test_flash_attention.py); the two agree far closer,
 the difference being float32 sums in another order. bf16 inputs: the output
 is bf16, so one rounding step of the output (2^-8 relative) is allowed, and
 the LSE, float32 on both sides, to 1e-5. Masks are ragged right padding, so
-every query row sees at least one real key.
+every query row sees at least one real key, except in the cases at the card
+kernel's blocks (``TILES``), whose masks also start past the first tile or
+have no real key at all.
 
 The CUDA kernel itself is held against the twin on the card
 (``chip_smoke.py`` and ``tests/test_torch_cuda_kernels.py``).
@@ -137,6 +139,50 @@ def test_cpu_tensors_take_the_twin_and_count_no_launch():
                                     BLOCK, BLOCK)
     assert torch.equal(o, want[0]) and torch.equal(lse, want[1])
     assert TF.total_launches() == before
+
+
+def _tile_case(d, seed):
+    """bf16 q, k, v [8, 384, d] (B 4, H 2, three of the kernel's 128-row
+    tiles) and masks: every key real; an end inside the second tile;
+    leading zeros past tile 0 and an end inside the third; no real key."""
+    rng = np.random.default_rng(seed)
+    q, k, v = (rng.standard_normal((8, 384, d)).astype(np.float32)
+               for _ in range(3))
+    mask = np.ones((4, 384), np.int32)
+    mask[1, 200:] = 0
+    mask[2, :150] = 0
+    mask[2, 300:] = 0
+    mask[3] = 0
+    return _bf16(q), _bf16(k), _bf16(v), mask
+
+
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("lse", [True, False])
+def test_twin_at_kernel_tiles_matches_jax(d, causal, lse):
+    """The twin over the card kernel's blocks (``TILES``: 128 query rows,
+    64-key softmax blocks) against the TPU kernel run with the same blocks:
+    ``_fa_forward`` (with the LSE)
+    and ``flash_attention``, at L of three tiles, with masks whose rows end
+    inside a tile, start past tile 0 or have no real key (p = 1 over every
+    processed key in both). The function the card kernel must reproduce."""
+    (jq, tq), (jk, tk), (jv, tv), mask = _tile_case(d, seed=10 + d + causal)
+    h, (bq, bk) = 2, TF.TILES
+    if lse:
+        jo, jl = JF._fa_forward(jq, jk, jv, jnp.asarray(mask)[:, None, :], h,
+                                causal, bq, bk, True)
+        to, tl = TF.flash_attention_fwd(tq, tk, tv, _t(mask), h, causal, bq,
+                                        bk)
+        np.testing.assert_allclose(tl.numpy(), np.asarray(jl), rtol=0,
+                                   atol=1e-5)
+    else:
+        jo = JF.flash_attention(jq, jk, jv, jnp.asarray(mask), h, causal, bq,
+                                bk, True)
+        to = TF.flash_attention(tq, tk, tv, _t(mask), h, causal, bq, bk)
+    assert to.dtype == torch.bfloat16
+    np.testing.assert_allclose(to.float().numpy(),
+                               np.asarray(jo.astype(jnp.float32)),
+                               rtol=2 ** -8, atol=2 ** -8)
 
 
 def test_causal_first_row_attends_to_itself_only():
