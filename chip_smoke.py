@@ -193,14 +193,20 @@ Phases, each printed with its seconds beside the card's name and power limit:
 
 11. train - the flash attention backward and the contrastive trainer. The
    dQ and dK/dV kernels (``csrc/flash_attention_bwd.cu``) against the
-   backward twin run over the kernels' 64 tile, on random bf16 q, k, v and
-   dO with ragged key masks and the forward kernel's o and lse, at the
-   trainer's shape (B 8, H 16, L 1024, D 128, causal), the window shape (B
-   1, H 16, L 8192, causal) and the trainer's shape without causality:
-   dQ, dK and dV each within one bf16 step of the twin's |value| plus
-   ``BWD_TOL`` of the tensor's largest |value| (both round ds to bf16; a ds
-   a float32 bit apart rounds one step apart and moves every product it
-   feeds). Times: each kernel, its twin, the backward of
+   backward twins, each run over its kernel's own tiles
+   (``bwd_kernel_tiles()``: (128, 128) for dQ, (64, 64) for dK/dV, so
+   that both skip the same causal blocks), on random bf16 q, k, v and dO
+   with the forward kernel's o and lse: first over degenerate key masks
+   (B 5, H 4, L 384, causal and not: an end inside a tile, leading zeros
+   past the first tile, a row with no real key, holes in the first tile),
+   where dK and dV past each row's last real key must be exactly 0; then
+   with ragged key masks at the trainer's shape (B 8, H 16, L 1024, D 128,
+   causal), the window shape (B 1, H 16, L 8192, causal) and the trainer's
+   shape without causality: dQ, dK and dV each within one bf16 step of the
+   twin's |value| plus ``BWD_TOL`` of the tensor's largest |value| (both
+   round ds to bf16; a ds a float32 bit apart rounds one step apart and
+   moves every product it feeds). Times: each kernel (with its share of
+   its bound), its twin, the backward of
    ``scaled_dot_product_attention`` with the same boolean mask timed alone
    (one call for dQ, dK and dV), and the bound (bytes: q, dO, lse, delta,
    the mask and the outputs whole, k and v over the real keys; operations:
@@ -375,6 +381,13 @@ PAGED_KERNELS = {
         "cmw_rag_tpu/ops/paged_attention.py:559",
     "paged_decode_attention_dma_kv_int8":
         "cmw_rag_tpu/ops/paged_attention.py:858"}
+
+
+#: the paged TPU kernels whose function the port gives through another
+#: wrapper's kernel (aliases; the card tests hold them bit for bit equal)
+PAGED_ALIASES = {"paged_decode_attention_dma": [
+    "cmw_rag_tpu/ops/paged_attention.py:187",
+    "cmw_rag_tpu/ops/paged_attention.py:641"]}
 
 
 #: the int8-weight decode wrappers: (TPU kernel replaced, CUDA source)
@@ -2628,15 +2641,72 @@ def library_bwd(c: dict, b: int, h: int, L: int, d: int, causal: bool):
                                        retain_graph=True)
 
 
+def bwd_degenerate_case(card_line: str) -> dict:
+    """The dQ and dK/dV kernels against the twins over key masks that reach
+    every branch of their skipping (B 5, H 4, L 384, D 128, causal and
+    not): every key real; an end inside the second tile; leading zeros past
+    the first tile then an end inside the third; no real key (p = 1 over
+    the processed keys); holes in the first tile and an end inside it.
+    dK and dV of the keys past a batch row's last real key must be exactly
+    0."""
+    import torch
+    from cmw_rag_tpu_torch.ops import flash_attention as F
+
+    gen = torch.Generator(device="cuda").manual_seed(97)
+    (dq_t, dkv_t), report = F.bwd_kernel_tiles(), {}
+    b, h, L, d = 5, 4, 384, 128
+    mask = torch.ones((b, L), dtype=torch.int32, device="cuda")
+    mask[1, 200:] = 0
+    mask[2, :150] = 0
+    mask[2, 300:] = 0
+    mask[3] = 0
+    mask[4, 5:10] = 0
+    mask[4, 100:] = 0
+    last = {1: 199, 2: 299, 4: 99}
+    for causal in (False, True):
+        t0 = time.time()
+        q, k, v, do = (torch.randn((b * h, L, d), generator=gen,
+                                   device="cuda").to(torch.bfloat16)
+                       for _ in range(4))
+        o, lse = F.flash_attention_fwd(q, k, v, mask, h, causal)
+        args = (q, k, v, mask, do, lse, F.bwd_delta(o, do), h, causal)
+        dq = F.flash_attention_bwd_dq(*args)
+        dk, dv = F.flash_attention_bwd_dkv(*args)
+        pdq = F.flash_attention_bwd_dq_plain(*args, *dq_t)
+        pdk, pdv = F.flash_attention_bwd_dkv_plain(*args, *dkv_t)
+        torch.cuda.synchronize()
+        label = f"degenerate causal={causal}"
+        held = {"dq": held_bwd(dq, pdq, f"dQ {label}"),
+                "dk": held_bwd(dk, pdk, f"dK {label}"),
+                "dv": held_bwd(dv, pdv, f"dV {label}")}
+        for row, j in last.items():
+            for name, g in (("dK", dk), ("dV", dv)):
+                past = g.view(b, h, L, d)[row, :, j + 1:]
+                if not torch.equal(past, torch.zeros_like(past)):
+                    raise AssertionError(f"{label}: {name} of batch row {row} "
+                                         f"past its last real key {j} is not "
+                                         f"0")
+        log(f"flash-backward-degenerate-causal{int(causal)}", time.time() - t0,
+            card_line, B=b, H=h, L=L, D=d, causal=causal,
+            **fmt({f"{k}_max_err_past_one_step": r["max_err_past_one_step"]
+                   for k, r in held.items()}))
+        report[f"causal={causal}"] = held
+    return report
+
+
 def flash_bwd_phase(card_line: str) -> dict:
-    """Hold the dQ and dK/dV kernels against the twin at the trainer's, the
-    window and a non-causal shape; time them, the twin and SDPA's backward."""
+    """Hold the dQ and dK/dV kernels against the twins (each over its
+    kernel's tiles) at the trainer's, the window and a non-causal shape and
+    over degenerate masks; time them, the twins and SDPA's backward."""
     import torch
     from cmw_rag_tpu_torch.ops import flash_attention as F
 
     gen = torch.Generator(device="cuda").manual_seed(8642)
-    tile = F.bwd_kernel_tile()
-    report = {}
+    dq_t, dkv_t = F.bwd_kernel_tiles()
+    if (dq_t, dkv_t) != F.BWD_TILES:
+        raise AssertionError(f"backward tiles {(dq_t, dkv_t)}, the twins "
+                             f"assume {F.BWD_TILES}")
+    report = {"degenerate": bwd_degenerate_case(card_line)}
     for case, (b, h, L, d, causal) in (("train", (8, 16, 1024, 128, True)),
                                        ("window", (1, 16, 8192, 128, True)),
                                        ("noncausal", (8, 16, 1024, 128, False))):
@@ -2646,8 +2716,8 @@ def flash_bwd_phase(card_line: str) -> dict:
                 c["delta"], h, causal)
         dq = F.flash_attention_bwd_dq(*args)
         dk, dv = F.flash_attention_bwd_dkv(*args)
-        pdq = F.flash_attention_bwd_dq_plain(*args, tile, tile)
-        pdk, pdv = F.flash_attention_bwd_dkv_plain(*args, tile, tile)
+        pdq = F.flash_attention_bwd_dq_plain(*args, *dq_t)
+        pdk, pdv = F.flash_attention_bwd_dkv_plain(*args, *dkv_t)
         torch.cuda.synchronize()
         held = {"dq": held_bwd(dq, pdq, f"dQ {case}"),
                 "dk": held_bwd(dk, pdk, f"dK {case}"),
@@ -2659,14 +2729,14 @@ def flash_bwd_phase(card_line: str) -> dict:
             "flash_attention_bwd_dq": dict(
                 ms=cuda_ms(lambda: F.flash_attention_bwd_dq(*args), 20),
                 plain_ms=cuda_ms(lambda: F.flash_attention_bwd_dq_plain(
-                    *args, tile, tile), 2),
+                    *args, *dq_t), 2),
                 max_abs_err=held["dq"]["max_abs_err"],
                 max_err_past_one_step=held["dq"]["max_err_past_one_step"],
                 **bounds["dq"]),
             "flash_attention_bwd_dkv": dict(
                 ms=cuda_ms(lambda: F.flash_attention_bwd_dkv(*args), 20),
                 plain_ms=cuda_ms(lambda: F.flash_attention_bwd_dkv_plain(
-                    *args, tile, tile), 2),
+                    *args, *dkv_t), 2),
                 max_abs_err=max(held["dk"]["max_abs_err"],
                                 held["dv"]["max_abs_err"]),
                 max_err_past_one_step=max(held["dk"]["max_err_past_one_step"],
@@ -2674,7 +2744,9 @@ def flash_bwd_phase(card_line: str) -> dict:
                 **bounds["dkv"])}
         for name, entry in entries.items():
             # one library call computes dQ, dK and dV together
-            entry.update(library_ms=lib_ms, shape=shape)
+            entry.update(library_ms=lib_ms,
+                         bound_share=entry["bound_ms"] / entry["ms"],
+                         shape=shape)
             log(f"kernel-{name}-{case}", time.time() - t0, card_line,
                 B=b, H=h, L=L, D=d, causal=causal, **fmt(
                     {k: v for k, v in entry.items() if k != "shape"}))
@@ -3068,6 +3140,8 @@ def main() -> int:
             row[case] = {k: llm["kernels"][(name, case)][k] for k in (
                 "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
                 "max_abs_err", "shape")}
+        if name in PAGED_ALIASES:
+            row["also_replaces"] = PAGED_ALIASES[name]
         rows.append(row)
     int8_cases = {"int8_matmul": ("qkv-s4", "head-s4", "qkv-s16"),
                   "paged_decode_attention_dma_slot": ("s4-cap6", "s4-cap2",
@@ -3129,12 +3203,13 @@ def main() -> int:
                "max_abs_err": max(train["kernels"][(name, c)]["max_abs_err"]
                                   for c in cases)}
         row.update({k: main_case[k] for k in (
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-            "max_err_past_one_step", "shape")})
+            "ms", "plain_ms", "bound_ms", "bound_by", "bound_share",
+            "library_ms", "max_err_past_one_step", "shape")})
         for case in cases[1:]:
             row[case] = {k: train["kernels"][(name, case)][k] for k in (
                 "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
-                "max_abs_err", "max_err_past_one_step", "shape")}
+                "bound_share", "max_abs_err", "max_err_past_one_step",
+                "shape")}
         rows.append(row)
     off_path = {"topk_scan_int8mxu": scans[("topk_scan_int8mxu", "main")],
                 "topk_scan_stream": scans[("topk_scan_stream", "main")],
@@ -3172,7 +3247,9 @@ def main() -> int:
                           **train["train"],
                           "backward": {case: train["kernels"][("backward", case)]
                                        for case in ("train", "window",
-                                                    "noncausal")}},
+                                                    "noncausal")},
+                          "backward_degenerate":
+                              train["kernels"]["degenerate"]},
                       "training_phase_seconds": round(train["seconds"], 3),
                       "seconds": round(time.time() - t_all, 3),
                       "card": card_line}), flush=True)

@@ -1,8 +1,8 @@
 // Hopper (sm_90a) building blocks of the port's hand-written kernels: the
 // mbarrier ring, TMA tensor loads with the host-side tensor-map encoding,
-// and wgmma (shared-memory descriptors, fence, commit, wait and the
-// products used). Header-only; a source that includes it is rebuilt when it
-// changes (cuda_build hashes quoted headers).
+// bulk copies, and wgmma (shared-memory descriptors, fence, commit, wait
+// and the products used). Header-only; a source that includes it is
+// rebuilt when it changes (cuda_build hashes quoted headers).
 //
 // Shared-memory tiles are laid out as TMA writes them with a 128-, 64- or
 // 32-byte swizzle: a [rows, cols] bf16 tile whose row is wider than the
@@ -119,6 +119,18 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
       " [%0], [%1, {%3, %4, %5}], [%2];\n"
       :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)),
          "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// `bytes` (a multiple of 16) of contiguous global memory into shared memory
+// (both 16-byte aligned) by the bulk-copy engine; they complete on `bar`.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n"
+      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(src)),
+         "r"(bytes), "r"(smem_u32(bar))
       : "memory");
 }
 

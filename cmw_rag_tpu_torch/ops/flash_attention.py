@@ -38,10 +38,16 @@ log-sum-exp is ``m + log(max(l, 1e-30))`` in float32, [BH, L, 1].
   float32 sums, outputs in the dtypes of q, k and v. Causal (query block,
   key block) pairs wholly above the diagonal are skipped by both kernels.
   ``flash_attention_bwd_dq`` and ``flash_attention_bwd_dkv`` launch
-  ``csrc/flash_attention_bwd.cu`` on CUDA tensors (same dtype, D and L
-  rules as the forward), each with its own ``launches`` count, and run
-  ``flash_attention_bwd_dq_plain`` / ``flash_attention_bwd_dkv_plain`` on
-  CPU tensors; ``flash_attention_bwd_plain`` is the whole backward's twin.
+  ``csrc/flash_attention_bwd.cu`` on CUDA tensors (same dtype, D, L and
+  alignment rules as the forward; TMA, wgmma and a warp-specialised
+  pipeline built from ``csrc/hopper.cuh``, skipping exactly the key tiles
+  past the batch row's last real key), each with its own ``launches``
+  count, and run ``flash_attention_bwd_dq_plain`` /
+  ``flash_attention_bwd_dkv_plain`` on CPU tensors;
+  ``flash_attention_bwd_plain`` is the whole backward's twin. A row that
+  sees no real key takes p = 1 over the keys of the blocks processed for
+  it, so the twin skips as a kernel does only over that kernel's own
+  (block_q, block_k): ``BWD_TILES``, dQ's then dK/dV's.
 """
 
 from __future__ import annotations
@@ -61,6 +67,11 @@ TILE = 128
 #: maxima: 128 query rows, 64-key online-softmax blocks
 #: (``flash_attention_tiles()``)
 TILES = (128, 64)
+#: the backward twins' (block_q, block_k) that skip causal blocks as the
+#: kernels do: dQ over 128-row query tiles and 128-key stages, dK/dV over
+#: 64 keys and 64 queries (``flash_attention_bwd_tiles()``); L must be a
+#: multiple of the largest
+BWD_TILES = ((128, 128), (64, 64))
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -213,8 +224,8 @@ def _bwd_lib() -> ctypes.CDLL:
                                                 i, i, p, p, p]
         lib.flash_attention_bwd_dq.restype = ctypes.c_int
         lib.flash_attention_bwd_dkv.restype = ctypes.c_int
-        lib.flash_attention_bwd_tile.argtypes = []
-        lib.flash_attention_bwd_tile.restype = ctypes.c_int
+        lib.flash_attention_bwd_tiles.argtypes = [p, p, p, p]
+        lib.flash_attention_bwd_tiles.restype = None
         lib._typed = True
     return lib
 
@@ -234,10 +245,13 @@ def kernel_tiles() -> tuple[int, int]:
     return bq.value, bk.value
 
 
-def bwd_kernel_tile() -> int:
-    """Query rows, and keys, per tile of the backward kernels: the
-    backward twin's blocks for a like-for-like comparison."""
-    return _bwd_lib().flash_attention_bwd_tile()
+def bwd_kernel_tiles() -> tuple[tuple[int, int], tuple[int, int]]:
+    """((block_q, block_k) of the dQ kernel, (block_q, block_k) of the
+    dK/dV kernel) (``BWD_TILES``), as the built library reports them: each
+    twin run at its kernel's blocks skips as that kernel does."""
+    t = [ctypes.c_int() for _ in range(4)]
+    _bwd_lib().flash_attention_bwd_tiles(*(ctypes.byref(x) for x in t))
+    return (t[0].value, t[1].value), (t[2].value, t[3].value)
 
 
 def _check(q, k, v, mask, num_heads: int, tile: int, **more) -> None:
@@ -266,12 +280,18 @@ def _check(q, k, v, mask, num_heads: int, tile: int, **more) -> None:
         raise ValueError(f"L={L} must be a multiple of the kernel tile {tile}")
 
 
+def _aligned(**tensors) -> None:
+    """Raise unless each tensor starts on a 16-byte boundary (TMA and the
+    bulk copies read from 16-byte aligned addresses)."""
+    for name, t in tensors.items():
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must start on a 16-byte boundary")
+
+
 def _launch(q, k, v, mask, num_heads: int, causal: bool, with_lse: bool):
     lib = _lib()
     _check(q, k, v, mask, num_heads, kernel_tile())
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.data_ptr() % 16:   # TMA reads from 16-byte aligned addresses
-            raise ValueError(f"{name} must start on a 16-byte boundary")
+    _aligned(q=q, k=k, v=v)
     bh, L, d = q.shape
     o = torch.empty_like(q)
     lse = (torch.empty((bh, L, 1), dtype=torch.float32, device=q.device)
@@ -290,13 +310,15 @@ def _launch(q, k, v, mask, num_heads: int, causal: bool, with_lse: bool):
 def _launch_bwd(kind: str, q, k, v, mask, do, lse, delta, num_heads: int,
                 causal: bool, outs):
     lib = _bwd_lib()
-    _check(q, k, v, mask, num_heads, lib.flash_attention_bwd_tile(), do=do)
+    tiles = bwd_kernel_tiles()
+    _check(q, k, v, mask, num_heads, max(max(t) for t in tiles), do=do)
     bh, L, d = q.shape
     for name, t in (("lse", lse), ("delta", delta)):
         if (t.dtype != torch.float32 or tuple(t.shape) != (bh, L, 1)
                 or not t.is_contiguous()):
             raise ValueError(f"{name} must be contiguous float32 "
                              f"{(bh, L, 1)}")
+    _aligned(q=q, k=k, v=v, do=do, mask=mask, lse=lse, delta=delta)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = getattr(lib, f"flash_attention_bwd_{kind}")(
@@ -340,7 +362,7 @@ def flash_attention_bwd_dq(q, k, v, mask, do, lse, delta, num_heads: int,
                            block_k: int = 256) -> torch.Tensor:
     """dQ [BH, L, D] from q, k, v, the key mask, dO, the forward's lse and
     delta ([BH, L, 1] float32). ``block_q``/``block_k`` set the twin's
-    blocks; the kernel uses its own 64 tile."""
+    blocks; the kernel uses its own (``BWD_TILES[0]``)."""
     if on_cpu(q, k, v, mask, do, lse, delta):
         return flash_attention_bwd_dq_plain(q, k, v, mask, do, lse, delta,
                                             num_heads, causal, block_q,
@@ -354,7 +376,8 @@ def flash_attention_bwd_dq(q, k, v, mask, do, lse, delta, num_heads: int,
 def flash_attention_bwd_dkv(q, k, v, mask, do, lse, delta, num_heads: int,
                             causal: bool = False, block_q: int = 256,
                             block_k: int = 256):
-    """(dK, dV) [BH, L, D], from the same inputs as ``flash_attention_bwd_dq``."""
+    """(dK, dV) [BH, L, D], from the same inputs as
+    ``flash_attention_bwd_dq``; the kernel's blocks are ``BWD_TILES[1]``."""
     if on_cpu(q, k, v, mask, do, lse, delta):
         return flash_attention_bwd_dkv_plain(q, k, v, mask, do, lse, delta,
                                              num_heads, causal, block_q,

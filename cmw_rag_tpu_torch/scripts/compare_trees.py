@@ -14,7 +14,8 @@ build/base``); each checkout builds its own kernels into its own
 are the phase's own). Prints, per run, a line ``{"tree": "A" or "B",
 "run": i, "card": ..., "summary": {...}}`` with the readings a comparison
 reads (the flash kernel's ms per shape, the long-context stages' ms per
-query, the training step's host and busy ms and its first-step gates),
+query, the backward kernels' ms per shape, the training step's host and
+busy ms and its first-step gates),
 then one line with every run's summary; ``--out`` keeps the phases' whole
 reports, one JSON line a run. The phases' own log lines go to stderr.
 Needs a card.
@@ -77,6 +78,8 @@ def summary(phases: dict) -> dict:
         out["long_context_stages"] = lc["stages"]
     tr = phases.get("training")
     if tr:
+        out["backward_ms"] = {k: r["ms"] for k, r in tr["kernels"].items()
+                              if k.startswith("flash_attention_bwd_")}
         steps = tr["train"]["steps"]
         out["train_step"] = {k: steps[k] for k in (
             "host_ms_per_step", "device_busy_ms_per_step", "idle_share",

@@ -30,10 +30,12 @@ int8-KV megakernel's output as the megakernel's, its written int8 rows
 within one step of the twin's and its updated scales within one bf16 step,
 every other row and scale (the null page's excepted) bit for bit; the
 batched, stream and DMA aliases equal the kernels they alias. The flash
-backward kernels (dQ, dK/dV) against the backward twin over the kernels'
-64 tile: one bf16 step at the twin's magnitude plus 1e-3 of the tensor's
-largest |value| (both round ds to bf16, and a ds whose float32 value lands
-a bit apart rounds one step apart, moving the products it feeds).
+backward kernels (dQ, dK/dV) against the backward twins, each over its
+kernel's own tiles (``bwd_kernel_tiles()``): one bf16 step at the twin's
+magnitude plus 1e-3 of the tensor's largest |value| (both round ds to
+bf16, and a ds whose float32 value lands a bit apart rounds one step
+apart, moving the products it feeds); dK and dV past a batch row's last
+real key exactly 0.
 """
 
 import numpy as np
@@ -145,25 +147,33 @@ def test_flash_kernel_matches_twin(card, d, causal):
     assert (lse - pl).abs().max().item() <= 1e-4
 
 
+def _bwd_case(card, d, causal, seed, b=5, h=3, L=384):
+    """Random bf16 q, k, v, dO over ``_flash_masks`` with the forward
+    kernel's o and lse: → (inputs of the backward wrappers, o)."""
+    g = torch.Generator(device=card).manual_seed(seed)
+    q, k, v, do = (torch.randn((b * h, L, d), generator=g, device=card)
+                   .bfloat16() for _ in range(4))
+    mask = _flash_masks(b, L, card)
+    o, lse = F.flash_attention_fwd(q, k, v, mask, h, causal)
+    return (q, k, v, mask, do, lse, F.bwd_delta(o, do), h, causal), o
+
+
 @pytest.mark.parametrize("d", [32, 64, 128])
 @pytest.mark.parametrize("causal", [False, True])
 def test_flash_backward_kernels_match_twin(card, d, causal):
-    g = torch.Generator(device=card).manual_seed(10 * d + causal)
-    b, h, L = 2, 3, 256
-    q, k, v, do = (torch.randn((b * h, L, d), generator=g, device=card)
-                   .bfloat16() for _ in range(4))
-    mask = torch.ones((b, L), dtype=torch.int32, device=card)
-    mask[1, 150:] = 0
-    o, lse = F.flash_attention_fwd(q, k, v, mask, h, causal)
-    delta = F.bwd_delta(o, do)
+    """L of three 128-row tiles over the masks of ``_flash_masks``: each
+    twin at its kernel's own tiles (``bwd_kernel_tiles()``), so that both
+    skip the same causal blocks (a row with no real key takes p = 1 over
+    the keys of every processed block)."""
+    args, _ = _bwd_case(card, d, causal, 10 * d + causal)
     before = (F.flash_attention_bwd_dq.launches,
               F.flash_attention_bwd_dkv.launches)
-    dq = F.flash_attention_bwd_dq(q, k, v, mask, do, lse, delta, h, causal)
-    dk, dv = F.flash_attention_bwd_dkv(q, k, v, mask, do, lse, delta, h,
-                                       causal)
-    tile = F.bwd_kernel_tile()
-    want = F.flash_attention_bwd_plain(q, k, v, mask, o, lse, do, h, causal,
-                                       tile, tile)
+    dq = F.flash_attention_bwd_dq(*args)
+    dk, dv = F.flash_attention_bwd_dkv(*args)
+    dq_tiles, dkv_tiles = F.bwd_kernel_tiles()
+    assert (dq_tiles, dkv_tiles) == F.BWD_TILES
+    want = (F.flash_attention_bwd_dq_plain(*args, *dq_tiles),
+            *F.flash_attention_bwd_dkv_plain(*args, *dkv_tiles))
     torch.cuda.synchronize()
     assert (F.flash_attention_bwd_dq.launches,
             F.flash_attention_bwd_dkv.launches) == (before[0] + 1,
@@ -172,6 +182,20 @@ def test_flash_backward_kernels_match_twin(card, d, causal):
         assert got.dtype == torch.bfloat16
         err = (got.float() - ref.float()).abs()
         assert (err <= _bf16_step(ref) + 1e-3 * ref.float().abs().max()).all()
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_backward_keys_past_the_last_real_key_get_zero(card, causal):
+    """dK and dV are exactly 0 on every key past a batch row's last real
+    key, whether its tile is skipped whole or processed (rows 1, 2 and 4
+    of ``_flash_masks``)."""
+    args, _ = _bwd_case(card, 128, causal, 77 + causal)
+    dk, dv = F.flash_attention_bwd_dkv(*args)
+    torch.cuda.synchronize()
+    for row, last in ((1, 199), (2, 299), (4, 99)):
+        for g in (dk, dv):
+            past = g.view(5, 3, 384, 128)[row, :, last + 1:]
+            assert torch.equal(past, torch.zeros_like(past))
 
 
 def test_flash_trainable_backward_runs_the_kernels(card):
@@ -190,8 +214,10 @@ def test_flash_trainable_backward_runs_the_kernels(card):
     assert (F.total_launches(), F.flash_attention_bwd_dq.launches,
             F.flash_attention_bwd_dkv.launches) == (1, 1, 1)
     lse = F.flash_attention_fwd(q, k, v, mask, h, True)[1]
-    want = F.flash_attention_bwd_plain(q, k, v, mask, o.detach(), lse, do, h,
-                                       True, 64, 64)
+    args = (q, k, v, mask, do, lse, F.bwd_delta(o.detach(), do), h, True)
+    (dq_tiles, dkv_tiles) = F.BWD_TILES
+    want = (F.flash_attention_bwd_dq_plain(*args, *dq_tiles),
+            *F.flash_attention_bwd_dkv_plain(*args, *dkv_tiles))
     for a, ref in zip(got, want):
         err = (a.float() - ref.float()).abs()
         assert (err <= _bf16_step(ref) + 1e-3 * ref.float().abs().max()).all()
@@ -205,6 +231,26 @@ def test_flash_backward_refuses_what_the_kernel_does_not_take(card):
         F.flash_attention_bwd_dq(q, q, q, mask, q.float(), lse, lse, 2)
     with pytest.raises(ValueError, match="lse"):
         F.flash_attention_bwd_dkv(q, q, q, mask, q, lse[:, :64], lse, 2)
+
+
+def test_flash_backward_refuses_a_misaligned_do_and_an_l_off_the_tile(card):
+    """dO must start on a 16-byte boundary (TMA), and L must be a multiple
+    of the largest of the kernels' tiles (128): 192 is one of dK/dV's 64
+    but not of dQ's 128."""
+    q = torch.zeros((2, 128, 64), dtype=torch.bfloat16, device=card)
+    mask = torch.ones((1, 128), dtype=torch.int32, device=card)
+    lse = torch.zeros((2, 128, 1), dtype=torch.float32, device=card)
+    flat = torch.zeros(2 * 128 * 64 + 1, dtype=torch.bfloat16, device=card)
+    do = flat[1:].view(2, 128, 64)   # contiguous, 2 bytes off a boundary
+    for fn in (F.flash_attention_bwd_dq, F.flash_attention_bwd_dkv):
+        with pytest.raises(ValueError, match="16-byte"):
+            fn(q, q, q, mask, do, lse, lse, 2)
+    q = torch.zeros((2, 192, 64), dtype=torch.bfloat16, device=card)
+    mask = torch.ones((1, 192), dtype=torch.int32, device=card)
+    lse = torch.zeros((2, 192, 1), dtype=torch.float32, device=card)
+    for fn in (F.flash_attention_bwd_dq, F.flash_attention_bwd_dkv):
+        with pytest.raises(ValueError, match="multiple"):
+            fn(q, q, q, mask, q, lse, lse, 2)
 
 
 def test_flash_wrappers_refuse_what_the_kernel_does_not_take(card):

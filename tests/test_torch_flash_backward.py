@@ -14,7 +14,11 @@ terms of up to ~1e-2 summed in another order leave float32 residues of a
 few 1e-7 there (a dQ element of -2.0e-7 in JAX came out +2.0e-7, from JAX's
 own o and lse). Masks are ragged right padding.
 
-The CUDA kernels are held against the twin on the card
+The card kernels skip causal blocks at their own tiles (``BWD_TILES``), and
+a row that sees no real key takes p = 1 over the keys of every block run
+for it, so the twins are also held against JAX at those tiles over
+degenerate masks (left padding past the first block, a batch row with no
+real key). The CUDA kernels are held against the twins on the card
 (``chip_smoke.py`` phase 11 and ``tests/test_torch_cuda_kernels.py``).
 """
 
@@ -43,11 +47,16 @@ def _case(seed, bf16=False):
     return q, k, v, do, mask
 
 
+def _blocks(block):
+    """(block_q, block_k) from one size or a pair."""
+    return (block, block) if isinstance(block, int) else block
+
+
 def _jax_grads(q, k, v, do, mask, causal, dtype, block=BLOCK):
     cast = (lambda x: jnp.asarray(x, jnp.bfloat16)) if dtype == "bf16" \
         else jnp.asarray
     fn = lambda a, b, c: JF.flash_attention_trainable(  # noqa: E731
-        a, b, c, jnp.asarray(mask), H, causal, block, block, True)
+        a, b, c, jnp.asarray(mask), H, causal, *_blocks(block), True)
     o, vjp = jax.vjp(fn, cast(q), cast(k), cast(v))
     return [np.asarray(g.astype(jnp.float32)) for g in vjp(cast(do))], o
 
@@ -60,7 +69,7 @@ def _torch(x, dtype):
 def _port_grads(q, k, v, do, mask, causal, dtype, block=BLOCK):
     qt, kt, vt = (_torch(x, dtype).requires_grad_() for x in (q, k, v))
     o = TF.flash_attention_trainable(qt, kt, vt, torch.from_numpy(mask), H,
-                                     causal, block, block)
+                                     causal, *_blocks(block))
     grads = torch.autograd.grad(o, (qt, kt, vt), _torch(do, dtype))
     return [g.float().numpy() for g in grads], o
 
@@ -85,6 +94,44 @@ def test_backward_matches_jax_grad_in_interpret_mode(causal, dtype):
             excess = np.abs(g - w) - _one_bf16_step(w)
             assert excess.max() <= BF16_ABS, (name, excess.max())
     assert to.dtype == (torch.bfloat16 if dtype == "bf16" else torch.float32)
+
+
+def _degenerate_case(seed):
+    """[4 * H, 256, D] float32 inputs (two dQ tiles, four dK/dV tiles) with
+    key masks that reach every branch of the kernels' skipping: an end
+    inside the first 64 keys; left padding past the first 128 keys, then an
+    end; a batch row with no real key; every key real. dO is drawn at 1/8
+    scale: the row with no real key sums p = 1 over 256 keys, which at unit
+    scale gives gradients up to ~76, where float32 sums in another order
+    leave ~1.6e-5 on elements near 0 (past the 1e-5 of these tests); every
+    gradient is linear in dO, so the scale changes only their size."""
+    rng = np.random.default_rng(seed)
+    q, k, v, do = (rng.standard_normal((4 * H, 256, D)).astype(np.float32)
+                   for _ in range(4))
+    mask = np.ones((4, 256), np.int32)
+    mask[0, 40:] = 0
+    mask[1, :150] = 0
+    mask[1, 220:] = 0
+    mask[2] = 0
+    return q, k, v, do / 8, mask
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_twins_at_the_kernels_tiles_match_jax_over_degenerate_masks(causal):
+    """Each twin at its card kernel's (block_q, block_k) (``BWD_TILES``:
+    dQ's 128-row and 128-key blocks, dK/dV's 64 and 64, unequal between the
+    two) against ``jax.vjp`` at the same blocks: rows with no real key take
+    p = 1 over exactly the blocks JAX runs for them."""
+    q, k, v, do, mask = _degenerate_case(8 + causal)
+    for names, tiles in ((("dq",), TF.BWD_TILES[0]),
+                         (("dk", "dv"), TF.BWD_TILES[1])):
+        want, _ = _jax_grads(q, k, v, do, mask, causal, "f32", tiles)
+        got, _ = _port_grads(q, k, v, do, mask, causal, "f32", tiles)
+        for name in names:
+            i = ("dq", "dk", "dv").index(name)
+            assert np.isfinite(got[i]).all(), name
+            np.testing.assert_allclose(got[i], want[i], rtol=1e-5, atol=1e-5,
+                                       err_msg=f"{name} at {tiles}")
 
 
 @pytest.mark.parametrize("causal", [False, True])
@@ -170,3 +217,11 @@ def test_backward_wrappers_reject_what_the_kernel_does_not_take():
     with pytest.raises(TypeError, match="do"):
         TF._check(q, q, q, torch.ones((2, 96), dtype=torch.int32), 2, 32,
                   do=q.float())
+    # the wrappers check L against the largest of the kernels' tiles (dQ's
+    # 128): 192 is a multiple of dK/dV's 64 only
+    largest = max(max(t) for t in TF.BWD_TILES)
+    q = torch.zeros((4, 192, 32), dtype=torch.bfloat16)
+    mask = torch.ones((2, 192), dtype=torch.int32)
+    TF._check(q, q, q, mask, 2, TF.BWD_TILES[1][0], do=q)
+    with pytest.raises(ValueError, match="multiple"):
+        TF._check(q, q, q, mask, 2, largest, do=q)
