@@ -1789,11 +1789,126 @@ def held(got, want, tol: float, label: str) -> dict:
             "tolerance": tol, "max_abs_want": big}
 
 
+#: the split sizes (positions) of split decode attention that phase 9 times
+ATTN_SPLITS = (64, 128)
+
+
+def with_split(split: int, fn):
+    """``fn`` run with split attention cut into ``split`` positions."""
+    from cmw_rag_tpu_torch.ops import paged_attention as PA
+
+    def run(*a, **kw):
+        old, PA.ATTN_SPLIT = PA.ATTN_SPLIT, split
+        try:
+            return fn(*a, **kw)
+        finally:
+            PA.ATTN_SPLIT = old
+    return run
+
+
+def split_times(kern, layers: int) -> dict:
+    """Device ms of ``kern(layer)`` over the layers in turn at each split
+    size of ``ATTN_SPLITS``."""
+    return {str(sp): device_ms(cycling(with_split(sp, kern), layers), 56)
+            for sp in ATTN_SPLITS}
+
+
+def split_items(lens, positions: int, hkv: int, s: int) -> dict:
+    """The split attention grid of one call at the split in force: the
+    split, the splits a (slot, KV head), the work items and those under a
+    slot's length (the rest return at once)."""
+    from cmw_rag_tpu_torch.ops import paged_attention as PA
+
+    split = PA.ATTN_SPLIT
+    n_split = PA.attention_splits(positions, split)
+    live = sum(PA.attention_splits(min(n, positions), split) for n in lens)
+    return {"split": split, "n_split": n_split, "items": s * hkv * n_split,
+            "live_items": hkv * live}
+
+
+def split_bounds_phase(layers, card_line: str) -> dict:
+    """Split decode attention at lengths on either side of every split
+    boundary (1, split - 1, split, split + 1, 2 split + 1, cap * page) and
+    an idle slot, at both split sizes: the slot-major kernel and the
+    megakernel on both routes against their twins (phase 9's tolerances),
+    each launched twice and bit for bit alike."""
+    import torch
+    from cmw_rag_tpu_torch.ops import decoder_layer as DL
+    from cmw_rag_tpu_torch.ops import paged_attention as PA
+
+    hq, hkv, dh, page, d = 16, 8, 128, 64, 1024
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    out = {}
+    for split in ATTN_SPLITS:
+        t0 = time.time()
+        cap = -(-(2 * split + 1) // page) + 1
+        lens = [1, split - 1, split, split + 1, 2 * split + 1, cap * page]
+        s, maxp = len(lens) + 1, cap
+        lens_t = torch.tensor(lens + [1], dtype=torch.int32, device="cuda")
+        shape = (2, 1 + s * maxp, page, hkv, dh)
+        kp = torch.randn(shape, generator=gen, device="cuda").bfloat16()
+        vp = torch.randn(shape, generator=gen, device="cuda").bfloat16()
+        q = torch.randn((s, hq, dh), generator=gen, device="cuda").bfloat16()
+        slot = with_split(split, PA.paged_decode_attention_dma_slot)
+        got = slot(q, kp, vp, lens_t, layer=1, cap=cap, maxp_slot=maxp)
+        again = slot(q, kp, vp, lens_t, layer=1, cap=cap, maxp_slot=maxp)
+        want = PA.paged_decode_attention_slot_plain(q, kp[1], vp[1], lens_t,
+                                                    cap, maxp)
+        torch.cuda.synchronize()
+        if not torch.equal(got, again):
+            raise AssertionError(f"slot attention, split {split}: two "
+                                 f"launches differ")
+        out[f"slot-{split}"] = {**held(got, want, PAGED_TOL,
+                                       f"slot attention split {split}"),
+                                "bit_equal_launches": True, "lens": lens}
+        x = torch.randn((s, d), generator=gen, device="cuda").bfloat16()
+        ang = torch.rand((s, dh // 2), generator=gen, device="cuda") * 6.28
+        c2, s2 = DL.make_rope_maps(torch.cos(ang), torch.sin(ang))
+        pos = (lens_t - 1).long()
+        for route in ("slot", "paged"):
+            if route == "slot":
+                tables = PA.slot_tables(s, maxp, maxp, 1, "cuda")
+                kw = dict(attn_slot=True, slot_cap=cap, slot_maxp=maxp)
+            else:
+                perm = torch.randperm(s * maxp, generator=gen,
+                                      device="cuda") + 1
+                tables = perm.reshape(s, maxp).to(torch.int32)
+                tables[-1] = 0
+                kw = dict(tables=tables)
+            page_idx = tables.long().gather(1, (pos // page)[:, None])[:, 0]
+            page_idx[-1] = 0
+            off = (pos % page).to(torch.int32)
+            off[-1] = 0
+            args = (x, c2, s2, *[layers[0][k] for k in LAYER_KEYS],
+                    page_idx.to(torch.int32), off)
+            k_tw, v_tw = kp.clone(), vp.clone()
+            layer = with_split(split, DL.decoder_layer_int8)
+            got = layer(*args, kp, vp, lens_t, layer=1, **kw)[0]
+            again = layer(*args, kp, vp, lens_t, layer=1, **kw)[0]
+            want = DL.decoder_layer_int8_plain(*args, k_tw, v_tw, lens_t,
+                                               layer=1, **kw)[0]
+            torch.cuda.synchronize()
+            if not torch.equal(got, again):
+                raise AssertionError(f"decoder_layer_int8 {route}, split "
+                                     f"{split}: two launches differ")
+            out[f"layer-{route}-{split}"] = {
+                **held(got[:s - 1], want[:s - 1], INT8_LAYER_TOL,
+                       f"decoder_layer_int8 {route} split {split}"),
+                "bit_equal_launches": True, "lens": lens}
+        log(f"split-bounds-{split}", time.time() - t0, card_line, lens=lens,
+            **{k: f"{v['max_abs_err']:.3g}" for k, v in out.items()
+               if k.endswith(str(split))})
+        del kp, vp
+    torch.cuda.empty_cache()
+    return out
+
+
 def int8_kernel_phase(card_line: str) -> dict:
     """Hold the four int8-path kernels against their plain twins at the
     main path's shapes (qwen3guard-0.6b, 28 layers' weights read in turn so
     that repeats do not find them in L2); time each, its twin and a library
-    composite."""
+    composite; split attention at both split sizes, its boundary lengths
+    and two launches alike (``split_bounds_phase``)."""
     import torch
     from cmw_rag_tpu_torch.ops import decoder_layer as DL
     from cmw_rag_tpu_torch.ops import fused_mlp as FM
@@ -1812,12 +1927,13 @@ def int8_kernel_phase(card_line: str) -> dict:
     report = {}
 
     def record(name, case, kern, plain, lib, got, want, tol, nbytes, ops,
-               shape, iters=56):
+               shape, iters=56, extra=None):
         t1 = time.time()
         entry = {**held(got, want, tol, f"{name} {case}"),
                  "ms": device_ms(kern, iters), "plain_ms": device_ms(plain, 5),
                  "library_ms": device_ms(lib, 5),
-                 "call_ms": cuda_ms(kern, iters), **bound(nbytes, ops)}
+                 "call_ms": cuda_ms(kern, iters), **bound(nbytes, ops),
+                 **(extra or {})}
         log(f"kernel-{name}-{case}", time.time() - t1, card_line,
             **fmt(entry))
         report[(name, case)] = dict(entry, shape=shape)
@@ -1867,16 +1983,23 @@ def int8_kernel_phase(card_line: str) -> dict:
 
         def lib(li):
             return library_paged(q, kp[li], vp[li], tables, lens_t)
-        got, want = kern(3), plain(3)
+        got, want, again = kern(3), plain(3), kern(3)
         torch.cuda.synchronize()
+        if not torch.equal(got, again):
+            raise AssertionError(f"slot attention {case}: two launches "
+                                 f"differ")
         pos = sum(lens) + 1
+        extra = {**split_items(lens + [1], cap * page, hkv, s),
+                 "bit_equal_launches": True,
+                 "ms_by_split": split_times(kern, n_layers)}
         record("paged_decode_attention_dma_slot", case,
                cycling(kern, n_layers), cycling(plain, n_layers),
                cycling(lib, n_layers), got[:s - 1], want[:s - 1], PAGED_TOL,
                2 * pos * hkv * dh * 2 + 2 * 2 * q.numel() + 4 * s,
                4.0 * hq * dh * pos,
                {"S": s, "Hq": hq, "Hkv": hkv, "Dh": dh, "page": page,
-                "cap": cap, "maxp_slot": maxp, "lens": lens + [1]})
+                "cap": cap, "maxp_slot": maxp, "lens": lens + [1]},
+               extra=extra)
         del kp, vp
         torch.cuda.empty_cache()
 
@@ -1953,8 +2076,11 @@ def int8_kernel_phase(card_line: str) -> dict:
                                                 "cuda"), lens_t)
         li = 5
         k0, v0 = kp[li].clone(), vp[li].clone()
-        got = kern(li)
+        got, again = kern(li), kern(li)
         torch.cuda.synchronize()
+        if not torch.equal(got, again):
+            raise AssertionError(f"decoder_layer_int8 {case}: two launches "
+                                 f"differ")
         k_got, v_got = kp[li].clone(), vp[li].clone()
         kp[li].copy_(k0)
         vp[li].copy_(v0)
@@ -1973,6 +2099,11 @@ def int8_kernel_phase(card_line: str) -> dict:
             held(g_pool[rows], w_pool[rows], INT8_LAYER_TOL,
                  f"decoder_layer_int8 {case}: written {label} rows")
         positions = sum(lens) + 1
+        width = kw["slot_cap"] if slot else maxp
+        extra = {**split_items(lens + [1], width * page, hkv, s),
+                 "grid_blocks": DL._grid(x.device, IM.m_tile(s), dh, False),
+                 "bit_equal_launches": True,
+                 "ms_by_split": split_times(kern, n_layers)}
         record("decoder_layer_int8", case, cycling(kern, n_layers),
                cycling(plain, n_layers), cycling(lib, n_layers), got[:s - 1],
                want[:s - 1], INT8_LAYER_TOL,
@@ -1982,9 +2113,10 @@ def int8_kernel_phase(card_line: str) -> dict:
                2.0 * s * w_bytes + 4.0 * hq * dh * positions,
                {"S": s, "D": d, "Hq": hq, "Hkv": hkv, "Dh": dh, "F": f,
                 "page": page, "lens": lens + [1],
-                "route": "slot" if slot else "paged"})
+                "route": "slot" if slot else "paged"}, extra=extra)
         del kp, vp, k0, v0, k_got, v_got
         torch.cuda.empty_cache()
+    report["split_bounds"] = split_bounds_phase(layers, card_line)
     del layers, head_q, head_s
     torch.cuda.empty_cache()
     return report
@@ -3163,10 +3295,14 @@ def main() -> int:
         row.update({k: main_case[k] for k in (
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "max_err_past_one_step", "tolerance", "shape")})
+        split_keys = ("split", "n_split", "items", "live_items",
+                      "grid_blocks", "ms_by_split", "bit_equal_launches")
+        row.update({k: main_case[k] for k in split_keys if k in main_case})
         for case in cases[1:]:
-            row[case] = {k: int8["kernels"][(name, case)][k] for k in (
+            entry = int8["kernels"][(name, case)]
+            row[case] = {k: entry[k] for k in (
                 "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
-                "max_abs_err", "shape")}
+                "max_abs_err", "shape") + split_keys if k in entry}
         rows.append(row)
     new_cases = {"int8_matmul_w8a8": ("qkv-s4", "wo-s4", "gateup-s4",
                                       "down-s4", "head-s4", "qkv-s16",
@@ -3236,8 +3372,10 @@ def main() -> int:
                       "local_llm": {"engine": llm["engine"],
                                     "transport": llm["transport"]},
                       "local_llm_phase_seconds": round(llm_seconds, 3),
-                      "local_llm_int8": {"engine": int8["engine"],
-                                         "transport": int8["transport"]},
+                      "local_llm_int8": {
+                          "engine": int8["engine"],
+                          "transport": int8["transport"],
+                          "split_bounds": int8["kernels"]["split_bounds"]},
                       "local_llm_int8_phase_seconds": round(int8_seconds, 3),
                       "local_llm_w8a8_kv8": {"engine": w8a8["engine"],
                                              "transport": w8a8["transport"]},

@@ -28,7 +28,12 @@ int decoder_layer_blocks(int mt, int dh) {
 // over Hq Dh, ks_dn over F). Scratch: part_a max(ks_qkv (Hq + 2 Hkv) Dh,
 // ks_wo D, ks_dn D) * S floats, part_b ks_gu * S * 2F, qbuf and aout S *
 // Hq * Dh, x1 and y S * D. out [S, D] bf16. noattn != 0: the attention
-// output is q (the ablation). Returns the CUDA error code of the launch.
+// output is q (the ablation). Attention is cut into splits of attn_split
+// positions (1 to 128), n_split = ceil(cap * page / attn_split) a (slot, KV
+// head) with cap slot_cap on the slot-major route and maxp on the paged
+// one; attn_part holds S * Hkv * n_split * (Hq / Hkv) * (Dh + 2) floats,
+// attn_count S * Hkv int32 (zeroed by the kernel). Returns the CUDA error
+// code of the launch.
 int decoder_layer_int8(
     const void* x, const float* c2, const float* s2, const float* attn_norm,
     const int8_t* wqkv_q, const float* wqkv_s, const float* q_norm,
@@ -40,13 +45,15 @@ int decoder_layer_int8(
     int f, int page, int maxp, int slot_cap, int slot_maxp, int slot_base,
     float eps, int ks_qkv, int ks_wo, int ks_gu, int ks_dn, float* part_b,
     float* qbuf, float* aout, float* x1, float* y, void* out, float* k_scale,
-    float* v_scale, int noattn, void* stream) {
+    float* v_scale, int noattn, int attn_split, int n_split,
+    float* attn_part, int* attn_count, void* stream) {
   return run_layer<__nv_bfloat16>(
       x, c2, s2, attn_norm, wqkv_q, wqkv_s, q_norm, k_norm, wo_q, wo_s,
       ffn_norm, gateup_q, gateup_s, down_q, down_s, page_idx, off, k_pool,
       v_pool, lens, tables, part_a, s, d, hq, hkv, dh, f, page, maxp,
       slot_cap, slot_maxp, slot_base, eps, ks_qkv, ks_wo, ks_gu, ks_dn,
-      part_b, qbuf, aout, x1, y, out, k_scale, v_scale, noattn, stream);
+      part_b, qbuf, aout, x1, y, out, k_scale, v_scale, noattn, attn_split,
+      n_split, attn_part, attn_count, stream);
 }
 
 }  // extern "C"

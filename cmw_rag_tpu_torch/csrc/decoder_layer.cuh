@@ -29,16 +29,22 @@
 //      float32 partial sums;
 //   2. one warp per (slot, head): the partial sums added, head norm, RoPE,
 //      q to a float32 buffer, k and v written into the pools;
-//   3. one block per (slot, KV head): attention (attend() in
-//      csrc/int8_decode.cuh) into a float32 buffer;
+//   3. attention (attend_split() in csrc/int8_decode.cuh) into a float32
+//      buffer, over S x Hkv x n_split work items, one (slot, KV head,
+//      split of attn_split positions) each, handed out over the whole grid
+//      on both routes: items past a slot's length return at once, a slot of
+//      one split writes its output itself, the last split of a (slot, KV
+//      head) to finish merges the others' partials (attn_part) in split
+//      order. Its counters (attn_count) are zeroed in phase 1, two barriers
+//      before they are bumped, so the phase needs no barrier of its own;
 //   4-8. the fused MLP phases (mlp_phases()).
 // Data written in the launch (partial sums, q, this step's K/V rows, the
 // attention output, x1) is read back with ld.global.cg. The caller
 // guarantees that active slots write distinct rows; idle slots write row 0
 // of the null page, whose output nobody samples. A launch whose grid cannot
-// be co-resident fails, and the failure is returned. Splitting attention
-// over more blocks than (slot, KV head) pairs, and fewer barriers, are
-// later work.
+// be co-resident fails, and the failure is returned. The shared memory is
+// the weight tiles' (tile_smem): attention's splits of at most 128
+// positions need less. Fewer barriers are later work.
 //
 // The ablation "noattn" (the TPU kernels' ablate argument, diagnosis only:
 // wrong outputs on purpose) replaces phase 3 with a copy of q into the
@@ -71,6 +77,9 @@ struct LayerArgs {
   const int* lens;    // [S], this step's token included
   const int* tables;  // [S, maxp] (paged route) or null
   int hq, hkv, page, maxp, slot_cap, slot_maxp, slot_base, ks_qkv, noattn;
+  int attn_split, n_split;  // positions a split; splits a (slot, KV head)
+  float* attn_part;  // [S, Hkv, n_split, Hq / Hkv, Dh + 2] split partials
+  int* attn_count;   // [S, Hkv] splits written, zeroed in phase 1
   float* qbuf;  // [S, Hq, Dh]
   float* aout;  // [S, Hq, Dh]
   MlpArgs mlp;  // x, the MLP weights, S, D, A, F, eps, scratch, out
@@ -103,8 +112,10 @@ __device__ __forceinline__ void store_row_bf16(const float* t, int el,
   for (int e = 0; e < el; ++e) dst[e] = __float2bfloat16(t[e]);
 }
 
+// Two blocks a SM up to 8 rows, one past that: without the bound ptxas may
+// give the 8-row tile more than 128 registers and halve the grid.
 template <int MT, int DH, typename TP>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, MT <= 8 ? 2 : 1)
 decoder_layer_kernel(const LayerArgs p) {
   constexpr bool kInt8 = sizeof(TP) == 1;
   extern __shared__ __align__(16) unsigned char smem[];
@@ -117,7 +128,10 @@ decoder_layer_kernel(const LayerArgs p) {
   const int a3 = (p.hq + 2 * p.hkv) * DH;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
 
-  // 1. attention norm + fused QKV partial sums
+  // 1. attention norm + fused QKV partial sums; phase 3's counters zeroed
+  for (int i = blockIdx.x * kThreads + tid; i < s * p.hkv;
+       i += gridDim.x * kThreads)
+    p.attn_count[i] = 0;
   row_rstd(m.x, s, d, m.eps, rstd);
   __syncthreads();
   auto load_y = [&](int r, int k) {
@@ -183,7 +197,8 @@ decoder_layer_kernel(const LayerArgs p) {
   }
   grid.sync();
 
-  // 3. attention, one block per (slot, KV head); "noattn": a copy of q
+  // 3. attention, one item per (slot, KV head, split), splits slowest so
+  // that the live items come first; "noattn": a copy of q
   const int rep = p.hq / p.hkv;
   if (p.noattn) {
     const int64_t total = static_cast<int64_t>(s) * a;
@@ -191,19 +206,28 @@ decoder_layer_kernel(const LayerArgs p) {
          i < total; i += static_cast<int64_t>(gridDim.x) * kThreads)
       p.aout[i] = __ldcg(p.qbuf + i);
   }
-  for (int it = blockIdx.x; !p.noattn && it < s * p.hkv; it += gridDim.x) {
-    const int si = it / p.hkv, g = it % p.hkv;
+  const int pairs = s * p.hkv;
+  for (int it = blockIdx.x; !p.noattn && it < pairs * p.n_split;
+       it += gridDim.x) {
+    const int j = it / pairs, pair = it % pairs;
+    const int si = pair / p.hkv, g = pair % p.hkv;
     const int64_t head = static_cast<int64_t>(si) * p.hq * DH;
+    const Meet meet{p.attn_part + static_cast<int64_t>(pair) * p.n_split *
+                                      rep * (DH + 2),
+                    p.attn_count + pair};
+    float* sm = reinterpret_cast<float*>(smem);
     if (p.slot_cap > 0) {
-      attend<DH>(p.qbuf + head, g, rep, k_pool, v_pool, p.hkv, p.page,
-                 SlotPages{p.slot_base + static_cast<int64_t>(si) * p.slot_maxp},
-                 min(p.lens[si], p.slot_cap * p.page), p.aout + head,
-                 reinterpret_cast<float*>(smem));
+      attend_split<DH>(
+          p.qbuf + head, g, rep, k_pool, v_pool, p.hkv, p.page,
+          SlotPages{p.slot_base + static_cast<int64_t>(si) * p.slot_maxp},
+          min(p.lens[si], p.slot_cap * p.page), p.attn_split, j, meet,
+          p.aout + head, sm);
     } else {
-      attend<DH>(p.qbuf + head, g, rep, k_pool, v_pool, p.hkv, p.page,
-                 TablePages{p.tables + static_cast<int64_t>(si) * p.maxp},
-                 p.lens[si], p.aout + head, reinterpret_cast<float*>(smem),
-                 p.k_scale, p.v_scale);
+      attend_split<DH>(
+          p.qbuf + head, g, rep, k_pool, v_pool, p.hkv, p.page,
+          TablePages{p.tables + static_cast<int64_t>(si) * p.maxp},
+          min(p.lens[si], p.maxp * p.page), p.attn_split, j, meet,
+          p.aout + head, sm, p.k_scale, p.v_scale);
     }
   }
   grid.sync();
@@ -215,13 +239,14 @@ decoder_layer_kernel(const LayerArgs p) {
   mlp_phases<MT>(m, load_attn, smem, grid);
 }
 
-constexpr int smem_for(int mt, int dh) {
-  return tile_smem(mt) > attend_smem(dh) ? tile_smem(mt) : attend_smem(dh);
-}
+// The kernel's shared memory is its weight tiles' (tile_smem).
+static_assert(attend_smem(64) <= tile_smem(4) &&
+                  attend_smem(128) <= tile_smem(4),
+              "the megakernel's shared memory is set by its weight tiles");
 
 template <int MT, int DH, typename TP>
 int launch(const LayerArgs& p, cudaStream_t stream) {
-  const int smem = smem_for(MT, DH);
+  const int smem = tile_smem(MT);
   auto kern = decoder_layer_kernel<MT, DH, TP>;
   static const int blocks = cooperative_blocks(kern, smem);  // once
   if (blocks <= 0)
@@ -248,10 +273,10 @@ template <int MT, typename TP>
 int blocks_for(int dh) {
   if (dh == 64)
     return cooperative_blocks(decoder_layer_kernel<MT, 64, TP>,
-                              smem_for(MT, 64));
+                              tile_smem(MT));
   if (dh == 128)
     return cooperative_blocks(decoder_layer_kernel<MT, 128, TP>,
-                              smem_for(MT, 128));
+                              tile_smem(MT));
   return -static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -282,7 +307,8 @@ int run_layer(
     int f, int page, int maxp, int slot_cap, int slot_maxp, int slot_base,
     float eps, int ks_qkv, int ks_wo, int ks_gu, int ks_dn, float* part_b,
     float* qbuf, float* aout, float* x1, float* y, void* out, float* k_scale,
-    float* v_scale, int noattn, void* stream) {
+    float* v_scale, int noattn, int attn_split, int n_split,
+    float* attn_part, int* attn_count, void* stream) {
   constexpr bool kv8 = sizeof(TP) == 1;
   const int a = hq * dh;
   if (s < 1 || s > kMaxRows || hkv < 1 || hq % hkv != 0 ||
@@ -291,12 +317,16 @@ int run_layer(
       f % (kBK * ks_dn) != 0 || ks_qkv < 1 || ks_wo < 1 || ks_gu < 1 ||
       ks_dn < 1 || (slot_cap <= 0 && (tables == nullptr || maxp < 1)) ||
       kv8 != (k_scale != nullptr) || kv8 != (v_scale != nullptr) ||
-      (kv8 && slot_cap > 0))
+      (kv8 && slot_cap > 0) || attn_split < 1 || attn_split > kMaxSplit ||
+      n_split != live_splits((slot_cap > 0 ? slot_cap : maxp) * page,
+                             attn_split) ||
+      attn_part == nullptr || attn_count == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
   const LayerArgs p{
       c2, s2, attn_norm, wqkv_q, wqkv_s, q_norm, k_norm, page_idx, off,
       k_pool, v_pool, k_scale, v_scale, lens, tables, hq, hkv, page, maxp,
-      slot_cap, slot_maxp, slot_base, ks_qkv, noattn, qbuf, aout,
+      slot_cap, slot_maxp, slot_base, ks_qkv, noattn, attn_split, n_split,
+      attn_part, attn_count, qbuf, aout,
       MlpArgs{static_cast<const __nv_bfloat16*>(x), wo_q, wo_s, ffn_norm,
               gateup_q, gateup_s, down_q, down_s, s, d, a, f, eps, ks_wo,
               ks_gu, ks_dn, part_a, part_b, x1, y,

@@ -43,13 +43,15 @@ int decoder_layer_int8_kv8(
     int f, int page, int maxp, int slot_cap, int slot_maxp, int slot_base,
     float eps, int ks_qkv, int ks_wo, int ks_gu, int ks_dn, float* part_b,
     float* qbuf, float* aout, float* x1, float* y, void* out, float* k_scale,
-    float* v_scale, int noattn, void* stream) {
+    float* v_scale, int noattn, int attn_split, int n_split,
+    float* attn_part, int* attn_count, void* stream) {
   return run_layer<int8_t>(
       x, c2, s2, attn_norm, wqkv_q, wqkv_s, q_norm, k_norm, wo_q, wo_s,
       ffn_norm, gateup_q, gateup_s, down_q, down_s, page_idx, off, k_pool,
       v_pool, lens, tables, part_a, s, d, hq, hkv, dh, f, page, maxp,
       slot_cap, slot_maxp, slot_base, eps, ks_qkv, ks_wo, ks_gu, ks_dn,
-      part_b, qbuf, aout, x1, y, out, k_scale, v_scale, noattn, stream);
+      part_b, qbuf, aout, x1, y, out, k_scale, v_scale, noattn, attn_split,
+      n_split, attn_part, attn_count, stream);
 }
 
 }  // extern "C"

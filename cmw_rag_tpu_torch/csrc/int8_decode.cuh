@@ -3,7 +3,7 @@
 // csrc/decoder_layer.cu. Each source includes this header; the build hashes
 // it with each (ops/cuda_build.py).
 //
-// Two building blocks:
+// Three building blocks:
 //
 // int8_tile - one block computes a [MT rows, kBN columns] tile of
 //   act [M, K] @ w_int8 [K, N] over a contiguous range of the contraction,
@@ -22,25 +22,35 @@
 //   int8 -> float conversion and float32 FMAs on the CUDA cores; wgmma and
 //   TMA are later work.
 //
-// attend - one block computes decode attention for one (slot, KV head):
-//   the rep = Hq / Hkv query heads of that KV head over the slot's positions
-//   p < len, position p in page page_of(p / page), row p % page. Scores are
-//   float32 (q . k) / sqrt(Dh) kept in shared memory for a chunk of positions
-//   at a time; softmax runs over the chunk with a running max and sum, so a
-//   context that fits one chunk (every slot-major call: the TPU budget stops
-//   it at 384 positions at qwen3guard-0.6b's width) is the TPU kernel's
-//   single pass, with no rescaling. o = sum p v / sum p in float32. Rows at
-//   or past len are never read, so stale or NaN rows cannot leak (the TPU
-//   zeroes them with a where). 16-byte loads (8 bf16), Dh / 8 threads a row,
-//   4 rows in flight per thread. Pool rows are read with ld.global.cg: the
-//   decoder-layer megakernel writes this step's row earlier in the same
-//   launch, and L1 is not coherent across SMs. int8 pools (the int8-KV
-//   megakernel) carry a float32 scale per (page, KV head), [P, Hkv], also
-//   read with ld.global.cg: a score is (q . k_int8) * k_scale / sqrt(Dh)
-//   and a probability is multiplied by v_scale before it weights v_int8, as
-//   the TPU's int8 pipeline folds them (paged_attention.py:685); a thread
-//   loads 8 bytes (8 int8 values) of a row, so the layout of threads over
-//   a row is the bf16 one.
+// attend_split - decode attention for one (slot, KV head) cut over
+//   positions (flash-decoding): a work item is split j of the slot's
+//   context, positions [j * split, (j + 1) * split) with split at most
+//   kMaxSplit (128), of the rep = Hq / Hkv query heads of that KV head,
+//   position p in page page_of(p / page), row p % page. A slot's context is
+//   walked by as many blocks as it has splits, not by one block in a serial
+//   loop. Scores are float32 (q . k) / sqrt(Dh) kept in shared memory; each
+//   split keeps its own max m_j, sum l_j of e^(s - m_j) and [rep, Dh]
+//   float32 accumulator. A context of one split writes o = acc / l at once;
+//   otherwise each split writes (m_j, l_j, acc_j) to float32 scratch and the
+//   last split of the (slot, KV head) to finish (an integer counter, bumped
+//   after a __threadfence, reset by that block) merges them in split order:
+//   o = sum_j e^(m_j - M) acc_j / max(sum_j e^(m_j - M) l_j, 1e-30), M the
+//   largest m_j. No float atomics: two launches agree bit for bit. Only the
+//   order of float32 sums differs from the TPU kernel's single pass. Rows
+//   at or past len are never read, so stale or NaN rows cannot leak (the TPU
+//   zeroes them with a where); a split past the length returns at once.
+//   16-byte loads (8 bf16), Dh / 8 threads a row, 64 rows a pass in flight
+//   at once (one pass for a split of 64, two for 128: all 128 rows at once
+//   cost the megakernel registers, spills and time). Pool rows, scratch and
+//   scales are read with ld.global.cg: the decoder-layer megakernel writes
+//   this step's row earlier in the same launch, and L1 is not coherent
+//   across SMs. int8
+//   pools (the int8-KV megakernel) carry a float32 scale per (page, KV
+//   head), [P, Hkv]: a score is (q . k_int8) * k_scale / sqrt(Dh) and a
+//   probability is multiplied by v_scale before it weights v_int8, as the
+//   TPU's int8 pipeline folds them (paged_attention.py:685); a thread loads
+//   8 bytes (8 int8 values) of a row, so the layout of threads over a row
+//   is the bf16 one.
 //
 // mlp_phases - wo -> residual -> RMSNorm -> gate/up -> SiLU * up -> down ->
 //   residual, the fused MLP (csrc/fused_mlp.cu) and the back half of the
@@ -72,8 +82,7 @@ constexpr int kBK = 64;                       // weight rows a stage
 constexpr int kStages = 4;
 constexpr int kWBytes = kStages * kBK * kBN;  // 16 KB weight ring
 constexpr int kMaxRep = 8;                    // query heads a KV head
-constexpr int kAttnChunk = 1024;              // positions of scores kept
-constexpr int kAttnUnroll = 4;                // rows in flight per thread
+constexpr int kMaxSplit = 128;                // positions of a split, at most
 constexpr int kMaxRows = 256;                 // activation rows (norm scratch)
 
 static_assert(kKSub * 4 * kBN * 4 == kWBytes, "reduction reuses the ring");
@@ -221,9 +230,16 @@ __device__ void int8_tile(const int8_t* w, int n_cols, int col0, int k0,
   }
 }
 
-// Shared-memory bytes of attend<DH>.
+// Splits of a context of len positions cut into runs of `split`: those
+// that hold a position under len, at least one (an empty context still
+// writes its zero output).
+__host__ __device__ constexpr int live_splits(int len, int split) {
+  return len > split ? (len + split - 1) / split : 1;
+}
+
+// Shared-memory bytes of attend_split<DH>.
 __host__ __device__ constexpr int attend_smem(int dh) {
-  return (kMaxRep * dh + kMaxRep * kAttnChunk + 3 * kMaxRep +
+  return (kMaxRep * dh + kMaxRep * kMaxSplit + 3 * kMaxRep +
           (kThreads / (dh / 8)) * dh) * 4;
 }
 
@@ -278,43 +294,54 @@ struct Row8<int8_t> {
   }
 };
 
-// One (slot, KV head g): q [Hq, DH] of the slot (float or bf16), pools of
-// one layer [P, page, hkv, DH] bf16, or int8 with scales [P, hkv]
-// (k_scale, v_scale; null for bf16), out [Hq, DH] of the slot. Every
-// thread of the block must call it. Uses attend_smem(DH) bytes of smem.
+// Where the splits of one (slot, KV head) meet: part [n_split][rep][DH + 2]
+// floats (each split's m, l and acc) and a counter of the splits written.
+// Null when the caller allots one split.
+struct Meet {
+  float* part;
+  int* count;
+};
+
+// Split j of one (slot, KV head g): positions [j * split, (j + 1) * split)
+// under len. q [Hq, DH] of the slot (float or bf16), pools of one layer
+// [P, page, hkv, DH] bf16, or int8 with scales [P, hkv] (k_scale,
+// v_scale; null for bf16), out [Hq, DH] of the slot. A split past the
+// context returns at once; the only live split writes out itself; any
+// other writes its partial, and the last of them to finish (a counter
+// bumped after a fence) merges all of them into out in split order and sets
+// the counter back to 0 for the next launch. Every thread of the block must
+// call it. Uses attend_smem(DH) bytes of smem; split <= kMaxSplit.
 template <int DH, typename TQ, typename TP, typename TO, class PageOf>
-__device__ void attend(const TQ* q, int g, int rep, const TP* k_pool,
-                       const TP* v_pool, int hkv, int page,
-                       const PageOf& page_of, int len, TO* out, float* smem,
-                       const float* k_scale = nullptr,
-                       const float* v_scale = nullptr) {
+__device__ void attend_split(const TQ* q, int g, int rep, const TP* k_pool,
+                             const TP* v_pool, int hkv, int page,
+                             const PageOf& page_of, int len, int split, int j,
+                             const Meet& meet, TO* out, float* smem,
+                             const float* k_scale = nullptr,
+                             const float* v_scale = nullptr) {
   constexpr int E = 8;           // values a thread loads of a row
   constexpr int TPR = DH / E;    // threads a row
   constexpr int NG = kThreads / TPR;  // rows a pass
+  constexpr int U = 64 / NG;    // rows in flight a thread: 64 rows a pass
   static_assert(32 % TPR == 0, "a row's threads share a warp");
+  static_assert(64 % NG == 0, "a pass is whole row groups");
+  const int n_live = live_splits(len, split);
+  if (j >= n_live) return;  // the same for the whole block
   float* q_s = smem;                        // [kMaxRep][DH]
-  float* sc = q_s + kMaxRep * DH;           // [kMaxRep][kAttnChunk]
-  float* m_sh = sc + kMaxRep * kAttnChunk;  // [kMaxRep]
+  float* sc = q_s + kMaxRep * DH;           // [kMaxRep][kMaxSplit]
+  float* m_sh = sc + kMaxRep * kMaxSplit;   // [kMaxRep]
   float* l_sh = m_sh + kMaxRep;
-  float* a_sh = l_sh + kMaxRep;
-  float* red = a_sh + kMaxRep;              // [NG][DH]
+  int* last = reinterpret_cast<int*>(l_sh + kMaxRep);
+  float* red = l_sh + 2 * kMaxRep;          // [NG][DH]
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int c = tid % TPR, rg = tid / TPR;
   const int64_t row_stride = static_cast<int64_t>(hkv) * DH;
   const int64_t page_stride = row_stride * page;
   const float inv_sqrt = rsqrtf(static_cast<float>(DH));
+  const int p0 = j * split;
+  const int rows = max(0, min(split, len - p0));
 
   for (int i = tid; i < rep * DH; i += kThreads)
     q_s[i] = to_f(__ldcg(q + static_cast<int64_t>(g) * rep * DH + i));
-  if (tid < kMaxRep) {
-    m_sh[tid] = -INFINITY;
-    l_sh[tid] = 0.f;
-  }
-  float acc[kMaxRep][E];
-#pragma unroll
-  for (int r = 0; r < kMaxRep; ++r)
-#pragma unroll
-    for (int e = 0; e < E; ++e) acc[r][e] = 0.f;
   __syncthreads();
 
   auto row_at = [&](int p) -> int64_t {
@@ -327,22 +354,21 @@ __device__ void attend(const TQ* q, int g, int rep, const TP* k_pool,
     return __ldcg(plane + page_of(p / page) * hkv + g);
   };
 
-  for (int c0 = 0; c0 < len; c0 += kAttnChunk) {
-    const int rows = min(kAttnChunk, len - c0);
-    for (int i0 = 0; i0 < rows; i0 += NG * kAttnUnroll) {
-      typename Row8<TP>::Raw raw[kAttnUnroll];
+  for (int i0 = 0; i0 < rows; i0 += NG * U) {
+    typename Row8<TP>::Raw raw[U];
 #pragma unroll
-      for (int u = 0; u < kAttnUnroll; ++u) {
-        const int p = i0 + u * NG + rg;
-        raw[u] = Row8<TP>::load(k_pool, p < rows ? row_at(c0 + p) : 0,
-                                p < rows);
-      }
+    for (int u = 0; u < U; ++u) {
+      const int p = i0 + u * NG + rg;
+      raw[u] = Row8<TP>::load(k_pool, p < rows ? row_at(p0 + p) : 0,
+                              p < rows);
+    }
 #pragma unroll
-      for (int u = 0; u < kAttnUnroll; ++u) {
+    for (int u = 0; u < U; ++u) {
+      if (i0 + u * NG < rows) {  // the same for the whole block
         float kf[E];
         Row8<TP>::cvt(raw[u], kf);
         const int p = i0 + u * NG + rg;
-        const float ks = scale_at(k_scale, c0 + p, p < rows);
+        const float ks = scale_at(k_scale, p0 + p, p < rows);
 #pragma unroll
         for (int r = 0; r < kMaxRep; ++r) {
           if (r < rep) {
@@ -353,74 +379,70 @@ __device__ void attend(const TQ* q, int g, int rep, const TP* k_pool,
 #pragma unroll
             for (int o = TPR / 2; o > 0; o >>= 1)
               d += __shfl_xor_sync(0xffffffffu, d, o);
-            if (c == 0 && p < rows) sc[r * kAttnChunk + p] = d * ks * inv_sqrt;
+            if (c == 0 && p < rows) sc[r * kMaxSplit + p] = d * ks * inv_sqrt;
           }
         }
       }
     }
-    __syncthreads();
+  }
+  __syncthreads();
 
-    for (int r = warp; r < rep; r += kWarps) {
-      float* sr = sc + r * kAttnChunk;
-      float mx = -INFINITY;
-      for (int i = lane; i < rows; i += 32) mx = fmaxf(mx, sr[i]);
-      mx = warp_max(mx);
-      const float m_old = m_sh[r];
-      const float m_new = fmaxf(m_old, mx);
-      float sum = 0.f;
-      for (int i = lane; i < rows; i += 32) {
-        const float pr = expf(sr[i] - m_new);
-        sr[i] = pr;
-        sum += pr;
-      }
-      sum = warp_sum(sum);
-      if (lane == 0) {
-        const float alpha = m_old == -INFINITY ? 0.f : expf(m_old - m_new);
-        m_sh[r] = m_new;
-        l_sh[r] = l_sh[r] * alpha + sum;
-        a_sh[r] = alpha;
-      }
+  // the split's own softmax: m its largest score, l the sum of e^(s - m)
+  for (int r = warp; r < rep; r += kWarps) {
+    float* sr = sc + r * kMaxSplit;
+    float mx = -INFINITY;
+    for (int i = lane; i < rows; i += 32) mx = fmaxf(mx, sr[i]);
+    mx = warp_max(mx);
+    float sum = 0.f;
+    for (int i = lane; i < rows; i += 32) {
+      const float pr = expf(sr[i] - mx);
+      sr[i] = pr;
+      sum += pr;
     }
-    __syncthreads();
+    sum = warp_sum(sum);
+    if (lane == 0) {
+      m_sh[r] = mx;
+      l_sh[r] = sum;
+    }
+  }
+  __syncthreads();
 
+  float acc[kMaxRep][E];
 #pragma unroll
-    for (int r = 0; r < kMaxRep; ++r) {
-      if (r < rep) {
-        const float al = a_sh[r];
+  for (int r = 0; r < kMaxRep; ++r)
 #pragma unroll
-        for (int e = 0; e < E; ++e) acc[r][e] *= al;
-      }
+    for (int e = 0; e < E; ++e) acc[r][e] = 0.f;
+  for (int i0 = 0; i0 < rows; i0 += NG * U) {
+    typename Row8<TP>::Raw raw[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int p = i0 + u * NG + rg;
+      raw[u] = Row8<TP>::load(v_pool, p < rows ? row_at(p0 + p) : 0,
+                              p < rows);
     }
-    for (int i0 = 0; i0 < rows; i0 += NG * kAttnUnroll) {
-      typename Row8<TP>::Raw raw[kAttnUnroll];
 #pragma unroll
-      for (int u = 0; u < kAttnUnroll; ++u) {
-        const int p = i0 + u * NG + rg;
-        raw[u] = Row8<TP>::load(v_pool, p < rows ? row_at(c0 + p) : 0,
-                                p < rows);
-      }
+    for (int u = 0; u < U; ++u) {
+      const int p = i0 + u * NG + rg;
+      if (p < rows) {  // rows past the length are skipped, not weighted 0
+        float vf[E];
+        Row8<TP>::cvt(raw[u], vf);
+        const float vs = scale_at(v_scale, p0 + p, true);
 #pragma unroll
-      for (int u = 0; u < kAttnUnroll; ++u) {
-        const int p = i0 + u * NG + rg;
-        if (p < rows) {  // rows past the length are skipped, not weighted 0
-          float vf[E];
-          Row8<TP>::cvt(raw[u], vf);
-          const float vs = scale_at(v_scale, c0 + p, true);
+        for (int r = 0; r < kMaxRep; ++r) {
+          if (r < rep) {
+            const float pr = sc[r * kMaxSplit + p] * vs;
 #pragma unroll
-          for (int r = 0; r < kMaxRep; ++r) {
-            if (r < rep) {
-              const float pr = sc[r * kAttnChunk + p] * vs;
-#pragma unroll
-              for (int e = 0; e < E; ++e)
-                acc[r][e] = fmaf(pr, vf[e], acc[r][e]);
-            }
+            for (int e = 0; e < E; ++e)
+              acc[r][e] = fmaf(pr, vf[e], acc[r][e]);
           }
         }
       }
     }
-    __syncthreads();  // the next chunk overwrites sc
   }
 
+  // the row groups' sums meet in shared memory, in group order; one live
+  // split writes o = acc / l, any other its partial (m, l, acc)
+  const int stride = DH + 2;
 #pragma unroll
   for (int r = 0; r < kMaxRep; ++r) {
     if (r < rep) {
@@ -430,12 +452,50 @@ __device__ void attend(const TQ* q, int g, int rep, const TP* k_pool,
       for (int d = tid; d < DH; d += kThreads) {
         float sum = 0.f;
         for (int i = 0; i < NG; ++i) sum += red[i * DH + d];
-        from_f(sum / fmaxf(l_sh[r], 1e-30f),
-               out + (static_cast<int64_t>(g) * rep + r) * DH + d);
+        if (n_live == 1) {
+          from_f(sum / fmaxf(l_sh[r], 1e-30f),
+                 out + (static_cast<int64_t>(g) * rep + r) * DH + d);
+        } else {
+          float* dst =
+              meet.part + (static_cast<int64_t>(j) * rep + r) * stride;
+          if (d == 0) {
+            dst[0] = m_sh[r];
+            dst[1] = l_sh[r];
+          }
+          dst[2 + d] = sum;
+        }
       }
       __syncthreads();
     }
   }
+  if (n_live == 1) return;
+
+  // the last split to finish merges: o = sum_j w_j acc_j / sum_j w_j l_j,
+  // w_j = e^(m_j - max m), j in order (no float atomics: runs repeat bit for
+  // bit)
+  __threadfence();  // this block's partial is visible before the count
+  __syncthreads();
+  if (tid == 0) *last = atomicAdd(meet.count, 1) == n_live - 1;
+  __syncthreads();
+  if (!*last) return;
+  __threadfence();
+  for (int i = tid; i < rep * DH; i += kThreads) {
+    const int r = i / DH, d = i % DH;
+    const float* src = meet.part + static_cast<int64_t>(r) * stride;
+    const int64_t step = static_cast<int64_t>(rep) * stride;
+    float mx = -INFINITY;
+    for (int k = 0; k < n_live; ++k) mx = fmaxf(mx, __ldcg(src + k * step));
+    float num = 0.f, den = 0.f;
+    for (int k = 0; k < n_live; ++k) {
+      const float m = __ldcg(src + k * step);
+      const float w = m == -INFINITY ? 0.f : expf(m - mx);
+      num += w * __ldcg(src + k * step + 2 + d);
+      den += w * __ldcg(src + k * step + 1);
+    }
+    from_f(num / fmaxf(den, 1e-30f),
+           out + (static_cast<int64_t>(g) * rep + r) * DH + d);
+  }
+  if (tid == 0) *meet.count = 0;  // every split of this launch has counted
 }
 
 // Work items of a split product: m tiles x column tiles x contraction splits.

@@ -21,8 +21,12 @@ fused MLP of ``ops/fused_mlp``. ``lens`` already counts the new token.
   ``csrc/decoder_layer.cu`` (x and pools bf16, Dh 64
   or 128, Hq / Hkv at most 8, D, Hq·Dh and F multiples of 64) and adds one
   to its ``launches`` count; on CPU tensors it runs the twin. There is no
-  fallback. The JAX signature's ``worklist``, ``block_f``, ``chunk`` and
-  ``n_buf`` are TPU schedule and change nothing; the paged route reads
+  fallback. The kernel's attention is split over positions
+  (``paged_attention.ATTN_SPLIT``); the splits' partials and counters
+  share the wrapper's one float32 scratch, sized by
+  ``paged_attention.split_scratch`` from the cap or the table width. The
+  JAX signature's ``worklist``, ``block_f``, ``chunk`` and ``n_buf`` are
+  TPU schedule and change nothing; the paged route reads
   ``tables`` (a keyword here) directly. ``batched`` (the TPU's cross-slot
   attention iterations, :213) is schedule too: the same kernel runs.
   ``ablate="noattn"`` (:213, :577; diagnosis only, wrong outputs on
@@ -55,12 +59,14 @@ from __future__ import annotations
 import ctypes
 import functools
 import itertools
+import math
 
 import torch
 
 from cmw_rag_tpu_torch.device import need, on_cpu
 from cmw_rag_tpu_torch.models.common import rms_norm
 from cmw_rag_tpu_torch.ops import cuda_build
+from cmw_rag_tpu_torch.ops import paged_attention as PA
 from cmw_rag_tpu_torch.ops.fused_mlp import (fused_mlp_int8_xla, mlp_splits,
                                              mlp_tail_plain)
 from cmw_rag_tpu_torch.ops.int8_matmul import (K_TILE, N_TILE,
@@ -259,7 +265,7 @@ def _entry(kv8: bool, which: str):
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         layer, blocks = (getattr(lib, n) for n in names)
         layer.argtypes = ([p] * 22 + [i] * 11 + [f] + [i] * 4 + [p] * 8
-                          + [i, p])
+                          + [i] * 3 + [p] * 3)
         layer.restype = ctypes.c_int
         blocks.argtypes = [i, i]
         blocks.restype = ctypes.c_int
@@ -336,12 +342,17 @@ def _launch(x, c2, s2, weights, page_idx, off, k_pools, v_pools, lens,
     mtiles = -(-s // mt)
     ks_qkv = k_split(d, mtiles * -(-a3 // N_TILE), blocks)
     ks_wo, ks_gu, ks_dn = mlp_splits(s, d, f, a, blocks)
+    split = PA.ATTN_SPLIT
+    n_split, part_shape, n_counts = PA.split_scratch(
+        s, hkv, hq // hkv, dh, (slot_cap if slot is not None else maxp) * page,
+        split)
     dev = x.device
-    # one float32 scratch: partial sums (two), q, the attention output, x1, y
+    # one float32 scratch: partial sums (two), q, the attention output, x1,
+    # y, attention's split partials and counters (int32, zeroed in the kernel)
     sizes = (max(ks_qkv * a3, ks_wo * d, ks_dn * d) * s, ks_gu * s * 2 * f,
-             s * a, s * a, s * d, s * d)
+             s * a, s * a, s * d, s * d, math.prod(part_shape), n_counts)
     scratch = torch.empty((sum(sizes),), dtype=torch.float32, device=dev)
-    part_a, part_b, qbuf, aout, x1, ybuf = (
+    part_a, part_b, qbuf, aout, x1, ybuf, attn_part, attn_count = (
         scratch.data_ptr() + 4 * o
         for o in itertools.accumulate((0,) + sizes[:-1]))
     out = torch.empty_like(x)
@@ -362,7 +373,7 @@ def _launch(x, c2, s2, weights, page_idx, off, k_pools, v_pools, lens,
             eps, ks_qkv, ks_wo, ks_gu, ks_dn, part_b, qbuf, aout, x1, ybuf,
             out.data_ptr(), k_scales.data_ptr() if kv8 else None,
             v_scales.data_ptr() if kv8 else None, int(ablate == "noattn"),
-            stream)
+            split, n_split, attn_part, attn_count, stream)
     if err != 0:
         raise RuntimeError(f"decoder_layer_int8 launch failed: CUDA error "
                            f"{err}")

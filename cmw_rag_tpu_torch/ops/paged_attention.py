@@ -34,6 +34,16 @@ to q's dtype. int8 pools carry page-granular float32 scales ``[L, P, Hkv]``.
   golden over that table (``slot_tables``). On CUDA tensors it launches
   ``csrc/slot_attention.cu`` (bf16; Dh 64 or 128, Hq / Hkv at most 8).
 
+- That kernel and the decoder-layer megakernels cut each (slot, KV head)'s
+  context into splits of ``ATTN_SPLIT`` positions (flash-decoding,
+  ``attend_split()`` of ``csrc/int8_decode.cuh``) and merge the splits'
+  partials in split order. ``attention_splits`` and ``split_scratch`` size
+  the grid and the scratch from what the host holds (a cap or a table
+  width, never the lengths on the device);
+  ``paged_decode_attention_split_plain`` is the plain model of the split
+  and the merge, for tests: it meets the twin within float32 rounding
+  (only the order of the sums differs).
+
 - ``paged_decode_attention_dma_batched`` (:1241, body
   ``_paged_dma_batched_kernel`` :1111, the engine's opt-in ``attn_batched``)
   runs the TPU kernel's iterations across slots over a flat worklist; its
@@ -57,6 +67,10 @@ from cmw_rag_tpu_torch.ops import cuda_build
 NEG_INF = -3.0e38
 KV_HEADROOM = 1.25   # a page's scale is set by its FIRST token; later tokens
                      # clip at ±127, and the headroom keeps that rare
+#: positions of one split of decode attention in the slot-major kernel and
+#: the megakernels (at most 128, the kernels' shared score buffer); read at
+#: each call, so that the card tests and chip_smoke.py can run both sizes
+ATTN_SPLIT = 64
 
 
 # ------------------------------------------------------------------- twins
@@ -359,11 +373,92 @@ def paged_decode_attention_slot_plain(q, k_pool, v_pool, lens, cap: int,
     return paged_decode_attention_xla(q, k_pool, v_pool, tables, lens)
 
 
+def attention_splits(positions: int, split: int) -> int:
+    """Splits a (slot, KV head) is given when it may hold up to
+    ``positions`` positions (the kernels' ``live_splits``: at least one)."""
+    if not 1 <= split <= 128:
+        raise ValueError(f"split {split} not in [1, 128]")
+    return max(1, -(-positions // split))
+
+
+def split_scratch(s: int, hkv: int, rep: int, dh: int, positions: int,
+                  split: int) -> tuple[int, tuple, int]:
+    """Grid and scratch of split attention over S slots of at most
+    ``positions`` positions: → (n_split, the shape of the partials
+    [S, Hkv, n_split, rep, Dh + 2] float32 (each split's m, l and
+    accumulator), the number of int32 counters, one a (slot, KV head))."""
+    n_split = attention_splits(positions, split)
+    return n_split, (s, hkv, n_split, rep, dh + 2), s * hkv
+
+
+def paged_decode_attention_split_plain(q, k_pool, v_pool, tables, lens,
+                                       split: int) -> torch.Tensor:
+    """Plain model of split attention (tests only): the context of each
+    slot (``tables`` [S, maxp] over one layer's pool, positions < lens) cut
+    into splits of ``split`` positions; each split's max m_j, sum l_j of
+    e^(s - m_j) and accumulator acc_j in float32 (m_j = -inf, l_j = 0 and
+    acc_j = 0 for a split past the length), then merged in split order:
+    o = sum_j e^(m_j - M) acc_j / max(sum_j e^(m_j - M) l_j, 1e-30). Rows
+    past the length are not weighted (NaN there stays out). → [S, Hq, Dh]
+    in q.dtype."""
+    s, hq, dh = q.shape
+    _, page, hkv, _ = k_pool.shape
+    rep = hq // hkv
+    positions = tables.shape[1] * page
+    n = attention_splits(positions, split)
+    width = n * split
+    t = tables.long()
+
+    def context(pool):
+        ctx = pool[t].reshape(s, -1, hkv, dh).float()
+        ctx = torch.nn.functional.pad(ctx, (0, 0, 0, 0, 0,
+                                            width - ctx.shape[1]))
+        return torch.repeat_interleave(ctx, rep, dim=2)   # [S, W, Hq, Dh]
+    pos = torch.arange(width, device=q.device)
+    live = pos[None, :] < lens.long().clamp(max=positions)[:, None]
+    k_ctx = torch.where(live[:, :, None, None], context(k_pool), 0.0)
+    v_ctx = torch.where(live[:, :, None, None], context(v_pool), 0.0)
+    scores = torch.einsum("shd,swhd->shw", q.float(), k_ctx) / math.sqrt(dh)
+    scores = torch.where(live[:, None, :], scores, -math.inf)
+    scores = scores.reshape(s, hq, n, split)
+    m = scores.amax(dim=-1)                               # [S, Hq, n]
+    p = torch.where(scores == -math.inf, 0.0,
+                    torch.exp(scores - m[..., None]))
+    l = p.sum(dim=-1)
+    acc = torch.einsum("shnw,snwhd->shnd", p,
+                       v_ctx.reshape(s, n, split, hq, dh))
+    big = m.amax(dim=-1)                                  # [S, Hq]
+    num = torch.zeros((s, hq, dh), dtype=torch.float32, device=q.device)
+    den = torch.zeros((s, hq), dtype=torch.float32, device=q.device)
+    for j in range(n):                                    # split order
+        w = torch.where(m[..., j] == -math.inf, 0.0,
+                        torch.exp(m[..., j] - big))
+        num = num + w[..., None] * acc[:, :, j]
+        den = den + w * l[..., j]
+    return (num / den.clamp(min=1e-30)[..., None]).to(q.dtype)
+
+
+_COUNTS: dict = {}
+
+
+def _split_counts(device: torch.device, n: int) -> torch.Tensor:
+    """At least ``n`` zeroed int32 counters of the slot kernel's splits, one
+    a (slot, KV head), kept per device: each launch leaves them zero (the
+    block that merges a (slot, KV head) sets its counter back), so launches
+    on one stream share them."""
+    counts = _COUNTS.get(device)
+    if counts is None or counts.numel() < n:
+        counts = _COUNTS[device] = torch.zeros((max(n, 256),),
+                                               dtype=torch.int32,
+                                               device=device)
+    return counts
+
+
 def _slot_lib() -> ctypes.CDLL:
     lib = cuda_build.library("slot_attention")
     if not getattr(lib, "_typed", False):
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.slot_attention_bf16.argtypes = [p] * 4 + [i] * 8 + [p, p]
+        lib.slot_attention_bf16.argtypes = [p] * 4 + [i] * 10 + [p] * 4
         lib.slot_attention_bf16.restype = ctypes.c_int
         lib._typed = True
     return lib
@@ -384,8 +479,9 @@ def paged_decode_attention_dma_slot(q: torch.Tensor, k_pools: torch.Tensor,
                                     n_buf: int = 2) -> torch.Tensor:
     """Slot-major decode attention over layer ``layer`` of the stacked pools
     [L, P, page, Hkv, Dh] in the partitioned layout → [S, Hq, Dh]; slot s
-    attends over its first ``min(lens[s], cap * page)`` positions.
-    ``n_buf`` is the TPU kernel's DMA depth and changes nothing here."""
+    attends over its first ``min(lens[s], cap * page)`` positions, cut into
+    splits of ``ATTN_SPLIT`` on the card. ``n_buf`` is the TPU kernel's DMA
+    depth and changes nothing here."""
     if on_cpu(q, k_pools, v_pools, lens):
         return paged_decode_attention_slot_plain(
             q, _layer(k_pools, layer), _layer(v_pools, layer), lens, cap,
@@ -403,12 +499,22 @@ def paged_decode_attention_dma_slot(q: torch.Tensor, k_pools: torch.Tensor,
     if cap < 1 or base0 < 0 or base0 + (s - 1) * maxp_slot + cap > n_pages:
         raise ValueError(f"{s} partitions of {maxp_slot} pages from page "
                          f"{base0}, cap {cap}, overrun a pool of {n_pages}")
+    split = ATTN_SPLIT
+    n_split, part_shape, n_counts = split_scratch(s, hkv, hq // hkv, dh,
+                                                  cap * page, split)
+    part = count = None
+    if n_split > 1:
+        part = torch.empty(part_shape, dtype=torch.float32, device=q.device)
+        count = _split_counts(q.device, n_counts)
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = _slot_lib().slot_attention_bf16(
             q.data_ptr(), kl.data_ptr(), vl.data_ptr(), lens.data_ptr(), s,
-            hq, hkv, dh, page, cap, maxp_slot, base0, out.data_ptr(), stream)
+            hq, hkv, dh, page, cap, maxp_slot, base0, split, n_split,
+            None if part is None else part.data_ptr(),
+            None if count is None else count.data_ptr(), out.data_ptr(),
+            stream)
     if err != 0:
         raise RuntimeError(f"slot attention launch failed: CUDA error {err}")
     paged_decode_attention_dma_slot.launches += 1

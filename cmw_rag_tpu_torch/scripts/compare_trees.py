@@ -1,11 +1,11 @@
 """Time two checkouts on one card in turns: ``chip_smoke.py``'s flash-kernel,
-long-context and training phases of a base checkout (A) and of this one
-(B), each run in a process of its own started from its checkout's root, in
-the order A, B, B, A, so that a drift of the card over the call falls on
-both alike.
+long-context, training, int8 LLM (phase 9) and w8a8 / int8-KV (phase 10)
+phases of a base checkout (A) and of this one (B), each run in a process
+of its own started from its checkout's root, in the order A, B, B, A, so
+that a drift of the card over the call falls on both alike.
 
     python -m cmw_rag_tpu_torch.scripts.compare_trees BASE_ROOT \\
-        [--phases flash,long_context,training] [--out FILE]
+        [--phases flash,long_context,training,int8_llm,w8a8_kv8] [--out FILE]
 
 BASE_ROOT is another checkout of the repository (for example the parent
 commit, ``git archive <commit> chip_smoke.py cmw_rag_tpu_torch | tar -x -C
@@ -15,7 +15,9 @@ are the phase's own). Prints, per run, a line ``{"tree": "A" or "B",
 "run": i, "card": ..., "summary": {...}}`` with the readings a comparison
 reads (the flash kernel's ms per shape, the long-context stages' ms per
 query, the backward kernels' ms per shape, the training step's host and
-busy ms and its first-step gates),
+busy ms and its first-step gates; phase 9's slot attention, fused MLP and
+megakernel records and its profiled int8 decode step; phase 10's int8-KV
+megakernel records),
 then one line with every run's summary; ``--out`` keeps the phases' whole
 reports, one JSON line a run. The phases' own log lines go to stderr.
 Needs a card.
@@ -30,7 +32,14 @@ import sys
 from pathlib import Path
 
 HERE = Path(__file__).resolve().parents[2]
-PHASES = ("flash", "long_context", "training")
+PHASES = ("flash", "long_context", "training", "int8_llm", "w8a8_kv8")
+#: the kernels of phases 9 and 10 that a comparison reads (rows 19, 23, 24
+#: and 25 of PERF.md)
+INT8_KERNELS = ("paged_decode_attention_dma_slot", "fused_mlp_int8",
+                "decoder_layer_int8", "decoder_layer_int8_kv8")
+INT8_STEP = ("wall_ms_per_step_unprofiled", "wall_ms_per_step",
+             "device_busy_ms_per_step", "idle_share",
+             "kernel_launches_per_step", "named_kernel_ms_per_step")
 
 _CHILD = """
 import json, sys, torch
@@ -85,6 +94,18 @@ def summary(phases: dict) -> dict:
             "host_ms_per_step", "device_busy_ms_per_step", "idle_share",
             "flash_share_of_busy")}
         out["train_first_step"] = tr["train"]["first_step"]
+    for phase in ("int8_llm", "w8a8_kv8"):
+        if phase in phases:
+            out.setdefault("int8_kernels", {}).update({
+                case: {k: r.get(k) for k in ("ms", "plain_ms", "library_ms",
+                                             "bound_ms", "split", "n_split",
+                                             "grid_blocks", "ms_by_split")}
+                for case, r in phases[phase]["kernels"].items()
+                if case.split("/")[0] in INT8_KERNELS})
+    i8 = phases.get("int8_llm")
+    if i8:
+        prof = i8["engine"]["decode_profile"]
+        out["int8_step"] = {k: prof[k] for k in INT8_STEP}
     return out
 
 

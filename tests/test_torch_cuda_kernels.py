@@ -35,7 +35,12 @@ kernel's own tiles (``bwd_kernel_tiles()``): one bf16 step at the twin's
 magnitude plus 1e-3 of the tensor's largest |value| (both round ds to
 bf16, and a ds whose float32 value lands a bit apart rounds one step
 apart, moving the products it feeds); dK and dV past a batch row's last
-real key exactly 0.
+real key exactly 0. Split decode attention (the slot-major kernel and
+both megakernels, at splits of 64 and 128 positions): the same tolerances
+at lengths on either side of every split boundary, an idle slot, two
+launches bit for bit alike (the splits merge in a fixed order, with no
+float atomics), and NaN in every row past a slot's length leaving the
+output bit for bit as it was.
 """
 
 import numpy as np
@@ -566,6 +571,29 @@ def test_int8_matmul_matches_plain_twin(card, m, k, n, dtype):
     assert torch.equal(got, IM.int8_matmul(x, wq, ws))   # repeats exactly
 
 
+@pytest.fixture(params=[64, 128])
+def attn_split(request, monkeypatch):
+    """The split attention kernels' split (positions), both sizes."""
+    monkeypatch.setattr(PA, "ATTN_SPLIT", request.param)
+    return request.param
+
+
+def _split_lens(split, page):
+    """Lengths on either side of every split boundary up to a cap of whole
+    pages past 2 split + 1, the cap's full length last; → (lens, cap)."""
+    cap = -(-(2 * split + 1) // page) + 1
+    return [1, split - 1, split, split + 1, 2 * split + 1, cap * page], cap
+
+
+def _poison_past(pools, layer, lens, tables, page):
+    """NaN in every row at or past each slot's length, over its table."""
+    for si, n in enumerate(lens):
+        for j, pg in enumerate(tables[si].tolist()):
+            start = min(max(n - j * page, 0), page)
+            for pool in pools:
+                pool[layer, pg, start:] = float("nan")
+
+
 def _slot_case(card, s, hq, hkv, dh, page, maxp, seed):
     gen = torch.Generator(device=card).manual_seed(seed)
     shape = (2, 1 + s * maxp, page, hkv, dh)
@@ -593,6 +621,33 @@ def test_slot_attention_matches_plain_twin(card, shape):
     assert PA.paged_decode_attention_dma_slot.launches == n0 + 1
     err = (got.float() - want.float()).abs()
     assert (err <= _bf16_step(want) + 1e-5).all(), err.max().item()
+
+
+@pytest.mark.parametrize("hq,hkv,dh,page", [(16, 8, 128, 64), (4, 4, 64, 16)])
+def test_slot_attention_at_split_boundaries(card, attn_split, hq, hkv, dh,
+                                            page):
+    """Boundary lengths and an idle slot against the twin; a second launch
+    bit for bit the first; NaN past every length changes nothing."""
+    lens, cap = _split_lens(attn_split, page)
+    lens = lens + [1]                                    # the idle slot
+    s, maxp = len(lens), cap + 1
+    q, kp, vp = _slot_case(card, s, hq, hkv, dh, page, maxp, seed=cap)
+    lens_t = torch.tensor(lens, dtype=torch.int32, device=card)
+    got = PA.paged_decode_attention_dma_slot(q, kp, vp, lens_t, layer=1,
+                                             cap=cap, maxp_slot=maxp)
+    want = PA.paged_decode_attention_slot_plain(q, kp[1], vp[1], lens_t, cap,
+                                                maxp)
+    again = PA.paged_decode_attention_dma_slot(q, kp, vp, lens_t, layer=1,
+                                               cap=cap, maxp_slot=maxp)
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs()
+    assert (err <= _bf16_step(want) + 1e-5).all(), err.max().item()
+    assert torch.equal(got, again)
+    _poison_past((kp, vp), 1, lens, PA.slot_tables(s, maxp, maxp), page)
+    after = PA.paged_decode_attention_dma_slot(q, kp, vp, lens_t, layer=1,
+                                               cap=cap, maxp_slot=maxp)
+    torch.cuda.synchronize()
+    assert torch.equal(after, got)
 
 
 def test_slot_attention_never_reads_past_the_length_or_cap(card):
@@ -647,13 +702,9 @@ def test_fused_mlp_matches_plain_twin(card, s, d, a, f):
     assert torch.equal(got, FM.fused_mlp_int8(x, attn, *[lay[k] for k in MLP]))
 
 
-@pytest.mark.parametrize("case", [
-    # S, Hq, Hkv, Dh, D, F, page, maxp, lens, slot-major
-    (4, 16, 8, 128, 1024, 3072, 64, 32, [63, 200, 384], True),
-    (4, 16, 8, 128, 1024, 3072, 64, 32, [1, 700, 2047], False),
-    (9, 8, 2, 64, 256, 384, 16, 4, [1, 16, 17, 30, 33, 48, 63, 64], False),
-    (3, 8, 2, 64, 256, 384, 16, 4, [5, 40], True)])
-def test_decoder_layer_matches_plain_twin(card, case):
+def _layer_case(card, case):
+    """A megakernel call: → (args before the pools, k_pools, v_pools,
+    lens, route keywords, tables)."""
     s, hq, hkv, dh, d, f, page, maxp, lens, slot = case
     gen = torch.Generator(device=card).manual_seed(s + d)
     lay = _layer(card, gen, d, hq, hkv, dh, f)
@@ -681,6 +732,15 @@ def test_decoder_layer_matches_plain_twin(card, case):
     ang = torch.rand((s, dh // 2), generator=gen, device=card) * 6.28
     c2, s2 = DL.make_rope_maps(torch.cos(ang), torch.sin(ang))
     args = (x, c2, s2, *[lay[k] for k in LAYER], page_idx, off)
+    return args, kp, vp, lens_t, kw, tables
+
+
+def _check_layer(card, case):
+    """The megakernel against its twin: output, the written rows, every
+    other row unchanged. → (args, pools, lens, keywords, tables, output)."""
+    s = case[0]
+    args, kp, vp, lens_t, kw, tables = _layer_case(card, case)
+    page_idx, off = args[-2], args[-1]
     k_tw, v_tw = kp.clone(), vp.clone()
     n0 = DL.decoder_layer_int8.launches
     got, k_out, v_out = DL.decoder_layer_int8(*args, kp, vp, lens_t, layer=1,
@@ -697,6 +757,35 @@ def test_decoder_layer_matches_plain_twin(card, case):
         keep[1][rows] = False
         assert torch.equal(pool[keep], twin[keep])
         _close(pool[1][rows], twin[1][rows], 1e-3)
+    return args, (kp, vp), lens_t, kw, tables, got
+
+
+@pytest.mark.parametrize("case", [
+    # S, Hq, Hkv, Dh, D, F, page, maxp, lens, slot-major
+    (4, 16, 8, 128, 1024, 3072, 64, 32, [63, 200, 384], True),
+    (4, 16, 8, 128, 1024, 3072, 64, 32, [1, 700, 2047], False),
+    (9, 8, 2, 64, 256, 384, 16, 4, [1, 16, 17, 30, 33, 48, 63, 64], False),
+    (3, 8, 2, 64, 256, 384, 16, 4, [5, 40], True)])
+def test_decoder_layer_matches_plain_twin(card, case, attn_split):
+    _check_layer(card, case)
+
+
+@pytest.mark.parametrize("slot", [True, False])
+def test_decoder_layer_at_split_boundaries(card, attn_split, slot):
+    """Boundary lengths and an idle slot against the twin on both routes;
+    a second launch (which rewrites the same rows) bit for bit the first;
+    NaN in every row past each length changes nothing."""
+    page = 64
+    lens, cap = _split_lens(attn_split, page)
+    case = (len(lens) + 1, 16, 8, 128, 1024, 3072, page, cap, lens, slot)
+    args, pools, lens_t, kw, tables, got = _check_layer(card, case)
+    again = DL.decoder_layer_int8(*args, *pools, lens_t, layer=1, **kw)[0]
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    _poison_past(pools, 1, lens, tables[:-1], page)
+    after = DL.decoder_layer_int8(*args, *pools, lens_t, layer=1, **kw)[0]
+    torch.cuda.synchronize()
+    assert torch.equal(after[:-1], got[:-1])
 
 
 def test_int8_wrappers_refuse_what_the_kernels_do_not_take(card):
@@ -764,12 +853,10 @@ def _kv8_case(card, s, hq, hkv, dh, d, f, page, maxp, lens, seed):
     return args, (kq, ks, vq, vs), lens_t, tables
 
 
-@pytest.mark.parametrize("case", [
-    # S, Hq, Hkv, Dh, D, F, page, maxp, lens (fresh pages among them)
-    (4, 16, 8, 128, 1024, 3072, 64, 32, [65, 200, 384]),
-    (4, 16, 8, 128, 1024, 3072, 64, 32, [2047, 129, 64]),
-    (9, 8, 2, 64, 256, 384, 16, 4, [1, 16, 17, 30, 33, 48, 63, 64])])
-def test_decoder_layer_kv8_matches_plain_twin(card, case):
+def _check_kv8(card, case):
+    """The int8-KV megakernel against its twin: output, written rows and
+    scales, every other row and scale unchanged. → (args, pools and
+    planes, lens, tables, output)."""
     s, hq, hkv, dh, d, f, page, maxp, lens = case
     args, (kq, ks, vq, vs), lens_t, tables = _kv8_case(
         card, s, hq, hkv, dh, d, f, page, maxp, lens, seed=s + len(lens))
@@ -803,6 +890,28 @@ def test_decoder_layer_kv8_matches_plain_twin(card, case):
         p = page_idx[act]
         assert ((plane[1][p] - tw[1][p]).abs()
                 <= _bf16_step(tw[1][p])).all()
+    return args, (kq, ks, vq, vs), lens_t, tables, got[0]
+
+
+@pytest.mark.parametrize("case", [
+    # S, Hq, Hkv, Dh, D, F, page, maxp, lens (fresh pages among them)
+    (4, 16, 8, 128, 1024, 3072, 64, 32, [65, 200, 384]),
+    (4, 16, 8, 128, 1024, 3072, 64, 32, [2047, 129, 64]),
+    (9, 8, 2, 64, 256, 384, 16, 4, [1, 16, 17, 30, 33, 48, 63, 64])])
+def test_decoder_layer_kv8_matches_plain_twin(card, case, attn_split):
+    _check_kv8(card, case)
+
+
+def test_decoder_layer_kv8_at_split_boundaries(card, attn_split):
+    """Boundary lengths and an idle slot against the twin; a second launch
+    bit for bit the first."""
+    lens, cap = _split_lens(attn_split, 64)
+    case = (len(lens) + 1, 16, 8, 128, 1024, 3072, 64, cap, lens)
+    args, (kq, ks, vq, vs), lens_t, tables, got = _check_kv8(card, case)
+    again = DL.decoder_layer_int8_kv8(*args, kq, ks[1], vq, vs[1], lens_t,
+                                      layer=1, tables=tables)[0]
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
 
 
 @pytest.mark.parametrize("kv8", [False, True])
