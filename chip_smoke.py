@@ -107,17 +107,24 @@ Phases, each printed with its seconds beside the card's name and power limit:
    2048 (the serving settings), 8 slots with a 256-token prompt in a
    1024-token context (the decode bench shape) and 32 slots x 1024, ragged
    lengths covering 1, 63, 64, 65 and 2047 and one idle slot on the null
-   page. Outputs within one bf16 step of the twin's plus ``PAGED_TOL`` (bf16
-   pages: float32 sums in another order) or ``PAGED_INT8_TOL`` (int8 pages:
-   the twin, as JAX's golden, rounds dequantized K and V to bf16, the
-   kernel does not); the scatter leaves the twin's pools bit for bit. Device
-   times (the union of a call's kernels under ``torch.profiler``: a few
-   microseconds of kernel are shorter than the wrapper's Python, which
+   page; then, at the same three shapes, lengths on both sides of the
+   page, split and table boundaries (1, 63, 64, 65, split - 1, split,
+   split + 1, the table's width less one and its width). Outputs within one
+   bf16 step of the twin's plus ``PAGED_TOL`` (bf16 pages: float32 sums in
+   another order) or ``PAGED_INT8_TOL`` (int8 pages: the twin, as JAX's
+   golden, rounds dequantized K and V to bf16, the kernel does not); the
+   scatter leaves the twin's pools bit for bit (this step's row NaN in the
+   pool before the call: the kernel takes it from k_new/v_new); a second
+   launch bit for bit the first; one kernel a call (a complete profiled
+   window of 56 calls holds 56 paged kernels and nothing else).
+   Device times (the union of a call's kernels under ``torch.profiler``: a
+   few microseconds of kernel are shorter than the wrapper's Python, which
    events around back-to-back calls would time; that call time is printed
-   beside them): kernel, twin, a composite library yardstick timed here only
+   beside them): kernel at the host's split (``paged_split``) and at each
+   of ``PAGED_SPLITS``, twin, a composite library yardstick timed here only
    (the context gathered by index, then ``scaled_dot_product_attention``
    with the length mask) and the bound (K and V of the real positions, q
-   and out, over 3.35 TB/s). Then the engine (``cmw_rag_tpu_torch/scripts/local_llm.py``)
+   and out, over 3.35 TB/s) with the kernel's share of it. Then the engine (``cmw_rag_tpu_torch/scripts/local_llm.py``)
    at full width and depth with seeded random weights (vocabulary 151,680),
    4 slots, context 2048, page 64: 6 ChatML requests of 32 greedy tokens,
    through the gather golden, the scatter kernel, the plain kernel
@@ -332,22 +339,25 @@ def cuda_ms(fn, iters: int, warmup: int = 1) -> float:
     return start.elapsed_time(stop) / iters
 
 
-def device_ms(fn, iters: int) -> float:
-    """Device time of one ``fn()``: the union of its CUDA kernels'
-    intervals under ``torch.profiler``, over ``iters`` calls, after one
-    warm-up. Events around back-to-back calls would time the host once a
-    kernel is shorter than its wrapper's Python."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-    from cmw_rag_tpu_torch.scripts.profile_query import _busy_us
+def device_profile(fn, iters: int, kernel: str | None = None) -> tuple:
+    """Device time of one ``fn()`` (the union of its CUDA kernels'
+    intervals under ``torch.profiler``, over ``iters`` calls), the names of
+    the CUDA kernels the window recorded and the windows dropped as
+    short of their count (``profile_query.kernel_window``: ``iters``
+    ``kernel`` events, or without ``kernel`` any kernel; three short
+    windows raise, so no time is read off an empty window). Events around
+    back-to-back calls would time the host once a kernel is shorter than
+    its wrapper's Python."""
+    from cmw_rag_tpu_torch.scripts.profile_query import _busy_us, kernel_window
 
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    return _busy_us(prof.events()) / 1e3 / iters
+    events, dropped = kernel_window(fn, iters, kernel)
+    return (_busy_us(events) / 1e3 / iters, [e.name for e in events],
+            dropped)
+
+
+def device_ms(fn, iters: int, kernel: str | None = None) -> float:
+    """``device_profile``'s time alone."""
+    return device_profile(fn, iters, kernel)[0]
 
 
 def bound(nbytes: float, ops: float, ops_per_s: float = BF16_OPS_PER_S
@@ -1320,99 +1330,164 @@ def cycling(call, layers: int):
     return lambda: call(next(it) % layers)
 
 
+#: phase 8's shapes: (case, slots, pages a slot, active lengths); an idle
+#: slot on the null page follows the active ones
+PAGED_CASES = (("serving", 4, 32, [1, 63, 2047]),
+               ("bench", 8, 16, [64, 65, 257, 263, 270, 280, 288]),
+               ("s32", 32, 16, [1 + 33 * i for i in range(31)]))
+#: the splits (positions) phase 8 also times each paged kernel at
+PAGED_SPLITS = (64, 128, 256, 512)
+
+
+def paged_calls(name: str, x: dict, q8: dict):
+    """The paged kernel ``name`` over the inputs ``x`` (``paged_inputs``;
+    ``q8``: their int8 pools and scales): → (kern, plain, lib, tol), each
+    ``f(layer)`` → [S, Hq, Dh]; ``kern(layer, split)`` launches the kernel
+    at another split than the host's (not through the wrapper, whose
+    ``launches`` it leaves alone); the scatter's kern writes this step's
+    rows into the pools, its plain and lib write them first."""
+    from cmw_rag_tpu_torch.ops import paged_attention as PA
+
+    q, kp, vp, tables, lens_t = (x[k] for k in ("q", "kp", "vp", "tables",
+                                                "lens"))
+    if name.endswith("int8"):
+        kq, ks, vq, vs = (q8[k] for k in ("kq", "ks", "vq", "vs"))
+
+        def kern(li, split=None):
+            if split:
+                return PA._launch(q, kq, vq, li, tables, lens_t, k_scales=ks,
+                                  v_scales=vs, split=split)
+            return PA.paged_decode_attention_dma_kv_int8(
+                q, kq, ks, vq, vs, tables, lens_t, layer=li)
+
+        def plain(li):
+            return PA.paged_decode_attention_xla_kv_int8(
+                q, kq[li], ks[li], vq[li], vs[li], tables, lens_t)
+
+        def lib(li):
+            return library_paged(q, kq[li], vq[li], tables, lens_t, ks[li],
+                                 vs[li])
+        return kern, plain, lib, PAGED_INT8_TOL
+    if name.endswith("scatter"):
+        pi, off, kn, vn = (x[k] for k in ("page_idx", "off", "k_new",
+                                          "v_new"))
+
+        def kern(li, split=None):
+            if split:
+                return PA._launch(q, kp, vp, li, tables, lens_t, k_new=kn,
+                                  v_new=vn, page_idx=pi, off=off, split=split)
+            return PA.paged_decode_attention_dma_scatter(
+                q, kn, vn, pi, off, kp, vp, tables, lens_t, layer=li)[0]
+
+        def written(li):
+            kp[li, pi.long(), off.long()] = kn
+            vp[li, pi.long(), off.long()] = vn
+            return kp[li], vp[li]
+
+        def plain(li):
+            return PA.paged_decode_attention_xla(q, *written(li), tables,
+                                                 lens_t)
+
+        def lib(li):
+            return library_paged(q, *written(li), tables, lens_t)
+        return kern, plain, lib, PAGED_TOL
+
+    def kern(li, split=None):
+        if split:
+            return PA._launch(q, kp, vp, li, tables, lens_t, split=split)
+        return PA.paged_decode_attention_dma(q, kp, vp, tables, lens_t,
+                                             layer=li)
+
+    def plain(li):
+        return PA.paged_decode_attention_xla(q, kp[li], vp[li], tables,
+                                             lens_t)
+
+    def lib(li):
+        return library_paged(q, kp[li], vp[li], tables, lens_t)
+    return kern, plain, lib, PAGED_TOL
+
+
+def paged_held(name: str, label: str, x: dict, q8: dict, layer: int) -> dict:
+    """One call of the paged kernel ``name`` at ``layer`` against its twin:
+    the active slots within one bf16 step plus the kernel's tolerance, the
+    scatter's pools bit for bit the twin's (this step's row NaN in the pool
+    before the call: the kernel takes it from k_new/v_new), and a second
+    launch bit for bit the first."""
+    import torch
+    from cmw_rag_tpu_torch.ops import paged_attention as PA
+
+    kern, plain, _, tol = paged_calls(name, x, q8)
+    s = x["q"].shape[0]
+    if name.endswith("scatter"):
+        kp, vp, pi, off = (x[k] for k in ("kp", "vp", "page_idx", "off"))
+        k_want, v_want = kp[layer].clone(), vp[layer].clone()
+        k_want[pi.long(), off.long()] = x["k_new"]
+        v_want[pi.long(), off.long()] = x["v_new"]
+        want = PA.paged_decode_attention_xla(x["q"], k_want, v_want,
+                                             x["tables"], x["lens"])
+        kp[layer, pi.long(), off.long()] = float("nan")
+        vp[layer, pi.long(), off.long()] = float("nan")
+        got = kern(layer)
+        torch.cuda.synchronize()
+        if not (torch.equal(kp[layer], k_want)
+                and torch.equal(vp[layer], v_want)):
+            raise AssertionError(f"{name} {label}: the pools differ from "
+                                 f"the twin's")
+    else:
+        want, got = plain(layer), kern(layer)
+    again = kern(layer)
+    torch.cuda.synchronize()
+    act = slice(0, s - 1)
+    err = (got[act].float() - want[act].float()).abs()
+    step = bf16_step(want[act])
+    excess = (err - step).max().item()
+    if not bool((err <= step + tol).all()):
+        raise AssertionError(f"{name} {label}: differs from the twin by "
+                             f"{err.max().item()}, {excess} past one bf16 "
+                             f"step (tolerance {tol})")
+    if not torch.equal(got, again):
+        raise AssertionError(f"{name} {label}: two launches differ")
+    return {"max_abs_err": err.max().item(), "max_err_past_one_step": excess,
+            "tolerance": tol, "bit_equal_launches": True}
+
+
+def paged_edge_lens(positions: int, split: int) -> list:
+    """Lengths on both sides of the page (64), split and table boundaries."""
+    return sorted({1, 63, 64, 65, split - 1, split, split + 1, positions - 1,
+                   positions} - {0})
+
+
 def paged_kernel_phase(card_line: str) -> dict:
     """Hold the three paged attention kernels against their plain twins at
     the serving shape (4 slots x 2048), the decode bench shape (8 slots, a
     256-token prompt in a 1024-token context) and 32 slots x 1024, with an
-    idle slot on the null page; time each, its twin and the composite
-    yardstick."""
+    idle slot on the null page; time each (at the host's split and at each
+    of ``PAGED_SPLITS``), its twin and the composite yardstick; count the
+    kernels a call runs; then hold each at lengths on both sides of the
+    page, split and table boundaries at the same shapes."""
     import torch
+    from cmw_rag_tpu_torch.device import sm_count
     from cmw_rag_tpu_torch.ops import paged_attention as PA
 
     layers = 28
-    cases = [("serving", 4, 32, [1, 63, 2047]),
-             ("bench", 8, 16, [64, 65, 257, 263, 270, 280, 288]),
-             ("s32", 32, 16, [1 + 33 * i for i in range(31)])]
     report = {}
-    for case, s, maxp, lens in cases:
+    for case, s, maxp, lens in PAGED_CASES:
         x = paged_inputs(s, maxp, lens, layers, seed=s)
-        q, kp, vp, tables, lens_t = (x[k] for k in ("q", "kp", "vp", "tables",
-                                                    "lens"))
+        q, kp, tables, lens_t = x["q"], x["kp"], x["tables"], x["lens"]
         kq, ks = PA.quantize_kv_page(kp)
-        vq, vs = PA.quantize_kv_page(vp)
+        vq, vs = PA.quantize_kv_page(x["vp"])
+        q8 = {"kq": kq, "ks": ks, "vq": vq, "vs": vs}
         hq, dh, hkv = q.shape[1], q.shape[2], kp.shape[3]
         pos = int(lens_t.sum().item())
-        act = slice(0, s - 1)
+        positions = maxp * 64
         for name in PAGED_KERNELS:
             t0 = time.time()
             int8 = name.endswith("int8")
-            layer = 5
-            if int8:
-                def kern(li):
-                    return PA.paged_decode_attention_dma_kv_int8(
-                        q, kq, ks, vq, vs, tables, lens_t, layer=li)
-
-                def plain(li):
-                    return PA.paged_decode_attention_xla_kv_int8(
-                        q, kq[li], ks[li], vq[li], vs[li], tables, lens_t)
-
-                def lib(li):
-                    return library_paged(q, kq[li], vq[li], tables, lens_t,
-                                         ks[li], vs[li])
-                got, want = kern(layer), plain(layer)
-                tol = PAGED_INT8_TOL
-            elif name.endswith("scatter"):
-                pi, off = x["page_idx"], x["off"]
-                kn, vn = x["k_new"], x["v_new"]
-
-                def kern(li):
-                    return PA.paged_decode_attention_dma_scatter(
-                        q, kn, vn, pi, off, kp, vp, tables, lens_t,
-                        layer=li)[0]
-
-                def plain(li):
-                    kp[li, pi.long(), off.long()] = kn
-                    vp[li, pi.long(), off.long()] = vn
-                    return PA.paged_decode_attention_xla(q, kp[li], vp[li],
-                                                         tables, lens_t)
-
-                def lib(li):
-                    kp[li, pi.long(), off.long()] = kn
-                    vp[li, pi.long(), off.long()] = vn
-                    return library_paged(q, kp[li], vp[li], tables, lens_t)
-                k_want, v_want = kp[layer].clone(), vp[layer].clone()
-                k_want[pi.long(), off.long()] = kn
-                v_want[pi.long(), off.long()] = vn
-                want = PA.paged_decode_attention_xla(q, k_want, v_want, tables,
-                                                     lens_t)
-                got = kern(layer)
-                torch.cuda.synchronize()
-                if not (torch.equal(kp[layer], k_want)
-                        and torch.equal(vp[layer], v_want)):
-                    raise AssertionError(f"{name} {case}: the pools differ "
-                                         f"from the twin's")
-                tol = PAGED_TOL
-            else:
-                def kern(li):
-                    return PA.paged_decode_attention_dma(q, kp, vp, tables,
-                                                         lens_t, layer=li)
-
-                def plain(li):
-                    return PA.paged_decode_attention_xla(q, kp[li], vp[li],
-                                                         tables, lens_t)
-
-                def lib(li):
-                    return library_paged(q, kp[li], vp[li], tables, lens_t)
-                got, want = kern(layer), plain(layer)
-                tol = PAGED_TOL
-            torch.cuda.synchronize()
-            err = (got[act].float() - want[act].float()).abs()
-            step = bf16_step(want[act])
-            excess = (err - step).max().item()
-            if not bool((err <= step + tol).all()):
-                raise AssertionError(f"{name} {case}: differs from the twin by "
-                                     f"{err.max().item()}, {excess} past one "
-                                     f"bf16 step (tolerance {tol})")
+            kern, plain, lib, _ = paged_calls(name, x, q8)
+            held_ = paged_held(name, case, x, q8, layer=5)
+            split = PA.paged_split(s, hkv, maxp, 64, sm_count(q.device),
+                                   PA._resident(int8, dh, hq // hkv,
+                                                q.device))
             elem = 1 if int8 else 2
             nbytes = (2 * pos * hkv * dh * elem + 2 * 2 * q.numel()
                       + tables.numel() * 4 + 4 * s)
@@ -1421,19 +1496,58 @@ def paged_kernel_phase(card_line: str) -> dict:
                 nbytes += 2 * 4 * pages_used * hkv
             if name.endswith("scatter"):
                 nbytes += 2 * 2 * x["k_new"].numel() * 2
-            entry = {"ms": device_ms(cycling(kern, layers), 56),
+            # one kernel a call: a complete window of 56 calls holds 56
+            # paged kernels and nothing else
+            ms, seen, dropped = device_profile(cycling(kern, layers), 56,
+                                               "paged_decode_kernel")
+            others = sorted({n for n in seen
+                             if "paged_decode_kernel" not in n})
+            per_call = (len(seen) - len(others)) / 56
+            if per_call != 1 or others:
+                raise AssertionError(f"{name} {case}: {per_call} paged "
+                                     f"kernels a call, others {others}")
+            entry = {"ms": ms, "kernels_per_call": per_call,
+                     "dropped_windows": dropped,
                      "plain_ms": device_ms(cycling(plain, layers), 5),
                      "library_ms": device_ms(cycling(lib, layers), 5),
                      "call_ms": cuda_ms(cycling(kern, layers), 56),
-                     "max_abs_err": err.max().item(),
-                     "max_err_past_one_step": excess, "tolerance": tol,
-                     **bound(nbytes, 4.0 * hq * dh * pos)}
+                     "split": split, "n_split": -(-positions // split),
+                     "ms_by_split": {
+                         str(sp): device_ms(cycling(
+                             lambda li, sp=sp: kern(li, sp), layers), 56,
+                             "paged_decode_kernel")
+                         for sp in PAGED_SPLITS if sp <= positions},
+                     **held_, **bound(nbytes, 4.0 * hq * dh * pos)}
+            entry["bound_share"] = entry["bound_ms"] / ms
             log(f"kernel-{name}-{case}", time.time() - t0, card_line, S=s,
-                maxp=maxp, page=64, positions=pos, **fmt(entry))
+                maxp=maxp, page=64, positions=pos,
+                **fmt({k: v for k, v in entry.items()
+                       if k != "ms_by_split"}),
+                ms_by_split=json.dumps(entry["ms_by_split"]))
             report[(name, case)] = dict(entry, shape={
                 "S": s, "Hq": hq, "Hkv": hkv, "Dh": dh, "page": 64,
                 "maxp": maxp, "lens": lens + [1], "layers": layers})
-        del x, q, kp, vp, kq, vq, ks, vs
+        del x, q, kp, kq, vq, ks, vs, q8
+        torch.cuda.empty_cache()
+        # the same shape at the boundary lengths, S - 1 active slots a call
+        for name in PAGED_KERNELS:
+            t0 = time.time()
+            edges = paged_edge_lens(positions, report[(name, case)]["split"])
+            worst = {"max_abs_err": 0.0, "max_err_past_one_step": -1.0}
+            for i in range(0, len(edges), s - 1):
+                group = edges[i:i + s - 1]
+                x = paged_inputs(s, maxp, group + [1] * (s - 1 - len(group)),
+                                 1, seed=1000 + i)
+                kq, ks = PA.quantize_kv_page(x["kp"])
+                vq, vs = PA.quantize_kv_page(x["vp"])
+                got = paged_held(name, f"{case} lengths {group}", x,
+                                 {"kq": kq, "ks": ks, "vq": vq, "vs": vs},
+                                 layer=0)
+                worst = {k: max(worst[k], got[k]) for k in worst}
+            report[(name, case)]["edges"] = {"lens": edges, **worst}
+            log(f"kernel-{name}-{case}-edges", time.time() - t0, card_line,
+                lens=json.dumps(edges), **fmt(worst))
+            del x
         torch.cuda.empty_cache()
     return report
 
@@ -3263,15 +3377,19 @@ def main() -> int:
                "launches_by_path": {p: c[name] for p, c in by_path.items()},
                "decode_steps_by_run": {r: v["decode_steps"]
                                        for r, v in runs.items()},
-               "max_abs_err": max(llm["kernels"][(name, c)]["max_abs_err"]
-                                  for c in ("serving", "bench", "s32"))}
+               "max_abs_err": max(
+                   max(e["max_abs_err"], e["edges"]["max_abs_err"])
+                   for e in (llm["kernels"][(name, c)]
+                             for c in ("serving", "bench", "s32")))}
+        paged_keys = ("call_ms", "bound_share", "kernels_per_call", "split",
+                      "n_split", "ms_by_split", "bit_equal_launches", "edges")
         row.update({k: main_case[k] for k in (
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-            "max_err_past_one_step", "tolerance", "shape")})
+            "max_err_past_one_step", "tolerance", "shape") + paged_keys})
         for case in ("bench", "s32"):
             row[case] = {k: llm["kernels"][(name, case)][k] for k in (
                 "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
-                "max_abs_err", "shape")}
+                "max_abs_err", "shape") + paged_keys}
         if name in PAGED_ALIASES:
             row["also_replaces"] = PAGED_ALIASES[name]
         rows.append(row)

@@ -48,6 +48,13 @@ __device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar,
                :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
 }
 
+// Tells the barrier to expect `bytes` more from TMA or bulk copies, without
+// an arrival (the arrival may follow the copies it counts).
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.expect_tx.shared::cta.b64 [%0], %1;\n"
+               :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
+}
+
 // Waits until the barrier's phase of parity `parity` has completed. A wait
 // that never ends (a broken ring) traps instead of hanging the card.
 __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
@@ -92,6 +99,12 @@ struct Ring {
   }
   __device__ __forceinline__ void release(int i) { mbar_arrive(&empty[stage(i)]); }
 };
+
+// Orders this thread's earlier shared-memory writes before later async-proxy
+// (TMA) accesses of the same bytes, such as a refill of a ring stage.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
 
 // Named barriers (ids 1-15; 0 is __syncthreads): `threads` threads in all,
 // each warp either waiting (sync) or only signalling (arrive).
@@ -285,30 +298,40 @@ inline EncodeTiledFn encode_tiled() {
   return fn;
 }
 
-// A 3-D map over a contiguous bf16 [d2, d1, d0] tensor (d0 innermost) with
-// boxes of [1, box1, box0] and the given swizzle span in bytes (box0 * 2 must
-// not exceed it). Returns a cudaError_t code (0 on success).
-inline int encode_bf16_3d(CUtensorMap* map, const void* base, uint64_t d0,
-                          uint64_t d1, uint64_t d2, uint32_t box0,
-                          uint32_t box1, int swizzle) {
+// A 3-D map over a contiguous [d2, d1, d0] tensor (d0 innermost) of
+// `elem`-byte elements of type `type`, with boxes of [box2, box1, box0] and
+// the given swizzle span in bytes (box0 * elem must not exceed it). Returns
+// a cudaError_t code (0 on success).
+inline int encode_3d(CUtensorMap* map, CUtensorMapDataType type, int elem,
+                     const void* base, uint64_t d0, uint64_t d1, uint64_t d2,
+                     uint32_t box0, uint32_t box1, uint32_t box2,
+                     int swizzle) {
   EncodeTiledFn fn = encode_tiled();
   if (fn == nullptr) return static_cast<int>(cudaErrorNotSupported);
   if (reinterpret_cast<uintptr_t>(base) % 16 != 0)
     return static_cast<int>(cudaErrorMisalignedAddress);
   const cuuint64_t dims[3] = {d0, d1, d2};
-  const cuuint64_t strides[2] = {d0 * 2, d0 * d1 * 2};   // bytes, dims 1 and 2
-  const cuuint32_t box[3] = {box0, box1, 1};
+  const cuuint64_t strides[2] = {d0 * elem, d0 * d1 * elem};  // dims 1, 2
+  const cuuint32_t box[3] = {box0, box1, box2};
   const cuuint32_t elem_strides[3] = {1, 1, 1};
   const CUtensorMapSwizzle sw =
       swizzle == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
     : swizzle == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
     : swizzle == 32 ? CU_TENSOR_MAP_SWIZZLE_32B : CU_TENSOR_MAP_SWIZZLE_NONE;
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
-                        const_cast<void*>(base), dims, strides, box,
-                        elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, sw,
+  const CUresult r = fn(map, type, 3, const_cast<void*>(base), dims, strides,
+                        box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, sw,
                         CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
+
+// A 3-D map over a contiguous bf16 [d2, d1, d0] tensor with boxes of
+// [1, box1, box0] (encode_3d).
+inline int encode_bf16_3d(CUtensorMap* map, const void* base, uint64_t d0,
+                          uint64_t d1, uint64_t d2, uint32_t box0,
+                          uint32_t box1, int swizzle) {
+  return encode_3d(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, base, d0, d1, d2,
+                   box0, box1, 1, swizzle);
 }
 
 }  // namespace hopper_host

@@ -17,11 +17,16 @@ to q's dtype. int8 pools carry page-granular float32 scales ``[L, P, Hkv]``.
   the engine calls. ``paged_decode_attention`` (:641, one layer's pool) and
   ``paged_decode_attention_pooled`` (:187) are two TPU schedules of the same
   function and here thin aliases over the same kernel. On CUDA tensors each
-  launches ``csrc/paged_attention.cu`` (bf16 q; bf16 pages, with the K/V row
-  write fused in for the scatter wrapper, or int8 pages; Dh 64 or 128,
-  Hq / Hkv in 1, 2, 4, 8, page at most 256) and adds one to its own
-  ``launches`` count; on CPU tensors it runs its plain twin. Wrong device,
-  dtype, shape or contiguity raises: there is no fallback.
+  launches ``csrc/paged_attention.cu`` once (bf16 q; bf16 pages, with the
+  K/V row write fused in for the scatter wrapper, or int8 pages; Dh 64 or
+  128, Hq / Hkv in 1, 2, 4, 8) and adds one to its own ``launches`` count;
+  on CPU tensors it runs its plain twin. Wrong device, dtype, shape or
+  contiguity raises: there is no fallback. The kernel's TMA boxes of
+  gcd(page, 64, split) rows must fill a multiple of 128 bytes, so int8
+  pages at Dh 64 with an odd page (or an odd split) are refused. The kernel cuts each slot's
+  context into splits of ``paged_split`` positions, chosen from the table
+  width and the blocks the card keeps resident, and merges them in the
+  same launch.
 - The wrappers keep the JAX signature's ``worklist=`` and ``chunk=``; the
   kernel reads ``tables`` and ``lens`` itself, so they change nothing.
   ``make_decode_worklist`` (:292) stays for callers of that signature.
@@ -41,8 +46,14 @@ to q's dtype. int8 pools carry page-granular float32 scales ``[L, P, Hkv]``.
   the grid and the scratch from what the host holds (a cap or a table
   width, never the lengths on the device);
   ``paged_decode_attention_split_plain`` is the plain model of the split
-  and the merge, for tests: it meets the twin within float32 rounding
-  (only the order of the sums differs).
+  and the merge (over bf16 or int8 pages, with this step's row taken from
+  ``k_new``/``v_new`` as the scatter kernel takes it), for tests: it meets
+  the twin within float32 rounding (only the order of the sums differs).
+- Both kernels keep their partials and merge counters in one workspace a
+  (device, stream) (``split_workspace``), sized from the host's table width
+  or cap and allocated only when a call needs more: launches on one stream
+  run in order and each leaves its counters 0; two streams never share
+  counters.
 
 - ``paged_decode_attention_dma_batched`` (:1241, body
   ``_paged_dma_batched_kernel`` :1111, the engine's opt-in ``attn_batched``)
@@ -57,6 +68,7 @@ to q's dtype. int8 pools carry page-granular float32 scales ``[L, P, Hkv]``.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
 import torch
@@ -71,6 +83,12 @@ KV_HEADROOM = 1.25   # a page's scale is set by its FIRST token; later tokens
 #: the megakernels (at most 128, the kernels' shared score buffer); read at
 #: each call, so that the card tests and chip_smoke.py can run both sizes
 ATTN_SPLIT = 64
+#: the paged kernel's split (positions) is at least one stage of its ring,
+#: unless the table is narrower
+PAGED_MIN_SPLIT = 64
+#: the paged kernel's work items may fill this many waves of the blocks the
+#: card keeps resident before ``paged_split`` widens the split
+PAGED_WAVES = 2
 
 
 # ------------------------------------------------------------------- twins
@@ -190,10 +208,17 @@ def _lib() -> ctypes.CDLL:
     lib = cuda_build.library("paged_attention")
     if not getattr(lib, "_typed", False):
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.paged_attention_bf16.argtypes = [p] * 9 + [i] * 7 + [p, p, p]
+        lib.paged_attention_bf16.argtypes = ([p] * 5 + [i] + [p] * 6
+                                             + [i] * 8 + [p] * 4)
         lib.paged_attention_bf16.restype = ctypes.c_int
-        lib.paged_attention_int8.argtypes = [p] * 7 + [i] * 7 + [p, p, p]
+        lib.paged_attention_int8.argtypes = ([p] * 7 + [i] + [p] * 2
+                                             + [i] * 8 + [p] * 4)
         lib.paged_attention_int8.restype = ctypes.c_int
+        lib.paged_attention_encode.argtypes = [p, i, ctypes.c_longlong, i, i,
+                                               i, p]
+        lib.paged_attention_encode.restype = ctypes.c_int
+        lib.paged_attention_resident.argtypes = [i, i, i, p]
+        lib.paged_attention_resident.restype = ctypes.c_int
         lib._typed = True
     return lib
 
@@ -204,31 +229,115 @@ def _layer(pools: torch.Tensor, layer: int) -> torch.Tensor:
     return pools[layer]
 
 
-def pages_per_split(s: int, hkv: int, maxp: int, device: torch.device) -> int:
-    """Pages of each block's range: ranges are added until the launch has
-    about two blocks per SM (one (KV head, slot) pair each at most)."""
-    n_split = max(1, min(maxp, -(-2 * sm_count(device) // (s * hkv))))
-    return -(-maxp // n_split)
+@functools.lru_cache(maxsize=None)
+def paged_split(s: int, hkv: int, maxp: int, page: int, sms: int,
+                per_sm: int) -> int:
+    """Positions of one split of the paged kernel over S slots of ``maxp``
+    pages of ``page`` rows, on a card of ``sms`` SMs that keeps ``per_sm``
+    of its blocks resident on each: the narrowest split that is a multiple
+    of the page or a divisor of it, at least ``PAGED_MIN_SPLIT`` (or the
+    whole table), whose S x Hkv x ceil(maxp * page / split) work items fit
+    ``PAGED_WAVES`` waves of resident blocks; the whole table when none
+    does. Only what the host holds enters, never the lengths."""
+    positions = maxp * page
+    sizes = sorted({page // d for d in range(1, page + 1) if page % d == 0}
+                   | {page * k for k in range(1, maxp + 1)})
+    sizes = [n for n in sizes if min(PAGED_MIN_SPLIT, positions) <= n]
+    room = PAGED_WAVES * sms * per_sm
+    for n in sizes:
+        if s * hkv * -(-positions // n) <= room:
+            return n
+    return positions
 
 
-def _launch(q, k_pool, v_pool, tables, lens, k_scale=None, v_scale=None,
-            k_new=None, v_new=None, page_idx=None, off=None) -> torch.Tensor:
-    """One layer's pools [P, page, Hkv, Dh] (bf16, or int8 with scales
-    [P, Hkv]); the fused write when ``k_new`` is given."""
-    if q.dim() != 3 or k_pool.dim() != 4:
-        raise ValueError("q must be [S, Hq, Dh] and a layer's pool "
-                         "[P, page, Hkv, Dh]")
+@functools.lru_cache(maxsize=None)
+def _resident(int8: bool, dh: int, rep: int, device: torch.device) -> int:
+    """Blocks of the paged kernel one SM of ``device`` keeps resident."""
+    blocks = ctypes.c_int(0)
+    with torch.cuda.device(device):
+        err = _lib().paged_attention_resident(int(int8), dh, rep,
+                                              ctypes.byref(blocks))
+    if err != 0 or blocks.value < 1:
+        raise RuntimeError(f"paged attention occupancy query failed: CUDA "
+                           f"error {err}, {blocks.value} blocks")
+    return blocks.value
+
+
+_WORKSPACES: dict = {}
+
+
+def split_workspace(cache: dict, key, n_part: int, n_counts: int, make):
+    """The workspace of split attention kept in ``cache`` under ``key`` (on
+    the card: (device index, stream)): at least ``n_part`` float32 partials
+    and ``n_counts`` int32 merge counters, zero when made. Each launch
+    leaves its counters 0 (the block that merges a (slot, KV head) sets its
+    counter back), so the launches of one stream, which run in order, share
+    a workspace, and another stream gets its own. A buffer is made anew, by
+    ``make(n, dtype)``, only when a call needs more than it holds.
+    → (partials, counters)."""
+    part, count = cache.get(key, (None, None))
+    if part is None or part.numel() < n_part:
+        part = make(n_part, torch.float32)
+    if count is None or count.numel() < n_counts:
+        count = make(n_counts, torch.int32)
+    cache[key] = (part, count)
+    return part, count
+
+
+def _workspace(device: torch.device, stream: int, n_part: int,
+               n_counts: int) -> tuple:
+    return split_workspace(
+        _WORKSPACES, (device.index, stream), n_part, n_counts,
+        lambda n, dtype: torch.zeros((n,), dtype=dtype, device=device))
+
+
+_MAPS: dict = {}
+
+
+def _pool_map(pools: torch.Tensor, box: int) -> int:
+    """Host address of the tensor map of the stacked pools [L, P, page,
+    Hkv, Dh] (bf16 or int8), viewed as [L * P * page, Hkv, Dh] with TMA
+    boxes of [box, 1, Dh]: encoded once a pool and box, then cached (a map
+    holds the address, shape and strides only, so a pool that takes a
+    freed one's address and shape has the same map)."""
+    key = (pools.data_ptr(), tuple(pools.shape), pools.dtype, box)
+    buf = _MAPS.get(key)
+    if buf is None:
+        layers, n_pages, page, hkv, dh = pools.shape
+        buf = ctypes.create_string_buffer(128)
+        err = _lib().paged_attention_encode(
+            pools.data_ptr(), int(pools.dtype == torch.int8),
+            layers * n_pages * page, hkv, dh, box, buf)
+        if err != 0:
+            raise RuntimeError(f"paged attention tensor map failed: CUDA "
+                               f"error {err}")
+        _MAPS[key] = buf
+    return ctypes.addressof(buf)
+
+
+def _launch(q, k_pools, v_pools, layer, tables, lens, k_scales=None,
+            v_scales=None, k_new=None, v_new=None, page_idx=None, off=None,
+            split=None) -> torch.Tensor:
+    """Layer ``layer`` of the stacked pools [L, P, page, Hkv, Dh] (bf16, or
+    int8 with scales [L, P, Hkv]); the fused write when ``k_new`` is
+    given. ``split`` (positions) overrides ``paged_split``'s, for the card
+    tests and chip_smoke.py, which check and time other splits."""
+    k_pool, v_pool = _layer(k_pools, layer), _layer(v_pools, layer)
+    if q.dim() != 3:
+        raise ValueError("q must be [S, Hq, Dh]")
     s, hq, dh = q.shape
-    n_pages, page, hkv, _ = k_pool.shape
+    n_layers, n_pages, page, hkv, _ = k_pools.shape
     maxp = tables.shape[-1]
-    int8 = k_scale is not None
+    int8 = k_scales is not None
     pool_dtype = torch.int8 if int8 else torch.bfloat16
     need(q, "q", torch.bfloat16, (s, hq, dh))
-    need(k_pool, "k_pool", pool_dtype, (n_pages, page, hkv, dh))
-    need(v_pool, "v_pool", pool_dtype, (n_pages, page, hkv, dh))
+    need(k_pools, "k_pools", pool_dtype, (n_layers, n_pages, page, hkv, dh))
+    need(v_pools, "v_pools", pool_dtype, (n_layers, n_pages, page, hkv, dh))
     need(tables, "tables", torch.int32, (s, maxp))
     need(lens, "lens", torch.int32, (s,))
+    k_scale = v_scale = None
     if int8:
+        k_scale, v_scale = k_scales[layer], v_scales[layer]
         need(k_scale, "k_scale", torch.float32, (n_pages, hkv))
         need(v_scale, "v_scale", torch.float32, (n_pages, hkv))
     if k_new is not None:
@@ -241,30 +350,42 @@ def _launch(q, k_pool, v_pool, tables, lens, k_scale=None, v_scale=None,
                          f"of 1, 2, 4 or 8")
     if dh not in (64, 128):
         raise ValueError(f"head dim {dh} not in (64, 128)")
-    if not 1 <= page <= 256:
-        raise ValueError(f"page {page} not in [1, 256]")
-    pps = pages_per_split(s, hkv, maxp, q.device)
-    n_split = -(-maxp // pps)
+    rows = n_layers * n_pages * page
+    if rows >= 2 ** 31:
+        raise ValueError(f"{rows} pool rows: TMA row coordinates are int32")
+    rep = hq // hkv
+    split = split or paged_split(s, hkv, maxp, page, sm_count(q.device),
+                                 _resident(int8, dh, rep, q.device))
+    box = math.gcd(page, 64, split)     # rows a TMA box: one page at most
+    if box * dh * k_pools.element_size() % 128:
+        raise ValueError(f"page {page} and split {split} give TMA boxes of "
+                         f"{box} rows, not a multiple of 128 bytes")
+    n_split = -(-maxp * page // split)
     out = torch.empty_like(q)
-    partial = (torch.empty((s, hkv, n_split, hq // hkv, dh + 2),
-                           dtype=torch.float32, device=q.device)
-               if n_split > 1 else None)
     lib = _lib()
     ptr = (lambda t: None if t is None else t.data_ptr())  # noqa: E731
+    maps = (_pool_map(k_pools, box), _pool_map(v_pools, box),
+            layer * n_pages * page)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
+        part = count = None
+        if n_split > 1:
+            part, count = _workspace(q.device, stream,
+                                     s * hkv * n_split * rep * (dh + 2),
+                                     s * hkv)
         if int8:
             err = lib.paged_attention_int8(
                 q.data_ptr(), k_pool.data_ptr(), k_scale.data_ptr(),
-                v_pool.data_ptr(), v_scale.data_ptr(), tables.data_ptr(),
-                lens.data_ptr(), s, hq, hkv, dh, page, maxp, pps,
-                ptr(partial), out.data_ptr(), stream)
+                v_pool.data_ptr(), v_scale.data_ptr(), *maps,
+                tables.data_ptr(), lens.data_ptr(), s, hq, hkv, dh, page,
+                maxp, split, box, ptr(part), ptr(count), out.data_ptr(),
+                stream)
         else:
             err = lib.paged_attention_bf16(
-                q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+                q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), *maps,
                 tables.data_ptr(), lens.data_ptr(), ptr(k_new), ptr(v_new),
-                ptr(page_idx), ptr(off), s, hq, hkv, dh, page, maxp, pps,
-                ptr(partial), out.data_ptr(), stream)
+                ptr(page_idx), ptr(off), s, hq, hkv, dh, page, maxp, split,
+                box, ptr(part), ptr(count), out.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"paged attention launch failed: CUDA error {err}")
     return out
@@ -282,8 +403,7 @@ def paged_decode_attention_dma(q: torch.Tensor, k_pools: torch.Tensor,
     if on_cpu(q, k_pools, v_pools, tables, lens):
         return paged_decode_attention_xla(q, _layer(k_pools, layer),
                                           _layer(v_pools, layer), tables, lens)
-    out = _launch(q, _layer(k_pools, layer), _layer(v_pools, layer), tables,
-                  lens)
+    out = _launch(q, k_pools, v_pools, layer, tables, lens)
     paged_decode_attention_dma.launches += 1
     return out
 
@@ -305,8 +425,8 @@ def paged_decode_attention_dma_scatter(q, k_new, v_new, page_idx, off,
         kp[page_idx.long(), off.long()] = k_new.to(kp.dtype)
         vp[page_idx.long(), off.long()] = v_new.to(vp.dtype)
         return paged_decode_attention_xla(q, kp, vp, tables, lens), k_pools, v_pools
-    out = _launch(q, _layer(k_pools, layer), _layer(v_pools, layer), tables,
-                  lens, k_new=k_new, v_new=v_new, page_idx=page_idx, off=off)
+    out = _launch(q, k_pools, v_pools, layer, tables, lens, k_new=k_new,
+                  v_new=v_new, page_idx=page_idx, off=off)
     paged_decode_attention_dma_scatter.launches += 1
     return out, k_pools, v_pools
 
@@ -321,9 +441,8 @@ def paged_decode_attention_dma_kv_int8(q, k_pools_q, k_scales, v_pools_q,
         return paged_decode_attention_xla_kv_int8(
             q, _layer(k_pools_q, layer), k_scales[layer],
             _layer(v_pools_q, layer), v_scales[layer], tables, lens)
-    out = _launch(q, _layer(k_pools_q, layer), _layer(v_pools_q, layer),
-                  tables, lens, k_scale=k_scales[layer],
-                  v_scale=v_scales[layer])
+    out = _launch(q, k_pools_q, v_pools_q, layer, tables, lens,
+                  k_scales=k_scales, v_scales=v_scales)
     paged_decode_attention_dma_kv_int8.launches += 1
     return out
 
@@ -335,7 +454,7 @@ def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
     (slot, page) grid schedule of the same function)."""
     if on_cpu(q, k_pool, v_pool, tables, lens):
         return paged_decode_attention_xla(q, k_pool, v_pool, tables, lens)
-    out = _launch(q, k_pool, v_pool, tables, lens)
+    out = _launch(q, k_pool[None], v_pool[None], 0, tables, lens)
     paged_decode_attention.launches += 1
     return out
 
@@ -349,8 +468,7 @@ def paged_decode_attention_pooled(q: torch.Tensor, k_pools: torch.Tensor,
     if on_cpu(q, k_pools, v_pools, tables, lens):
         return paged_decode_attention_xla(q, _layer(k_pools, layer),
                                           _layer(v_pools, layer), tables, lens)
-    out = _launch(q, _layer(k_pools, layer), _layer(v_pools, layer), tables,
-                  lens)
+    out = _launch(q, k_pools, v_pools, layer, tables, lens)
     paged_decode_attention_pooled.launches += 1
     return out
 
@@ -392,40 +510,61 @@ def split_scratch(s: int, hkv: int, rep: int, dh: int, positions: int,
 
 
 def paged_decode_attention_split_plain(q, k_pool, v_pool, tables, lens,
-                                       split: int) -> torch.Tensor:
+                                       split: int, k_scale=None, v_scale=None,
+                                       k_new=None, v_new=None) -> torch.Tensor:
     """Plain model of split attention (tests only): the context of each
     slot (``tables`` [S, maxp] over one layer's pool, positions < lens) cut
     into splits of ``split`` positions; each split's max m_j, sum l_j of
     e^(s - m_j) and accumulator acc_j in float32 (m_j = -inf, l_j = 0 and
     acc_j = 0 for a split past the length), then merged in split order:
     o = sum_j e^(m_j - M) acc_j / max(sum_j e^(m_j - M) l_j, 1e-30). Rows
-    past the length are not weighted (NaN there stays out). → [S, Hq, Dh]
-    in q.dtype."""
+    past the length are not weighted (NaN there stays out). int8 pages
+    carry scales [P, Hkv] (``k_scale``, ``v_scale``): a score is
+    (q . k_int8) * k_scale / sqrt(Dh) and p * v_scale weighs v_int8, as the
+    kernels fold them. With ``k_new``/``v_new`` [S, Hkv, Dh] the row of
+    position lens - 1 is taken from them, never from the pool (the scatter
+    kernel's fused write). → [S, Hq, Dh] in q.dtype."""
     s, hq, dh = q.shape
     _, page, hkv, _ = k_pool.shape
     rep = hq // hkv
     positions = tables.shape[1] * page
-    n = attention_splits(positions, split)
+    if split < 1:
+        raise ValueError(f"split {split} < 1")
+    n = -(-positions // split) or 1
     width = n * split
     t = tables.long()
+    last = lens.long() - 1
+    fused = torch.nonzero((last >= 0) & (last < positions))[:, 0]
 
-    def context(pool):
+    def context(pool, new):
         ctx = pool[t].reshape(s, -1, hkv, dh).float()
+        if new is not None:                               # this step's row
+            ctx[fused, last[fused]] = new[fused].float()
         ctx = torch.nn.functional.pad(ctx, (0, 0, 0, 0, 0,
                                             width - ctx.shape[1]))
         return torch.repeat_interleave(ctx, rep, dim=2)   # [S, W, Hq, Dh]
+
+    def scales(scale):                                    # → [S, Hq, W]
+        if scale is None:
+            return torch.ones((s, hq, width), device=q.device)
+        sc = scale[t][:, :, None, :].expand(-1, -1, page, -1)
+        sc = torch.nn.functional.pad(sc.reshape(s, positions, hkv).float(),
+                                     (0, 0, 0, width - positions), value=1.0)
+        return torch.repeat_interleave(sc, rep, dim=2).transpose(1, 2)
     pos = torch.arange(width, device=q.device)
     live = pos[None, :] < lens.long().clamp(max=positions)[:, None]
-    k_ctx = torch.where(live[:, :, None, None], context(k_pool), 0.0)
-    v_ctx = torch.where(live[:, :, None, None], context(v_pool), 0.0)
-    scores = torch.einsum("shd,swhd->shw", q.float(), k_ctx) / math.sqrt(dh)
+    k_ctx = torch.where(live[:, :, None, None], context(k_pool, k_new), 0.0)
+    v_ctx = torch.where(live[:, :, None, None], context(v_pool, v_new), 0.0)
+    scores = (torch.einsum("shd,swhd->shw", q.float(), k_ctx)
+              * scales(k_scale) / math.sqrt(dh))
     scores = torch.where(live[:, None, :], scores, -math.inf)
     scores = scores.reshape(s, hq, n, split)
     m = scores.amax(dim=-1)                               # [S, Hq, n]
     p = torch.where(scores == -math.inf, 0.0,
                     torch.exp(scores - m[..., None]))
     l = p.sum(dim=-1)
-    acc = torch.einsum("shnw,snwhd->shnd", p,
+    acc = torch.einsum("shnw,snwhd->shnd",
+                       p * scales(v_scale).reshape(s, hq, n, split),
                        v_ctx.reshape(s, n, split, hq, dh))
     big = m.amax(dim=-1)                                  # [S, Hq]
     num = torch.zeros((s, hq, dh), dtype=torch.float32, device=q.device)
@@ -436,22 +575,6 @@ def paged_decode_attention_split_plain(q, k_pool, v_pool, tables, lens,
         num = num + w[..., None] * acc[:, :, j]
         den = den + w * l[..., j]
     return (num / den.clamp(min=1e-30)[..., None]).to(q.dtype)
-
-
-_COUNTS: dict = {}
-
-
-def _split_counts(device: torch.device, n: int) -> torch.Tensor:
-    """At least ``n`` zeroed int32 counters of the slot kernel's splits, one
-    a (slot, KV head), kept per device: each launch leaves them zero (the
-    block that merges a (slot, KV head) sets its counter back), so launches
-    on one stream share them."""
-    counts = _COUNTS.get(device)
-    if counts is None or counts.numel() < n:
-        counts = _COUNTS[device] = torch.zeros((max(n, 256),),
-                                               dtype=torch.int32,
-                                               device=device)
-    return counts
 
 
 def _slot_lib() -> ctypes.CDLL:
@@ -502,13 +625,13 @@ def paged_decode_attention_dma_slot(q: torch.Tensor, k_pools: torch.Tensor,
     split = ATTN_SPLIT
     n_split, part_shape, n_counts = split_scratch(s, hkv, hq // hkv, dh,
                                                   cap * page, split)
-    part = count = None
-    if n_split > 1:
-        part = torch.empty(part_shape, dtype=torch.float32, device=q.device)
-        count = _split_counts(q.device, n_counts)
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
+        part = count = None
+        if n_split > 1:
+            part, count = _workspace(q.device, stream, math.prod(part_shape),
+                                     n_counts)
         err = _slot_lib().slot_attention_bf16(
             q.data_ptr(), kl.data_ptr(), vl.data_ptr(), lens.data_ptr(), s,
             hq, hkv, dh, page, cap, maxp_slot, base0, split, n_split,
@@ -533,8 +656,7 @@ def paged_decode_attention_dma_batched(q: torch.Tensor, k_pools: torch.Tensor,
     if on_cpu(q, k_pools, v_pools, tables, lens):
         return paged_decode_attention_xla(q, _layer(k_pools, layer),
                                           _layer(v_pools, layer), tables, lens)
-    out = _launch(q, _layer(k_pools, layer), _layer(v_pools, layer), tables,
-                  lens)
+    out = _launch(q, k_pools, v_pools, layer, tables, lens)
     paged_decode_attention_dma_batched.launches += 1
     return out
 

@@ -1,11 +1,13 @@
 """Time two checkouts on one card in turns: ``chip_smoke.py``'s flash-kernel,
-long-context, training, int8 LLM (phase 9) and w8a8 / int8-KV (phase 10)
-phases of a base checkout (A) and of this one (B), each run in a process
-of its own started from its checkout's root, in the order A, B, B, A, so
-that a drift of the card over the call falls on both alike.
+long-context, training, int8 LLM (phase 9), w8a8 / int8-KV (phase 10),
+paged-kernel and local LLM (phase 8) phases of a base checkout (A) and of
+this one (B), each run in a process of its own started from its
+checkout's root, in the order A, B, B, A, so that a drift of the card over
+the call falls on both alike.
 
     python -m cmw_rag_tpu_torch.scripts.compare_trees BASE_ROOT \\
-        [--phases flash,long_context,training,int8_llm,w8a8_kv8] [--out FILE]
+        [--phases flash,long_context,training,int8_llm,w8a8_kv8,paged_kernel,local_llm]
+        [--out FILE]
 
 BASE_ROOT is another checkout of the repository (for example the parent
 commit, ``git archive <commit> chip_smoke.py cmw_rag_tpu_torch | tar -x -C
@@ -17,7 +19,8 @@ reads (the flash kernel's ms per shape, the long-context stages' ms per
 query, the backward kernels' ms per shape, the training step's host and
 busy ms and its first-step gates; phase 9's slot attention, fused MLP and
 megakernel records and its profiled int8 decode step; phase 10's int8-KV
-megakernel records),
+megakernel records; phase 8's paged kernel records, by phase, and its
+profiled native decode step),
 then one line with every run's summary; ``--out`` keeps the phases' whole
 reports, one JSON line a run. The phases' own log lines go to stderr.
 Needs a card.
@@ -32,7 +35,8 @@ import sys
 from pathlib import Path
 
 HERE = Path(__file__).resolve().parents[2]
-PHASES = ("flash", "long_context", "training", "int8_llm", "w8a8_kv8")
+PHASES = ("flash", "long_context", "training", "int8_llm", "w8a8_kv8",
+          "paged_kernel", "local_llm")
 #: the kernels of phases 9 and 10 that a comparison reads (rows 19, 23, 24
 #: and 25 of PERF.md)
 INT8_KERNELS = ("paged_decode_attention_dma_slot", "fused_mlp_int8",
@@ -40,6 +44,9 @@ INT8_KERNELS = ("paged_decode_attention_dma_slot", "fused_mlp_int8",
 INT8_STEP = ("wall_ms_per_step_unprofiled", "wall_ms_per_step",
              "device_busy_ms_per_step", "idle_share",
              "kernel_launches_per_step", "named_kernel_ms_per_step")
+#: the readings of phase 8's paged kernel records (rows 15, 16 and 18)
+PAGED_READINGS = ("ms", "call_ms", "plain_ms", "library_ms", "bound_ms",
+                  "split", "n_split", "ms_by_split", "kernels_per_call")
 
 _CHILD = """
 import json, sys, torch
@@ -106,6 +113,16 @@ def summary(phases: dict) -> dict:
     if i8:
         prof = i8["engine"]["decode_profile"]
         out["int8_step"] = {k: prof[k] for k in INT8_STEP}
+    llm = phases.get("local_llm")
+    for phase, records in (("paged_kernel", phases.get("paged_kernel")),
+                           ("local_llm", llm and llm["kernels"])):
+        if records:
+            out.setdefault("paged_kernels", {})[phase] = {
+                case: {k: r.get(k) for k in PAGED_READINGS}
+                for case, r in records.items()}
+    if llm:
+        prof = llm["engine"]["decode_profile"]
+        out["native_step"] = {k: prof[k] for k in INT8_STEP}
     return out
 
 

@@ -64,8 +64,8 @@ PROFILED_STEPS = 5
 #: the int8-weight serving configurations: slots -> the route they take
 INT8_SLOTS = {4: "decoder-layer megakernel", 16: "int8_matmul + slot "
               "attention + fused MLP"}
-#: device-side names of the paged attention kernel and its combine pass
-PAGED_KERNEL_NAMES = ("paged_decode_kernel", "combine_kernel")
+#: device-side name of the paged attention kernel (one launch a call)
+PAGED_KERNEL_NAMES = ("paged_decode_kernel",)
 #: device-side name of the decoder-layer megakernel (both pool types)
 LAYER_KERNEL_NAMES = ("decoder_layer_kernel",)
 #: device-side names of the W8A8 matmul and its combine pass

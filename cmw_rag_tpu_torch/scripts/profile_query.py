@@ -29,6 +29,9 @@ from cmw_rag_tpu_torch.scripts.shipping import (PLANTED_TEXTS, TIMED_BATCHES,
                                                 ShippingPath, card)
 
 PROFILED_BATCHES = 5
+#: host seconds between a profiler window's edges and its first and last
+#: calls
+EDGE_S = 0.002
 
 
 def _is_kernel(e) -> bool:
@@ -53,6 +56,45 @@ def _busy_us(events) -> float:
     if cur_e is not None:
         busy += cur_e - cur_s
     return busy
+
+
+def kernel_window(fn, iters: int, kernel: str | None = None,
+                  tries: int = 3) -> tuple:
+    """The CUDA kernel events of ``iters`` calls of ``fn`` under
+    ``torch.profiler``, after one warm-up call and a warm-up profiler step
+    (which turns the device tracing on before the window opens), with
+    ``EDGE_S`` of host time at each edge of the window: → (the events, the
+    windows dropped). With ``kernel``, a window counts only when complete:
+    at least ``iters`` kernels whose name holds ``kernel`` (more are
+    returned for the caller to refuse). Without it (a composite of several
+    kernels a call), a window counts when it holds any kernel: never an
+    empty one, but one that lost some of its events passes. The profiler
+    on the card sometimes loses a window's events, in part or whole; a
+    window short of its count is dropped and another taken, ``tries`` in
+    all, then RuntimeError."""
+    from torch.profiler import schedule
+
+    fn()
+    torch.cuda.synchronize()
+    for dropped in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1,
+                                       repeat=1)) as prof:
+            fn()
+            torch.cuda.synchronize()
+            prof.step()
+            time.sleep(EDGE_S)
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+            time.sleep(EDGE_S)
+            prof.step()
+        events = [e for e in prof.events() if _is_kernel(e)]
+        named = [e for e in events if kernel is None or kernel in e.name]
+        if len(named) >= (1 if kernel is None else iters):
+            return events, dropped
+    raise RuntimeError(f"{tries} profiler windows of {iters} calls were all "
+                       f"incomplete (the last held {len(events)} kernels)")
 
 
 def profile_batches(pipe, queries) -> dict:

@@ -40,7 +40,11 @@ both megakernels, at splits of 64 and 128 positions): the same tolerances
 at lengths on either side of every split boundary, an idle slot, two
 launches bit for bit alike (the splits merge in a fixed order, with no
 float atomics), and NaN in every row past a slot's length leaving the
-output bit for bit as it was.
+output bit for bit as it was. The paged kernel likewise at the host's
+split and at splits of 32 and 256 (pages of 16, 64 and 256; rep 1 to 8;
+Dh 64 and 128; bf16, the fused write and int8), exactly one kernel a
+wrapper call under torch.profiler, and two streams launching at once
+each with a workspace of its own.
 """
 
 import numpy as np
@@ -536,6 +540,231 @@ def test_paged_attention_wrappers_refuse_what_the_kernel_does_not_take(card):
         PA.paged_decode_attention_dma_scatter(
             q, kp[0, 0, :2].float(), vp[0, 0, :2].float(), lens, lens, kp, vp,
             tables, lens, layer=0, batched=True)
+
+
+#: the paged kernel's split: the host's rule (None, through the wrappers),
+#: a divisor or multiple of the page short of one stage (32), and four
+#: stages of the ring (256)
+PAGED_TEST_SPLITS = [None, 32, 256]
+
+
+def _paged_edge_case(card, rep, dh, page, split, seed):
+    """Lengths 1, 63, 64, 65, split - 1, split, split + 1, 2047 and 2048
+    (split the one in force) over tables of 2048 positions, then the idle
+    slot; Hkv 2. → (q, pools, tables, lens, the lengths)."""
+    hkv, maxp = 2, 2048 // page
+    s = 1 + 10
+    sp = split or PA.paged_split(s, hkv, maxp, page,
+                                 PA.sm_count(card),
+                                 PA._resident(False, dh, rep, card))
+    lens = sorted({1, 63, 64, 65, sp - 1, sp, sp + 1, 2047, 2048} - {0})
+    q, kp, vp, tables, lens_t = _paged_case(card, len(lens) + 1, rep * hkv,
+                                            hkv, dh, page, maxp, lens,
+                                            seed=seed, layers=1)
+    return q, kp, vp, tables, lens_t, lens
+
+
+@pytest.mark.parametrize("rep,dh,page", [(1, 128, 64), (2, 128, 64),
+                                         (4, 64, 16), (8, 128, 256),
+                                         (2, 64, 256), (2, 128, 16),
+                                         (2, 128, 512), (2, 64, 512)])
+@pytest.mark.parametrize("kind", ["dma", "scatter", "int8"])
+@pytest.mark.parametrize("paged_split", PAGED_TEST_SPLITS)
+def test_paged_attention_at_split_and_page_boundaries(card, paged_split, rep,
+                                                      dh, page, kind):
+    """Boundary lengths and an idle slot against the twin (bf16 and int8
+    pages, the fused write; pages up to 512); a second launch bit for bit
+    the first; rows past every length poisoned (NaN for bf16, page scales
+    NaN and rows scrambled for int8) change nothing; the scatter kernel
+    takes the row of position lens - 1 from k_new/v_new (that pool row NaN
+    before the call) and leaves the pools bit for bit the twin's. A split
+    other than the rule's goes to the kernel's launch, not a wrapper."""
+    q, kp, vp, tables, lens, lens_list = _paged_edge_case(
+        card, rep, dh, page, paged_split, seed=rep * dh + page)
+    s, hkv, act = q.shape[0], kp.shape[3], slice(0, q.shape[0] - 1)
+    if kind == "int8":
+        kq, ks = PA.quantize_kv_page(kp)
+        vq, vs = PA.quantize_kv_page(vp)
+
+        def run():
+            if paged_split:
+                return PA._launch(q, kq, vq, 0, tables, lens, k_scales=ks,
+                                  v_scales=vs, split=paged_split)
+            return PA.paged_decode_attention_dma_kv_int8(q, kq, ks, vq, vs,
+                                                         tables, lens, layer=0)
+        want = PA.paged_decode_attention_dma_kv_int8(
+            q.cpu(), kq.cpu(), ks.cpu(), vq.cpu(), vs.cpu(), tables.cpu(),
+            lens.cpu(), layer=0).to(card)
+        tol = 2e-2
+    elif kind == "scatter":
+        gen = torch.Generator(device=card).manual_seed(s)
+        k_new = torch.randn((s, hkv, dh), generator=gen, device=card).bfloat16()
+        v_new = torch.randn((s, hkv, dh), generator=gen, device=card).bfloat16()
+        pos = (lens - 1).long()
+        pi = tables.long().gather(1, (pos // page)[:, None])[:, 0]
+        off = pos % page
+        want, k_want, v_want = PA.paged_decode_attention_dma_scatter(
+            q.cpu(), k_new.cpu(), v_new.cpu(), pi.int().cpu(), off.int().cpu(),
+            kp.cpu(), vp.cpu(), tables.cpu(), lens.cpu(), layer=0)
+        want = want.to(card)
+        kp[0, pi, off] = float("nan")      # stale: never read from the pool
+        vp[0, pi, off] = float("nan")
+
+        def run():
+            if paged_split:
+                return PA._launch(q, kp, vp, 0, tables, lens, k_new=k_new,
+                                  v_new=v_new, page_idx=pi.int(),
+                                  off=off.int(), split=paged_split)
+            return PA.paged_decode_attention_dma_scatter(
+                q, k_new, v_new, pi.int(), off.int(), kp, vp, tables, lens,
+                layer=0)[0]
+        tol = 1e-5
+    else:
+        def run():
+            if paged_split:
+                return PA._launch(q, kp, vp, 0, tables, lens,
+                                  split=paged_split)
+            return PA.paged_decode_attention_dma(q, kp, vp, tables, lens,
+                                                 layer=0)
+        want = PA.paged_decode_attention_dma(q.cpu(), kp.cpu(), vp.cpu(),
+                                             tables.cpu(), lens.cpu(),
+                                             layer=0).to(card)
+        tol = 1e-5
+    got = run()
+    again = run()
+    torch.cuda.synchronize()
+    if kind == "scatter":
+        assert torch.equal(kp.cpu(), k_want) and torch.equal(vp.cpu(), v_want)
+    err = (got[act].float() - want[act].float()).abs()
+    assert (err <= _bf16_step(want[act]) + tol).all(), err.max().item()
+    assert torch.equal(got, again)
+    if kind == "int8":
+        for si, n in enumerate(lens_list):
+            for j, pg in enumerate(tables[si].tolist()):
+                start = min(max(n - j * page, 0), page)
+                kq[0, pg, start:] = -127
+                vq[0, pg, start:] = 127
+                if start == 0:
+                    ks[0, pg] = float("nan")
+                    vs[0, pg] = float("nan")
+    else:
+        _poison_past((kp, vp), 0, lens_list, tables, page)
+    after = run()
+    torch.cuda.synchronize()
+    assert torch.equal(after[act], got[act])
+
+
+def _cuda_kernels(fn, iters=1):
+    """The names of the CUDA kernels ``iters`` calls of ``fn`` run, under
+    torch.profiler, after one warm-up call (which makes the workspace) and
+    a warm-up profiler step (which turns the device tracing on before the
+    window opens)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1,
+                                   repeat=1)) as prof:
+        fn()
+        torch.cuda.synchronize()
+        prof.step()
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+        prof.step()
+    return [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+
+
+def test_every_paged_wrapper_runs_one_kernel_a_call(card):
+    """#14-#18 and #20 (and the scatter wrapper's batched schedule) at the
+    serving shape, where each (slot, KV head) has many splits: each call
+    runs exactly one kernel, the paged kernel; an empty profile fails."""
+    q, kp, vp, tables, lens = _paged_case(card, 4, 16, 8, 128, 64, 32,
+                                          [1, 63, 2047], seed=7)
+    kq, ks = PA.quantize_kv_page(kp)
+    vq, vs = PA.quantize_kv_page(vp)
+    pos = (lens - 1).long()
+    pi = tables.long().gather(1, (pos // 64)[:, None])[:, 0].int()
+    off = (pos % 64).int()
+    new = kp[0, 1, :4].contiguous()
+    calls = {
+        "dma": lambda: PA.paged_decode_attention_dma(q, kp, vp, tables, lens,
+                                                     layer=0),
+        "scatter": lambda: PA.paged_decode_attention_dma_scatter(
+            q, new, new, pi, off, kp, vp, tables, lens, layer=0),
+        "scatter-batched": lambda: PA.paged_decode_attention_dma_scatter(
+            q, new, new, pi, off, kp, vp, tables, lens, layer=0,
+            batched=True),
+        "int8": lambda: PA.paged_decode_attention_dma_kv_int8(
+            q, kq, ks, vq, vs, tables, lens, layer=0),
+        "one-layer": lambda: PA.paged_decode_attention(q, kp[0], vp[0],
+                                                       tables, lens),
+        "pooled": lambda: PA.paged_decode_attention_pooled(q, kp, vp, tables,
+                                                           lens, layer=0),
+        "batched": lambda: PA.paged_decode_attention_dma_batched(
+            q, kp, vp, tables, lens, layer=0)}
+    for label, call in calls.items():
+        names = _cuda_kernels(call, iters=3)
+        assert len(names) == 3, (label, names)
+        assert all("paged_decode_kernel" in n for n in names), (label, names)
+
+
+def test_paged_attention_refuses_an_odd_box_of_int8_rows(card):
+    """int8 pages at Dh 64 with an odd page give TMA boxes of an odd number
+    of 64-byte rows, off the 128-byte grain: refused before any launch; bf16
+    pages of the same shape are served."""
+    q, kp, vp, tables, lens = _paged_case(card, 3, 4, 2, 64, 5, 8, [3, 40],
+                                          seed=11, layers=1)
+    kq, ks = PA.quantize_kv_page(kp)
+    vq, vs = PA.quantize_kv_page(vp)
+    n0 = PA.paged_decode_attention_dma_kv_int8.launches
+    with pytest.raises(ValueError, match="128 bytes"):
+        PA.paged_decode_attention_dma_kv_int8(q, kq, ks, vq, vs, tables, lens,
+                                              layer=0)
+    assert PA.paged_decode_attention_dma_kv_int8.launches == n0
+    got = PA.paged_decode_attention_dma(q, kp, vp, tables, lens, layer=0)
+    want = PA.paged_decode_attention_dma(q.cpu(), kp.cpu(), vp.cpu(),
+                                         tables.cpu(), lens.cpu(), layer=0)
+    err = (got[:2].float().cpu() - want[:2].float()).abs()
+    assert (err <= _bf16_step(want[:2]) + 1e-5).all(), err.max().item()
+
+
+def test_paged_and_slot_kernels_on_two_streams(card):
+    """Two streams launching at once each get their own workspace (partials
+    and merge counters) and the answer one stream gives alone, bit for
+    bit."""
+    q, kp, vp, tables, lens = _paged_case(card, 4, 16, 8, 128, 64, 32,
+                                          [1, 63, 2047], seed=8)
+    q2 = q.flip(0).contiguous()
+    slot_lens = torch.tensor([1, 100, 384, 250], dtype=torch.int32,
+                             device=card)
+
+    def paged(x):
+        return PA.paged_decode_attention_dma(x, kp, vp, tables, lens, layer=0)
+
+    def slot(x):
+        return PA.paged_decode_attention_dma_slot(x, kp, vp, slot_lens,
+                                                  layer=0, cap=6, maxp_slot=32)
+    want = {(f.__name__, i): f(x) for f in (paged, slot)
+            for i, x in enumerate((q, q2))}
+    streams = (torch.cuda.Stream(card), torch.cuda.Stream(card))
+    outs = {}
+    torch.cuda.synchronize()
+    for rnd in range(20):
+        for i, (st, x) in enumerate(zip(streams, (q, q2))):
+            with torch.cuda.stream(st):
+                for f in (paged, slot):
+                    outs[(f.__name__, i, rnd)] = f(x)
+    torch.cuda.synchronize()
+    for (name, i, _), got in outs.items():
+        assert torch.equal(got, want[(name, i)]), name
+    keys = [(card.index or 0, st.cuda_stream) for st in streams]
+    ws = [PA._WORKSPACES[k] for k in keys]
+    assert ws[0][0].data_ptr() != ws[1][0].data_ptr()
+    assert ws[0][1].data_ptr() != ws[1][1].data_ptr()
+    assert not any(w[1].any() for w in ws)     # every launch left them 0
 
 
 def _close(got, want, tol):

@@ -8,7 +8,11 @@ distinct random pages per slot, ragged lengths across page boundaries.
 Tolerance 2e-5 absolute for every attention output (float32 sums in
 another order; the JAX package holds its kernels to its golden at the same
 2e-5, 3e-5 for int8 pages); quantization, the scattered pools and the
-worklist are held equal exactly.
+worklist are held equal exactly. The plain model of the card kernel's
+splits (``paged_decode_attention_split_plain``) over int8 pages and with
+this step's row taken from k_new/v_new is held to JAX's int8 golden and
+to JAX's scatter kernel in interpret mode at lengths on both sides of
+every split and page boundary, at the same tolerances.
 """
 
 import jax.numpy as jnp
@@ -227,3 +231,78 @@ def test_wrappers_refuse_a_bad_layer():
         PA.paged_decode_attention_dma(t["q"], t["kp"], t["vp"], t["tables"],
                                       t["lens"], layer=2)
     assert PA.paged_decode_attention_dma.launches == 0  # twins never count
+
+
+# the paged kernel's split model: page 16 cut into splits that divide it and
+# splits it divides, lengths on both sides of every split and page boundary
+SPLIT_PAGE = 16
+SPLIT_LENS = [1, 7, 8, 9, 15, 16, 17, 31, 32, 33, 47, 48, 49, 64]
+
+
+def _split_case(seed):
+    """(port tensors, JAX arrays) at Hq 4, Hkv 2, Dh 16, page 16, 4 pages a
+    slot: a slot for each of ``SPLIT_LENS`` and an idle slot (null page 0,
+    length 1); one layer."""
+    s = len(SPLIT_LENS) + 1
+    t, j = _case((s, 4, 2, 16, SPLIT_PAGE, 4, SPLIT_LENS + [1]), seed,
+                 layers=1)
+    t["tables"][-1] = 0
+    j["tables"] = jnp.asarray(t["tables"].numpy())
+    return t, j
+
+
+@pytest.mark.parametrize("split", [8, 16, 32, 64])
+def test_split_model_over_int8_pages_matches_jax_golden(split):
+    """int8 pages with their page scales: the split model folds the scales
+    as the kernel does (score times k_scale, p times v_scale weighing
+    v_int8) and meets JAX's dequantizing golden within INT8_TOL."""
+    t, j = _split_case(seed=20 + split)
+    kq, ks = PA.quantize_kv_page(t["kp"])
+    vq, vs = PA.quantize_kv_page(t["vp"])
+    got = PA.paged_decode_attention_split_plain(
+        t["q"], kq[0], vq[0], t["tables"], t["lens"], split,
+        k_scale=ks[0], v_scale=vs[0])
+    jkq, jks = J.quantize_kv_page(j["kp"])
+    jvq, jvs = J.quantize_kv_page(j["vp"])
+    want = J.paged_decode_attention_xla_kv_int8(
+        j["q"], jkq[0], jks[0], jvq[0], jvs[0], j["tables"], j["lens"])
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=INT8_TOL,
+                               rtol=0)
+
+
+@pytest.mark.parametrize("split", [8, 16, 32, 64])
+def test_split_model_with_the_fused_row_matches_jax_scatter_kernel(split):
+    """The split model taking the row of position lens - 1 from k_new/v_new
+    over the pools as they were (that row NaN there: it is never read from
+    the pool) against JAX's scatter kernel in interpret mode, which writes
+    the row first and attends over the written pools, at the active slots
+    (the idle slot's output is sampled by nobody, and JAX's kernel gives it
+    no meaning); every slot, the idle one too, against the twin over the
+    written pools."""
+    t, j = _split_case(seed=40 + split)
+    s, hkv, dh = t["q"].shape[0], 2, 16
+    rng = np.random.default_rng(41 + split)
+    k_new = rng.standard_normal((s, hkv, dh)).astype(np.float32)
+    v_new = rng.standard_normal((s, hkv, dh)).astype(np.float32)
+    pos = t["lens"].numpy() - 1
+    page_idx = np.take_along_axis(t["tables"].numpy(),
+                                  (pos // SPLIT_PAGE)[:, None], 1)[:, 0]
+    off = pos % SPLIT_PAGE
+    jout, jk, jv = J.paged_decode_attention_dma_scatter(
+        j["q"], jnp.asarray(k_new), jnp.asarray(v_new),
+        jnp.asarray(page_idx.astype(np.int32)),
+        jnp.asarray(off.astype(np.int32)), j["kp"], j["vp"], j["tables"],
+        j["lens"], layer=0, interpret=True)
+    kp, vp = t["kp"][0].clone(), t["vp"][0].clone()
+    kp[page_idx, off] = float("nan")
+    vp[page_idx, off] = float("nan")
+    got = PA.paged_decode_attention_split_plain(
+        t["q"], kp, vp, t["tables"], t["lens"], split,
+        k_new=torch.from_numpy(k_new), v_new=torch.from_numpy(v_new))
+    assert torch.isfinite(got).all()
+    np.testing.assert_allclose(got[:-1].numpy(), np.asarray(jout)[:-1],
+                               atol=TOL, rtol=0)
+    twin = PA.paged_decode_attention_xla(
+        t["q"], torch.from_numpy(np.array(jk[0])),
+        torch.from_numpy(np.array(jv[0])), t["tables"], t["lens"])
+    np.testing.assert_allclose(got.numpy(), twin.numpy(), atol=TOL, rtol=0)

@@ -11,7 +11,10 @@ side of every split boundary, splits past the length (which carry
 m = -inf and weigh 0), and NaN in every row past the length, which leaves
 the model's output as it was. The host's sizing of the splits and the
 scratch (what the card's grid and buffers get) is checked against the
-kernels' rule: ceil(positions / split), at least one.
+kernels' rule: ceil(positions / split), at least one. The paged kernel's
+split rule (``paged_split``: from the table width and the resident
+blocks) at phase 8's and the engine's shapes, and the workspace cache a
+(device, stream) with stand-in keys.
 """
 
 import jax.numpy as jnp
@@ -146,3 +149,69 @@ def test_split_sizing_of_the_main_paths():
         PA.attention_splits(100, 129)
     with pytest.raises(ValueError):
         PA.attention_splits(100, 0)
+
+
+# (S, Hkv, maxp, page): phase 8's three shapes (4 x 2048, 8 x 1024 and
+# 32 x 1024 of qwen3guard-0.6b's 8 KV heads) and the engine's 4- and
+# 16-slot tables (2048 and 1024 positions)
+PAGED_SHAPES = {"serving": (4, 8, 32, 64), "bench": (8, 8, 16, 64),
+                "s32": (32, 8, 16, 64), "engine-s16": (16, 8, 16, 64)}
+
+
+@pytest.mark.parametrize("per_sm", [2, 4, 6])
+@pytest.mark.parametrize("shape", sorted(PAGED_SHAPES))
+def test_paged_split_rule_at_the_main_shapes(shape, per_sm):
+    """The paged kernel's split: a multiple of the page or a divisor of
+    it, at least PAGED_MIN_SPLIT, the narrowest whose work items fit
+    PAGED_WAVES waves of the H100's 132 SMs' resident blocks (or the whole
+    table)."""
+    s, hkv, maxp, page = PAGED_SHAPES[shape]
+    split = PA.paged_split(s, hkv, maxp, page, 132, per_sm)
+    positions = maxp * page
+    assert split % page == 0 or page % split == 0
+    assert PA.PAGED_MIN_SPLIT <= split <= positions
+
+    def items(n):
+        return s * hkv * -(-positions // n)
+    room = PA.PAGED_WAVES * 132 * per_sm
+    assert items(split) <= room or split == positions
+    narrower = [n for n in range(PA.PAGED_MIN_SPLIT, split)
+                if n % page == 0 or page % n == 0]
+    assert all(items(n) > room for n in narrower)
+
+
+@pytest.mark.parametrize("s,hkv,maxp,page,per_sm,split", [
+    (4, 8, 32, 64, 4, 64), (8, 8, 16, 64, 4, 64), (32, 8, 16, 64, 4, 256),
+    (16, 8, 16, 64, 4, 128), (16, 8, 32, 64, 4, 256),
+    (4, 8, 32, 64, 2, 128), (32, 8, 16, 64, 2, 512),
+    (2, 2, 128, 16, 1, 64), (2, 2, 8, 256, 1, 64), (3, 4, 6, 16, 1, 64),
+    (1, 1, 2, 16, 1, 32), (2, 1, 1, 8, 1, 8), (64, 8, 4, 48, 1, 192)])
+def test_paged_split_rule_values(s, hkv, maxp, page, per_sm, split):
+    """Splits of pages of 16, 64 and 256 rows, a table narrower than one
+    stage (the whole table) and a page that 64 does not divide (multiples
+    of 48)."""
+    assert PA.paged_split(s, hkv, maxp, page, 132, per_sm) == split
+
+
+def test_split_workspace_is_one_a_key_and_grows_only_on_demand():
+    """Stand-in keys for (device, stream): each key gets its own buffers;
+    a call that needs no more than the key holds gets the same buffers
+    back, allocating nothing; a larger call gets new, zeroed ones."""
+    made = []
+
+    def make(n, dtype):
+        made.append((n, dtype))
+        return torch.zeros((n,), dtype=dtype)
+    cache = {}
+    a_part, a_count = PA.split_workspace(cache, (0, 1), 100, 8, make)
+    b_part, b_count = PA.split_workspace(cache, (0, 2), 100, 8, make)
+    assert a_part.data_ptr() != b_part.data_ptr()
+    assert a_count.data_ptr() != b_count.data_ptr()
+    assert made == [(100, torch.float32), (8, torch.int32)] * 2
+    assert a_count.dtype == torch.int32 and not a_count.any()
+    again = PA.split_workspace(cache, (0, 1), 60, 4, make)
+    assert again[0] is a_part and again[1] is a_count and len(made) == 4
+    grown = PA.split_workspace(cache, (0, 1), 300, 8, make)
+    assert grown[0].numel() == 300 and grown[1] is a_count
+    assert made[-1] == (300, torch.float32)
+    assert cache[(0, 2)] == (b_part, b_count)
