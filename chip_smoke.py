@@ -171,8 +171,14 @@ Phases, each printed with its seconds beside the card's name and power limit:
    width and depth. ``int8_matmul_w8a8`` against its twin over 28 layers'
    weights read in turn at QKV (4 and 16 slots), wo, gate-up and down (4
    slots; down also at 16) and the head (4 and 16 slots, float32 x), bit
-   for bit; the int8-KV megakernel ``decoder_layer_int8_kv8`` at 4 slots
-   (contexts 65, 200 and 384, then one of 2,047, and an idle slot) under
+   for bit, and bit for bit itself at other splits of the contraction;
+   each call one kernel launch (a complete profiler window of 56 calls
+   holds 56 ``w8a8_mma_kernel`` kernels and nothing else), the whole
+   call's device time read off that window (these records in a process
+   of their own, whose profiler has traced nothing yet); the int8-KV
+   megakernel
+   ``decoder_layer_int8_kv8`` at 4 slots (contexts 65, 200 and 384, then
+   one of 2,047, and an idle slot) under
    phase 9's rule for x, each written int8 value within 1 of the twin's,
    each updated page scale within one bf16 step, every other row and scale
    (the null page's excepted) bit for bit; the batched attention alias bit
@@ -422,6 +428,11 @@ OFF_PATH_KERNELS = {
                          "cmw_rag_tpu_torch/csrc/topk_scan.cu"),
     "ivf_probed_scan_dma": ("cmw_rag_tpu/ops/ivf_scan.py:231",
                             "cmw_rag_tpu_torch/csrc/ivf_scan.cu")}
+
+#: phase 10's W8A8 cases: each product of a layer and the head, at 4 and
+#: 16 slots
+W8A8_CASES = ("qkv-s4", "wo-s4", "gateup-s4", "down-s4", "head-s4",
+              "qkv-s16", "down-s16", "head-s16")
 
 #: the phase-10 decode wrappers: (TPU kernel replaced, CUDA source)
 W8A8_KV8_KERNELS = {
@@ -2444,43 +2455,32 @@ def library_layer_kv8(x, c2, s2, lay, pi, off, kq, ks, vq, vs, tables, lens,
     return library_mlp(x, attn.reshape(x.shape[0], -1), lay, eps)
 
 
-def w8a8_kv8_kernel_phase(card_line: str) -> dict:
-    """Hold the W8A8 matmul, the int8-KV megakernel and the batched
-    attention alias against their twins at the main path's shapes (28
-    layers' weights read in turn); time each, its twin and a yardstick."""
+def w8a8_matmul_records(card_line: str) -> dict:
+    """``int8_matmul_w8a8`` against its twin, bit for bit, at every product
+    of a layer (28 layers' weights read in turn) and the head, at 4 and 16
+    slots, and bit for bit itself at other splits of the contraction; each
+    call one kernel launch (a complete profiler window of 56 calls holds
+    56 W8A8 kernels and nothing else), the whole call's device time read
+    off that window, its twin, the yardstick and the bound. → {case:
+    record}."""
     import torch
-    from cmw_rag_tpu_torch.ops import decoder_layer as DL
+    from cmw_rag_tpu_torch.device import sm_count
     from cmw_rag_tpu_torch.ops import int8_matmul as IM
-    from cmw_rag_tpu_torch.ops import paged_attention as PA
 
-    n_layers, d, hq, hkv, dh, f, page, maxp = 28, 1024, 16, 8, 128, 3072, 64, 32
-    a, a3 = hq * dh, (hq + 2 * hkv) * dh
+    n_layers, d, a, a3, f = 28, 1024, 2048, 4096, 3072
     gen = torch.Generator(device="cuda").manual_seed(10)
     t0 = time.time()
     layers = int8_layers(n_layers, gen)
     head_q, head_s = IM.quantize_weight(
         torch.randn((d, 151680), generator=gen, device="cuda") * 0.02)
-    log("w8a8-kv8-setup", time.time() - t0, card_line, layers=n_layers)
-    report = {}
-
-    def timed(name, case, kern, plain, lib, nbytes, ops, rate, shape, extra,
-              iters=56):
-        t1 = time.time()
-        entry = {**extra, "ms": device_ms(kern, iters),
-                 "plain_ms": device_ms(plain, 5),
-                 "library_ms": device_ms(lib, 5),
-                 "call_ms": cuda_ms(kern, iters), **bound(nbytes, ops, rate)}
-        log(f"kernel-{name}-{case}", time.time() - t1, card_line,
-            **fmt(entry))
-        report[(name, case)] = dict(entry, shape=shape)
-
-    # W8A8: every product of a layer and the head, at 4 and 16 slots
+    log("w8a8-matmul-setup", time.time() - t0, card_line, layers=n_layers)
     products = {"qkv": ("wqkv_q", "wqkv_s", d, a3),
                 "wo": ("wo_q", "wo_s", a, d),
                 "gateup": ("w_gateup_q", "w_gateup_s", d, 2 * f),
                 "down": ("w_down_q", "w_down_s", f, d)}
-    for case in ("qkv-s4", "wo-s4", "gateup-s4", "down-s4", "head-s4",
-                 "qkv-s16", "down-s16", "head-s16"):
+    report = {}
+    for case in W8A8_CASES:
+        t1 = time.time()
         prod, slots = case.split("-")
         m = int(slots[1:])
         if prod == "head":
@@ -2496,15 +2496,101 @@ def w8a8_kv8_kernel_phase(card_line: str) -> dict:
         if not torch.equal(got, want):
             raise AssertionError(f"int8_matmul_w8a8 {case}: differs from its "
                                  f"twin by {(got - want).abs().max().item()}")
+        ks, grid = IM.w8a8_plan(
+            m, k, n, sm_count(x.device),
+            IM._w8a8_resident(IM.w8a8_frags(m), xdt == torch.float32,
+                              x.device))
+        steps = k // IM.W8A8_STAGE_ROWS
+        splits = sorted({sp for sp in (1, ks // 2, ks, 2 * ks, steps)
+                         if 1 <= sp <= steps})
+        for sp in splits:
+            if not torch.equal(IM._w8a8_launch(x, *ws[0], split=sp), got):
+                raise AssertionError(f"int8_matmul_w8a8 {case}: split {sp} "
+                                     f"differs from split {ks}")
+        kern = cycling(lambda i: IM.int8_matmul_w8a8(x, *ws[i]), len(ws))
+        ms, seen, dropped = device_profile(kern, 56, "w8a8_mma_kernel")
+        others = sorted({e for e in seen if "w8a8_mma_kernel" not in e})
+        if len(seen) != 56 or others:
+            raise AssertionError(f"int8_matmul_w8a8 {case}: {len(seen) / 56} "
+                                 f"kernels a call, others {others}")
         xb = x.element_size()
-        timed("int8_matmul_w8a8", case,
-              cycling(lambda i: IM.int8_matmul_w8a8(x, *ws[i]), len(ws)),
-              cycling(lambda i: IM.int8_matmul_w8a8_plain(x, *ws[i]),
-                      len(ws)),
-              cycling(lambda i: library_w8a8(x, *ws[i]), len(ws)),
-              k * n + 4 * n + m * k * xb + m * n * xb, 2.0 * m * k * n,
-              INT8_OPS_PER_S, {"M": m, "K": k, "N": n, "x": str(xdt)},
-              {"max_abs_err": 0.0, "bit_equal": True})
+        entry = {"max_abs_err": 0.0, "bit_equal": True, "split": ks,
+                 "grid_blocks": grid, "bit_equal_splits": splits,
+                 "kernels_per_call": len(seen) / 56,
+                 "dropped_windows": dropped, "ms": ms,
+                 "plain_ms": device_ms(cycling(
+                     lambda i: IM.int8_matmul_w8a8_plain(x, *ws[i]),
+                     len(ws)), 5),
+                 "library_ms": device_ms(cycling(
+                     lambda i: library_w8a8(x, *ws[i]), len(ws)), 5),
+                 "call_ms": cuda_ms(kern, 56),
+                 **bound(k * n + 4 * n + m * k * xb + m * n * xb,
+                         2.0 * m * k * n, INT8_OPS_PER_S)}
+        entry["bound_share"] = entry["bound_ms"] / ms
+        log(f"kernel-int8_matmul_w8a8-{case}", time.time() - t1, card_line,
+            **fmt(entry))
+        report[case] = dict(entry, shape={"M": m, "K": k, "N": n,
+                                          "x": str(xdt)})
+    return report
+
+
+def w8a8_matmul_child(card_line: str) -> dict:
+    """``w8a8_matmul_records`` in a process of its own, started from this
+    file's directory, its log lines passed on: late in one long process
+    the profiler drops kernel records (after sessions that also traced the
+    host, PERF.md §7), and these windows must be complete."""
+    import subprocess
+
+    code = ("import json, sys\nsys.path.insert(0, '.')\n"
+            "import chip_smoke as c\n"
+            f"r = c.w8a8_matmul_records({card_line!r})\n"
+            "print('W8A8_RECORDS ' + json.dumps(r), flush=True)\n")
+    proc = subprocess.run([sys.executable, "-c", code],
+                          cwd=Path(__file__).resolve().parent,
+                          capture_output=True, text=True)
+    result = None
+    for line in proc.stdout.splitlines():
+        if line.startswith("W8A8_RECORDS "):
+            result = json.loads(line[len("W8A8_RECORDS "):])
+        else:
+            print(line, flush=True)
+    if proc.returncode != 0 or result is None:
+        sys.stderr.write(proc.stderr[-4000:])
+        raise AssertionError(f"the W8A8 records failed ({proc.returncode})")
+    return result
+
+
+def w8a8_kv8_kernel_phase(card_line: str) -> dict:
+    """Hold the W8A8 matmul (``w8a8_matmul_child``), the int8-KV megakernel
+    and the batched attention alias against their twins at the main path's
+    shapes (28 layers' weights read in turn); time each, its twin and a
+    yardstick."""
+    import torch
+    from cmw_rag_tpu_torch.ops import decoder_layer as DL
+    from cmw_rag_tpu_torch.ops import paged_attention as PA
+
+    n_layers, d, hq, hkv, dh, f, page, maxp = 28, 1024, 16, 8, 128, 3072, 64, 32
+    a, a3 = hq * dh, (hq + 2 * hkv) * dh
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    t0 = time.time()
+    layers = int8_layers(n_layers, gen)
+    log("w8a8-kv8-setup", time.time() - t0, card_line, layers=n_layers)
+    report = {}
+
+    def timed(name, case, kern, plain, lib, nbytes, ops, rate, shape, extra,
+              iters=56):
+        t1 = time.time()
+        entry = {**extra, "ms": device_ms(kern, iters),
+                 "plain_ms": device_ms(plain, 5),
+                 "library_ms": device_ms(lib, 5),
+                 "call_ms": cuda_ms(kern, iters), **bound(nbytes, ops, rate)}
+        log(f"kernel-{name}-{case}", time.time() - t1, card_line,
+            **fmt(entry))
+        report[(name, case)] = dict(entry, shape=shape)
+
+    # W8A8: in a process of its own (``w8a8_matmul_child``)
+    for case, entry in w8a8_matmul_child(card_line).items():
+        report[("int8_matmul_w8a8", case)] = entry
 
     # the int8-KV megakernel at 4 slots, one idle slot
     s = 4
@@ -2631,7 +2717,7 @@ def w8a8_kv8_kernel_phase(card_line: str) -> dict:
            "lens": [1, 63, 2047, 1], "layers": n_layers},
           {"max_abs_err": (got[:3].float() - twin[:3].float()).abs().max()
            .item(), "bit_equal_to": "paged_decode_attention_dma"})
-    del layers, head_q, head_s, xin, q, kp, vp
+    del layers, xin, q, kp, vp
     torch.cuda.empty_cache()
     return report
 
@@ -3422,9 +3508,7 @@ def main() -> int:
                 "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
                 "max_abs_err", "shape") + split_keys if k in entry}
         rows.append(row)
-    new_cases = {"int8_matmul_w8a8": ("qkv-s4", "wo-s4", "gateup-s4",
-                                      "down-s4", "head-s4", "qkv-s16",
-                                      "down-s16", "head-s16"),
+    new_cases = {"int8_matmul_w8a8": W8A8_CASES,
                  "decoder_layer_int8_kv8": ("s4", "s4-long"),
                  "paged_decode_attention_dma_batched": ("serving",)}
     new_runs = w8a8["engine"]["runs"]
@@ -3439,12 +3523,16 @@ def main() -> int:
                                        for r, v in new_runs.items()},
                "max_abs_err": max(w8a8["kernels"][(name, c)]["max_abs_err"]
                                   for c in cases)}
+        w8a8_keys = ("call_ms", "bound_share", "kernels_per_call", "split",
+                     "grid_blocks")
         row.update({k: main_case[k] for k in (
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")})
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")
+            + w8a8_keys if k in main_case})
         for case in cases[1:]:
             row[case] = {k: w8a8["kernels"][(name, case)][k] for k in (
                 "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
-                "max_abs_err", "shape")}
+                "max_abs_err", "shape") + w8a8_keys
+                if k in w8a8["kernels"][(name, case)]}
         rows.append(row)
     for name, (replaces, source) in BWD_KERNELS.items():
         cases = ("train", "window", "noncausal")

@@ -1,7 +1,7 @@
 // Hopper (sm_90a) building blocks of the port's hand-written kernels: the
 // mbarrier ring, TMA tensor loads with the host-side tensor-map encoding,
-// bulk copies, and wgmma (shared-memory descriptors, fence, commit, wait
-// and the products used). Header-only; a source that includes it is
+// bulk copies, wgmma (shared-memory descriptors, fence, commit, wait and
+// the products used) and the int8 mma.sync. Header-only; a source that includes it is
 // rebuilt when it changes (cuda_build hashes quoted headers).
 //
 // Shared-memory tiles are laid out as TMA writes them with a 128-, 64- or
@@ -135,6 +135,18 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
+// One box of a 2-D map, at element coordinates (c0 innermost), into shared
+// memory; its bytes complete on `bar`.
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4}], [%2];\n"
+      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)),
+         "r"(smem_u32(bar)), "r"(c0), "r"(c1)
+      : "memory");
+}
+
 // `bytes` (a multiple of 16) of contiguous global memory into shared memory
 // (both 16-byte aligned) by the bulk-copy engine; they complete on `bar`.
 __device__ __forceinline__ void bulk_load(void* dst, const void* src,
@@ -265,6 +277,24 @@ __device__ __forceinline__ void wgmma_rs_tb(float (&d)[64],
 }
 
 
+// ------------------------------------------------------------- mma.sync
+
+// d += A[16, 32] B[32, 8], s8 x s8 -> s32, exact (mma.sync m16n8k32; the
+// fragments as the PTX ISA lays them out: lane l, g = l / 4, t = l % 4;
+// a[0] = A[g][4t .. 4t + 3], a[1] = A[g + 8][4t ..], a[2] = A[g][16 + 4t ..],
+// a[3] = A[g + 8][16 + 4t ..]; b0 = B[4t .. 4t + 3][g], b1 = B[16 + 4t ..][g];
+// d = D[g][2t], D[g][2t + 1], D[g + 8][2t], D[g + 8][2t + 1]; the lowest
+// byte of a register holds the lowest k).
+__device__ __forceinline__ void mma_s8_16832(int (&d)[4],
+                                             const uint32_t (&a)[4],
+                                             uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
 }  // namespace hopper
 
 // ------------------------------------------------------ host: tensor maps
@@ -319,6 +349,32 @@ inline int encode_3d(CUtensorMap* map, CUtensorMapDataType type, int elem,
     : swizzle == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
     : swizzle == 32 ? CU_TENSOR_MAP_SWIZZLE_32B : CU_TENSOR_MAP_SWIZZLE_NONE;
   const CUresult r = fn(map, type, 3, const_cast<void*>(base), dims, strides,
+                        box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, sw,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
+
+// A 2-D map over a contiguous [d1, d0] tensor (d0 innermost) of `elem`-byte
+// elements of type `type`, with boxes of [box1, box0] and the given swizzle
+// span in bytes (box0 * elem must not exceed it; d0 * elem a multiple of
+// 16). Returns a cudaError_t code (0 on success).
+inline int encode_2d(CUtensorMap* map, CUtensorMapDataType type, int elem,
+                     const void* base, uint64_t d0, uint64_t d1,
+                     uint32_t box0, uint32_t box1, int swizzle) {
+  EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  if (reinterpret_cast<uintptr_t>(base) % 16 != 0)
+    return static_cast<int>(cudaErrorMisalignedAddress);
+  const cuuint64_t dims[2] = {d0, d1};
+  const cuuint64_t strides[1] = {d0 * elem};  // dim 1
+  const cuuint32_t box[2] = {box0, box1};
+  const cuuint32_t elem_strides[2] = {1, 1};
+  const CUtensorMapSwizzle sw =
+      swizzle == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+    : swizzle == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+    : swizzle == 32 ? CU_TENSOR_MAP_SWIZZLE_32B : CU_TENSOR_MAP_SWIZZLE_NONE;
+  const CUresult r = fn(map, type, 2, const_cast<void*>(base), dims, strides,
                         box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, sw,
                         CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);

@@ -18,9 +18,10 @@ are the phase's own). Prints, per run, a line ``{"tree": "A" or "B",
 reads (the flash kernel's ms per shape, the long-context stages' ms per
 query, the backward kernels' ms per shape, the training step's host and
 busy ms and its first-step gates; phase 9's slot attention, fused MLP and
-megakernel records and its profiled int8 decode step; phase 10's int8-KV
-megakernel records; phase 8's paged kernel records, by phase, and its
-profiled native decode step),
+megakernel records and its profiled int8 decode step; phase 10's W8A8
+records (the whole call's device time, the kernels a call, the split),
+its profiled w8a8 decode step and its int8-KV megakernel records; phase
+8's paged kernel records, by phase, and its profiled native decode step),
 then one line with every run's summary; ``--out`` keeps the phases' whole
 reports, one JSON line a run. The phases' own log lines go to stderr.
 Needs a card.
@@ -44,6 +45,9 @@ INT8_KERNELS = ("paged_decode_attention_dma_slot", "fused_mlp_int8",
 INT8_STEP = ("wall_ms_per_step_unprofiled", "wall_ms_per_step",
              "device_busy_ms_per_step", "idle_share",
              "kernel_launches_per_step", "named_kernel_ms_per_step")
+#: the readings of phase 10's W8A8 records (row 22)
+W8A8_READINGS = ("ms", "call_ms", "plain_ms", "library_ms", "bound_ms",
+                 "kernels_per_call", "split", "grid_blocks")
 #: the readings of phase 8's paged kernel records (rows 15, 16 and 18)
 PAGED_READINGS = ("ms", "call_ms", "plain_ms", "library_ms", "bound_ms",
                   "split", "n_split", "ms_by_split", "kernels_per_call")
@@ -109,6 +113,14 @@ def summary(phases: dict) -> dict:
                                              "grid_blocks", "ms_by_split")}
                 for case, r in phases[phase]["kernels"].items()
                 if case.split("/")[0] in INT8_KERNELS})
+    w8 = phases.get("w8a8_kv8")
+    if w8:
+        out["w8a8_kernels"] = {
+            case: {k: r.get(k) for k in W8A8_READINGS}
+            for case, r in w8["kernels"].items()
+            if case.split("/")[0] == "int8_matmul_w8a8"}
+        prof = w8["engine"]["decode_profiles"]["w8a8"]
+        out["w8a8_step"] = {k: prof[k] for k in INT8_STEP}
     i8 = phases.get("int8_llm")
     if i8:
         prof = i8["engine"]["decode_profile"]

@@ -68,8 +68,9 @@ INT8_SLOTS = {4: "decoder-layer megakernel", 16: "int8_matmul + slot "
 PAGED_KERNEL_NAMES = ("paged_decode_kernel",)
 #: device-side name of the decoder-layer megakernel (both pool types)
 LAYER_KERNEL_NAMES = ("decoder_layer_kernel",)
-#: device-side names of the W8A8 matmul and its combine pass
-W8A8_KERNEL_NAMES = ("w8a8_kernel", "w8a8_combine_kernel")
+#: device-side name of the W8A8 matmul (one kernel a call, the activation
+#: quantization and the merge of its splits inside it)
+W8A8_KERNEL_NAMES = ("w8a8_mma_kernel",)
 
 
 def spec_with_tokenizer_vocab(slug: str = SPEC):

@@ -25,7 +25,10 @@ the normed input, y and h to bf16, and sums in another order can put one of
 those a step apart, which moves every product it feeds), the megakernel's
 written pool rows within the same of the twin's and every other row
 unchanged, bit for bit. The W8A8 matmul and the int8 x int8 scan equal
-their twins bit for bit (exact integer sums, the same scale order); the
+their twins bit for bit (exact integer sums, the same scale order; the
+W8A8 kernel at every split of the contraction, past 16,384 contraction
+rows, on rows at the quantization's edges, one kernel a call, two streams
+at once); the
 int8-KV megakernel's output as the megakernel's, its written int8 rows
 within one step of the twin's and its updated scales within one bf16 step,
 every other row and scale (the null page's excepted) bit for bit; the
@@ -1038,11 +1041,18 @@ def test_int8_wrappers_refuse_what_the_kernels_do_not_take(card):
             layer=0, cap=1, maxp_slot=4)
 
 
-@pytest.mark.parametrize("m,k,n", [(4, 1024, 4096), (16, 1024, 4096),
-                                   (4, 2048, 1024), (4, 1024, 6144),
-                                   (16, 3072, 1024), (4, 1024, 151680),
-                                   (1, 64, 16), (5, 256, 1040),
-                                   (33, 128, 512)])
+#: W8A8 shapes: phase 10's products (QKV, wo, gate-up, down, the head) at
+#: 4 and 16 slots; rows on both sides of each fragment count and of the
+#: 32-row m tile; columns off the 128-column tile
+W8A8_CASES = ([(m, k, n) for m in (4, 16)
+               for k, n in ((1024, 4096), (2048, 1024), (1024, 6144),
+                            (3072, 1024), (1024, 151680))]
+              + [(m, 1024, 4096) for m in (1, 3, 8, 9, 17, 32, 33)]
+              + [(5, 256, 1040), (9, 1024, 4096 + 16), (1, 64, 16),
+                 (33, 128, 512)])
+
+
+@pytest.mark.parametrize("m,k,n", W8A8_CASES)
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_w8a8_matmul_equals_plain_twin(card, m, k, n, dtype):
     gen = torch.Generator(device=card).manual_seed(m * 7 + n)
@@ -1054,6 +1064,116 @@ def test_w8a8_matmul_equals_plain_twin(card, m, k, n, dtype):
     assert IM.int8_matmul_w8a8.launches == n0 + 1
     assert got.dtype == dtype and got.shape == (m, n)
     assert torch.equal(got, IM.int8_matmul_w8a8_plain(x, wq, ws))
+    assert torch.equal(got, IM.int8_matmul_w8a8(x, wq, ws))   # repeats exactly
+
+
+def _w8a8_edge_rows(k):
+    """Rows at the quantization's edges: zeros (the 1e-8 floor); x / scale
+    exactly on halves of both signs (scale 1/16 exactly: round half to
+    even); one large outlier; values far under the floor; a plain row."""
+    rng = np.random.default_rng(3)
+    x = rng.standard_normal((6, k)).astype(np.float32)
+    x[0] = 0.0
+    x[1] = ((np.arange(k) % 254) - 127 + 0.5) / 16   # (2j + 1) / 32: bf16
+    x[1, 0] = 127 / 16                               # the absmax: scale 1/16
+    x[2] = -x[1]
+    x[3] *= 1e-2
+    x[3, 7] = 1e4
+    x[4] *= 1e-30
+    return x
+
+
+@pytest.mark.parametrize("k,n", [(1024, 4096), (256, 1040), (1024, 16384)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_w8a8_matmul_at_the_quantization_edges(card, k, n, dtype):
+    gen = torch.Generator(device=card).manual_seed(k + n)
+    wq, ws = _q8(card, gen, k, n)
+    x = torch.from_numpy(_w8a8_edge_rows(k)).to(card).to(dtype)
+    xq, _ = IM.quantize_activations(x)
+    halves = xq[1, 1:].long().cpu()
+    assert (halves % 2 == 0).all() and xq[0].eq(0).all() and xq[4].eq(0).all()
+    got = IM.int8_matmul_w8a8(x, wq, ws)
+    torch.cuda.synchronize()
+    assert torch.equal(got, IM.int8_matmul_w8a8_plain(x, wq, ws))
+    assert got[0].eq(0).all()
+
+
+@pytest.mark.parametrize("m,k,n", [(4, 1024, 4096), (16, 3072, 1024),
+                                   (3, 512, 1040), (33, 256, 640),
+                                   (2, 17408, 256)])
+def test_w8a8_every_split_gives_the_same_bits(card, m, k, n):
+    """Integer partial sums merged in the launch: every split of the
+    contraction (whole 64-row stages) gives the bits the host's split
+    gives."""
+    gen = torch.Generator(device=card).manual_seed(m + k + n)
+    wq, ws = _q8(card, gen, k, n)
+    x = torch.randn((m, k), generator=gen, device=card).bfloat16()
+    want = IM.int8_matmul_w8a8(x, wq, ws)
+    steps = k // 64
+    for split in sorted({1, 2, 3, 5, 8, 16, 48, steps}):
+        if split <= steps:
+            assert torch.equal(IM._w8a8_launch(x, wq, ws, split=split),
+                               want), split
+    assert torch.equal(want, IM.int8_matmul_w8a8_plain(x, wq, ws))
+
+
+@pytest.mark.parametrize("m,k,n", [(4, 1024, 4096), (16, 1024, 151680)])
+def test_w8a8_call_is_one_kernel_launch(card, m, k, n):
+    """One wrapper call is one launch of the W8A8 kernel and nothing else
+    on the card (no quantization ops, no combine kernel, no copy): three
+    calls under torch.profiler record three kernels, each the W8A8 one. The
+    first shape splits the contraction, the head's does not."""
+    gen = torch.Generator(device=card).manual_seed(5)
+    wq, ws = _q8(card, gen, k, n)
+    x = torch.randn((m, k), generator=gen, device=card)
+    x = x.to(torch.float32 if n > 100000 else torch.bfloat16)
+    names = _cuda_kernels(lambda: IM.int8_matmul_w8a8(x, wq, ws), iters=3)
+    assert len(names) == 3, names
+    assert all("w8a8_mma_kernel" in name for name in names), names
+
+
+def test_w8a8_on_two_streams(card):
+    """Two streams calling at once each get their own workspace (partials
+    and arrival counters) and the answer one stream gives alone, bit for
+    bit; every launch leaves its counters 0."""
+    gen = torch.Generator(device=card).manual_seed(6)
+    wq, ws = _q8(card, gen, 1024, 4096)
+    xs = [torch.randn((4, 1024), generator=gen, device=card).bfloat16()
+          for _ in range(2)]
+    want = [IM.int8_matmul_w8a8(x, wq, ws) for x in xs]
+    streams = (torch.cuda.Stream(card), torch.cuda.Stream(card))
+    outs = {}
+    torch.cuda.synchronize()
+    for rnd in range(20):
+        for i, (st, x) in enumerate(zip(streams, xs)):
+            with torch.cuda.stream(st):
+                outs[(i, rnd)] = IM.int8_matmul_w8a8(x, wq, ws)
+    torch.cuda.synchronize()
+    for (i, _), got in outs.items():
+        assert torch.equal(got, want[i]), i
+    spaces = [IM._WORKSPACES[(card.index or 0, st.cuda_stream)]
+              for st in streams]
+    assert spaces[0][0].data_ptr() != spaces[1][0].data_ptr()
+    assert spaces[0][1].data_ptr() != spaces[1][1].data_ptr()
+    assert not any(w[1].any() for w in spaces)
+
+
+def test_w8a8_refuses_what_the_kernel_does_not_take(card):
+    gen = torch.Generator(device=card).manual_seed(0)
+    wq, ws = _q8(card, gen, 128, 64)
+    x = torch.randn((2, 128), device=card)
+    n0 = IM.int8_matmul_w8a8.launches
+    with pytest.raises(TypeError):
+        IM.int8_matmul_w8a8(x.half(), wq, ws)
+    with pytest.raises(ValueError, match="multiple"):
+        IM.int8_matmul_w8a8(x[:, :96].contiguous(), wq[:96].contiguous(), ws)
+    with pytest.raises(ValueError, match="contiguous"):
+        IM.int8_matmul_w8a8(torch.randn((128, 2), device=card).t(), wq, ws)
+    with pytest.raises(ValueError):
+        IM.int8_matmul_w8a8(x, wq.cpu(), ws)
+    with pytest.raises(ValueError, match="split"):
+        IM._w8a8_launch(x, wq, ws, split=3)            # K has 2 stages
+    assert IM.int8_matmul_w8a8.launches == n0
 
 
 def _kv8_case(card, s, hq, hkv, dh, d, f, page, maxp, lens, seed):

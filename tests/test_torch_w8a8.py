@@ -21,6 +21,10 @@ package's (``cmw_rag_tpu/ops/int8_matmul.py:105-171``).
   activation can move it). Called as the JAX source reads, without XLA's
   rewrite, the twin's order is exact (``test_twin_keeps_the_kernel_order``:
   JAX's kernel body and epilogue, eagerly).
+- The activation scale is an IEEE division by 127 on every device (the
+  CUDA kernel's), and the CUDA kernel's host-side sizing: the split of the
+  contraction and the blocks at phase 10's shapes, the fragments of an m
+  tile and the workspace of a split.
 """
 
 import jax
@@ -118,3 +122,52 @@ def test_sums_are_exact_at_the_largest_contraction():
     acc = T._w8a8_acc(xq, w)
     exact = (xq.long() @ w.long()).float()
     assert torch.equal(acc, exact) and acc[0, 0].item() == k * 127 * 127
+
+
+def test_quantize_activations_divides_by_127():
+    """The activation scale is an IEEE float32 division by 127, as the JAX
+    source reads and as the CUDA kernel computes it, not a product with the
+    float32 reciprocal (which PyTorch's CUDA division by a Python number
+    is): on rows where the two differ, the twin's scale is numpy's
+    float32 quotient."""
+    rng = np.random.default_rng(7)
+    x = rng.standard_normal((512, 64)).astype(np.float32) * 3.0
+    absmax = np.abs(x).max(axis=1)
+    quotient = absmax / np.float32(127.0)
+    product = absmax * (np.float32(1.0) / np.float32(127.0))
+    assert (quotient != product).any()          # the case exists
+    _, scale = T.quantize_activations(torch.from_numpy(x))
+    np.testing.assert_array_equal(scale.numpy(), quotient)
+
+
+@pytest.mark.parametrize("m,k,n,want", [
+    (4, 1024, 4096, 4),       # fused QKV at 4 slots: 32 tiles x 4 splits
+    (4, 2048, 1024, 16),      # wo: 8 tiles, 32 stages
+    (4, 1024, 6144, 8),       # gate-up: 48 tiles
+    (4, 3072, 1024, 16),      # down: 8 tiles, 48 stages
+    (4, 1024, 151680, 1),     # the head: 1,185 tiles, no split
+    (16, 1024, 4096, 4),      # 16 slots: the same tiles
+    (33, 128, 512, 2),        # two m tiles
+    (1, 64, 16, 1)])          # one stage
+def test_w8a8_plan_splits_and_blocks(m, k, n, want):
+    """The W8A8 kernel's work sizing for 132 SMs of 4 resident blocks: the
+    split at phase 10's shapes, every split a whole number of 64-row stages
+    and the blocks never more than the items or the card holds."""
+    ks, grid = T.w8a8_plan(m, k, n, 132, 4)
+    assert ks == want
+    tiles = -(-m // (8 * T.w8a8_frags(m))) * -(-n // T.W8A8_COLS)
+    assert 1 <= ks <= k // T.W8A8_STAGE_ROWS
+    assert grid == min(tiles * ks, 132 * 4)
+
+
+@pytest.mark.parametrize("m,frags", [(1, 1), (8, 1), (9, 2), (16, 2),
+                                     (17, 4), (32, 4), (33, 4), (200, 4)])
+def test_w8a8_frags_and_workspace(m, frags):
+    """Fragments of 8 rows an m tile takes, and the workspace a split
+    needs: one 8F x 128 int32 partial tile a split and tile, one counter a
+    tile, nothing with one split."""
+    assert T.w8a8_frags(m) == frags
+    assert T.w8a8_workspace(m, 1040, 1) == (0, 0)
+    tiles = -(-m // (8 * frags)) * 9               # 1040 columns: 9 tiles
+    assert T.w8a8_workspace(m, 1040, 3) == (tiles * 3 * 8 * frags * 128,
+                                            tiles)
