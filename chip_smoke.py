@@ -1951,6 +1951,174 @@ def split_items(lens, positions: int, hkv: int, s: int) -> dict:
             "live_items": hkv * live}
 
 
+def megakernel_plan(DL, s, d, hq, hkv, dh, f, device, kv8=False) -> dict:
+    """The megakernel's host plan for a call (``layer_plan``): its grid,
+    row tile, ring stages, the four products' splits and its grid-wide
+    waits a layer."""
+    plan = DL.layer_plan(s, d, hq, hkv, dh, f,
+                         DL._grid(device, DL.layer_tile(s), dh, kv8))
+    return {"grid_blocks": plan.grid, "row_tile": plan.mt, "ring": plan.ring,
+            "splits": [q.ks for q in plan.products],
+            "grid_waits": DL.GRID_WAITS}
+
+
+#: the megakernels' cases: name, active lengths, idle slots (on the null
+#: page), route; #24's (bf16 pages) and #25's (int8 pages, paged)
+MEGA_CASES = {False: (("s4-slot", [63, 200, 384], 1, "slot"),
+                      ("s4-paged", [1, 700, 2047], 1, "paged"),
+                      ("s8-slot", [256] * 8, 0, "slot")),
+              True: (("s4", [65, 200, 384], 1, "paged"),
+                     ("s4-long", [1, 700, 2047], 1, "paged"))}
+#: the megakernel's name in the profiler's records
+MEGA_KERNEL = "decoder_layer_kernel"
+
+
+def mega_inputs(gen, lens, idle, route, kv8, n_layers=28, d=1024, hkv=8,
+                dh=128, page=64, maxp=32) -> dict:
+    """One megakernel case of ``MEGA_CASES`` at qwen3guard-0.6b's widths:
+    the active slots at ``lens``, ``idle`` more at length 1 writing row 0
+    of the null page, on the slot-major or paged ``route``, over
+    ``n_layers`` layers' bf16 pools or (``kv8``) int8 pools with their
+    scale planes. → the inputs, by name (``pools``: (k, v) or (k, k
+    scales, v, v scales); ``kw``: the route's keywords)."""
+    import torch
+    from cmw_rag_tpu_torch.ops import decoder_layer as DL
+    from cmw_rag_tpu_torch.ops import paged_attention as PA
+
+    s = len(lens) + idle
+    act = s - idle
+    n_pages = 1 + s * maxp
+    shape = (n_layers, n_pages, page, hkv, dh)
+    if kv8:
+        kq, ks = PA.quantize_kv_page(torch.randn(shape, generator=gen,
+                                                 device="cuda"))
+        vq, vs = PA.quantize_kv_page(torch.randn(shape, generator=gen,
+                                                 device="cuda"))
+        pools = (kq, ks, vq, vs)
+    else:
+        pools = tuple(torch.randn(shape, generator=gen, device="cuda",
+                                  dtype=torch.bfloat16) for _ in range(2))
+    lens_t = torch.tensor(lens + [1] * idle, dtype=torch.int32,
+                          device="cuda")
+    if route == "slot":
+        tables = PA.slot_tables(s, maxp, maxp, 1, "cuda")
+        kw = dict(attn_slot=True, slot_cap=-(-max(lens) // page),
+                  slot_maxp=maxp)
+    else:
+        perm = torch.randperm(n_pages - 1, generator=gen, device="cuda") + 1
+        tables = perm[:s * maxp].reshape(s, maxp).to(torch.int32)
+        tables[act:] = 0                                  # the idle slots
+        kw = dict(tables=tables)
+    pos = (lens_t - 1).long()
+    page_idx = tables.long().gather(1, (pos // page)[:, None])[:, 0]
+    page_idx[act:] = 0
+    off = (pos % page).to(torch.int32)
+    off[act:] = 0
+    x = torch.randn((s, d), generator=gen, device="cuda").bfloat16()
+    ang = torch.rand((s, dh // 2), generator=gen, device="cuda") * 6.28
+    c2, s2 = DL.make_rope_maps(torch.cos(ang), torch.sin(ang))
+    return {"s": s, "act": act, "kv8": kv8, "pools": pools, "lens_t": lens_t,
+            "tables": tables, "kw": kw, "page_idx": page_idx.to(torch.int32),
+            "off": off, "x": x, "c2": c2, "s2": s2}
+
+
+def mega_call(c: dict, layer: dict, li: int, ablate: str = "",
+              plain: bool = False):
+    """The megakernel (``plain``: its twin) over layer ``li`` of case
+    ``c`` (``mega_inputs``) with that layer's weights: → its output."""
+    from cmw_rag_tpu_torch.ops import decoder_layer as DL
+
+    head = (c["x"], c["c2"], c["s2"], *[layer[k] for k in LAYER_KEYS],
+            c["page_idx"], c["off"])
+    if c["kv8"]:
+        kq, ks, vq, vs = c["pools"]
+        fn = (DL.decoder_layer_int8_kv8_plain if plain
+              else DL.decoder_layer_int8_kv8)
+        return fn(*head, kq, ks[li], vq, vs[li], c["lens_t"], layer=li,
+                  ablate=ablate, **c["kw"])[0]
+    fn = DL.decoder_layer_int8_plain if plain else DL.decoder_layer_int8
+    return fn(*head, *c["pools"], c["lens_t"], layer=li, ablate=ablate,
+              **c["kw"])[0]
+
+
+def megakernel_timings(kv8: bool = False) -> dict:
+    """Device ms of the decoder-layer megakernel (``kv8``: the int8-KV
+    one) at ``MEGA_CASES`` over 28 layers' weights in turn: whole, with
+    attention ablated ("noattn") and at splits of 64 and 128 positions.
+    Each is the mean of the megakernel's records in one complete profiler
+    window of 56 calls (``profile_query.kernel_window`` with its name: the
+    profiler on the card drops some of these records even in a fresh
+    process, PERF.md §7, and a window short of one is taken again, three
+    times, then this raises)."""
+    import torch
+    from cmw_rag_tpu_torch.ops import paged_attention as PA
+    from cmw_rag_tpu_torch.scripts.profile_query import kernel_window
+
+    n_layers, iters = 28, 56
+    gen = torch.Generator(device="cuda").manual_seed(18)
+    layers = int8_layers(n_layers, gen)
+    out = {}
+    for case, lens, idle, route in MEGA_CASES[kv8]:
+        c = mega_inputs(gen, lens, idle, route, kv8, n_layers)
+
+        def call(li, ablate="", c=c):
+            return mega_call(c, layers[li], li, ablate)
+
+        def dev(fn):
+            events, _ = kernel_window(cycling(fn, n_layers), iters,
+                                      MEGA_KERNEL)
+            spans = [e.time_range.end - e.time_range.start for e in events
+                     if MEGA_KERNEL in e.name]
+            if len(spans) != iters:
+                raise RuntimeError(f"megakernel {case}: {len(spans)} "
+                                   f"records in a window of {iters} calls")
+            return sum(spans) / len(spans) / 1e3
+
+        rec = {"ms": dev(call),
+               "noattn_ms": dev(lambda li: call(li, "noattn")),
+               "ms_by_split": {}}
+        old = PA.ATTN_SPLIT
+        try:
+            for split in (64, 128):
+                PA.ATTN_SPLIT = split
+                rec["ms_by_split"][str(split)] = dev(call)
+        finally:
+            PA.ATTN_SPLIT = old
+        out[case] = rec
+        del c
+        torch.cuda.empty_cache()
+    return out
+
+
+def megakernel_child(card_line: str, kv8: bool = False) -> dict:
+    """``megakernel_timings`` in a process of its own, started from this
+    file's directory: late in one long process the profiler drops kernel
+    records (PERF.md §7), and these windows must be complete."""
+    import subprocess
+
+    code = ("import json, sys\nsys.path.insert(0, '.')\n"
+            "import chip_smoke as c\n"
+            f"r = c.megakernel_timings({kv8!r})\n"
+            "print('MEGA_RECORDS ' + json.dumps(r), flush=True)\n")
+    t0 = time.time()
+    proc = subprocess.run([sys.executable, "-c", code],
+                          cwd=Path(__file__).resolve().parent,
+                          capture_output=True, text=True)
+    result = None
+    for line in proc.stdout.splitlines():
+        if line.startswith("MEGA_RECORDS "):
+            result = json.loads(line[len("MEGA_RECORDS "):])
+        else:
+            print(line, flush=True)
+    if proc.returncode != 0 or result is None:
+        sys.stderr.write(proc.stderr[-4000:])
+        raise AssertionError(f"the megakernel timings failed "
+                             f"({proc.returncode})")
+    log("megakernel-timings", time.time() - t0, card_line, kv8=kv8,
+        **{case: r["ms"] for case, r in result.items()})
+    return result
+
+
 def split_bounds_phase(layers, card_line: str) -> dict:
     """Split decode attention at lengths on either side of every split
     boundary (1, split - 1, split, split + 1, 2 split + 1, cap * page) and
@@ -2055,10 +2223,11 @@ def int8_kernel_phase(card_line: str) -> dict:
                shape, iters=56, extra=None):
         t1 = time.time()
         entry = {**held(got, want, tol, f"{name} {case}"),
-                 "ms": device_ms(kern, iters), "plain_ms": device_ms(plain, 5),
+                 "plain_ms": device_ms(plain, 5),
                  "library_ms": device_ms(lib, 5),
                  "call_ms": cuda_ms(kern, iters), **bound(nbytes, ops),
                  **(extra or {})}
+        entry.setdefault("ms", device_ms(kern, iters))
         log(f"kernel-{name}-{case}", time.time() - t1, card_line,
             **fmt(entry))
         report[(name, case)] = dict(entry, shape=shape)
@@ -2153,46 +2322,26 @@ def int8_kernel_phase(card_line: str) -> dict:
                2.0 * s * mlp_w, {"S": s, "D": d, "A": a, "F": f})
 
     # the megakernel at 4 slots: slot-major (contexts within cap 6) and
-    # paged (one context of 2047, past the slot-major budget), one idle slot
-    for case, lens, slot in (("s4-slot", [63, 200, 384], True),
-                             ("s4-paged", [1, 700, 2047], False)):
-        s = 4
-        n_pages = 1 + s * maxp
-        shape = (n_layers, n_pages, page, hkv, dh)
-        kp = torch.randn(shape, generator=gen, device="cuda",
-                         dtype=torch.bfloat16)
-        vp = torch.randn(shape, generator=gen, device="cuda",
-                         dtype=torch.bfloat16)
-        lens_t = torch.tensor(lens + [1], dtype=torch.int32, device="cuda")
-        if slot:
-            cap = -(-max(lens) // page)
-            tables = PA.slot_tables(s, maxp, maxp, 1, "cuda")
-            kw = dict(attn_slot=True, slot_cap=cap, slot_maxp=maxp)
-        else:
-            perm = torch.randperm(n_pages - 1, generator=gen,
-                                  device="cuda") + 1
-            tables = perm[:s * maxp].reshape(s, maxp).to(torch.int32)
-            tables[-1] = 0                                # the idle slot
-            kw = dict(tables=tables)
-        pos = (lens_t - 1).long()
-        page_idx = tables.long().gather(1, (pos // page)[:, None])[:, 0]
-        page_idx[-1] = 0                                  # the idle slot
-        page_idx = page_idx.to(torch.int32)
-        off = (pos % page).to(torch.int32)
-        off[-1] = 0
-        x = torch.randn((s, d), generator=gen, device="cuda").bfloat16()
-        ang = torch.rand((s, dh // 2), generator=gen, device="cuda") * 6.28
-        c2, s2 = DL.make_rope_maps(torch.cos(ang), torch.sin(ang))
+    # paged (one context of 2047, past the slot-major budget), one idle
+    # slot; at 8 slots x 256, slot-major, every slot active (the decode
+    # cell's batch); its device times (also with attention ablated,
+    # "noattn", and at each split) from a process of its own
+    # (``megakernel_child``)
+    mega = megakernel_child(card_line)
+    for case, lens, idle, route in MEGA_CASES[False]:
+        c = mega_inputs(gen, lens, idle, route, False, n_layers, d, hkv, dh,
+                        page, maxp)
+        s, act, kw, slot = c["s"], c["act"], c["kw"], route == "slot"
+        kp, vp = c["pools"]
+        x, c2, s2, page_idx, off, lens_t, tables = (
+            c[k] for k in ("x", "c2", "s2", "page_idx", "off", "lens_t",
+                           "tables"))
 
-        def kern(li, kp=kp, vp=vp, kw=kw):
-            return DL.decoder_layer_int8(
-                x, c2, s2, *[layers[li][k] for k in LAYER_KEYS], page_idx,
-                off, kp, vp, lens_t, layer=li, **kw)[0]
+        def kern(li, c=c):
+            return mega_call(c, layers[li], li)
 
-        def plain(li, kp=kp, vp=vp, kw=kw):
-            return DL.decoder_layer_int8_plain(
-                x, c2, s2, *[layers[li][k] for k in LAYER_KEYS], page_idx,
-                off, kp, vp, lens_t, layer=li, **kw)[0]
+        def plain(li, c=c):
+            return mega_call(c, layers[li], li, plain=True)
 
         def lib(li, kp=kp, vp=vp):
             return library_layer(x, c2, s2, layers[li], page_idx, off,
@@ -2223,23 +2372,22 @@ def int8_kernel_phase(card_line: str) -> dict:
                                      f"changed")
             held(g_pool[rows], w_pool[rows], INT8_LAYER_TOL,
                  f"decoder_layer_int8 {case}: written {label} rows")
-        positions = sum(lens) + 1
+        positions = sum(lens) + idle
         width = kw["slot_cap"] if slot else maxp
-        extra = {**split_items(lens + [1], width * page, hkv, s),
-                 "grid_blocks": DL._grid(x.device, IM.m_tile(s), dh, False),
-                 "bit_equal_launches": True,
-                 "ms_by_split": split_times(kern, n_layers)}
+        extra = {**split_items(lens + [1] * idle, width * page, hkv, s),
+                 **megakernel_plan(DL, s, d, hq, hkv, dh, f, x.device),
+                 "bit_equal_launches": True, **mega[case]}
         record("decoder_layer_int8", case, cycling(kern, n_layers),
-               cycling(plain, n_layers), cycling(lib, n_layers), got[:s - 1],
-               want[:s - 1], INT8_LAYER_TOL,
+               cycling(plain, n_layers), cycling(lib, n_layers), got[:act],
+               want[:act], INT8_LAYER_TOL,
                w_bytes + 4 * (a3 + 4 * d + 2 * f + 2 * dh)
                + 2 * 2 * s * d + 2 * 4 * s * dh
                + 2 * positions * hkv * dh * 2 + 12 * s,
                2.0 * s * w_bytes + 4.0 * hq * dh * positions,
                {"S": s, "D": d, "Hq": hq, "Hkv": hkv, "Dh": dh, "F": f,
-                "page": page, "lens": lens + [1],
+                "page": page, "lens": lens + [1] * idle,
                 "route": "slot" if slot else "paged"}, extra=extra)
-        del kp, vp, k0, v0, k_got, v_got
+        del c, kp, vp, k0, v0, k_got, v_got
         torch.cuda.empty_cache()
     report["split_bounds"] = split_bounds_phase(layers, card_line)
     del layers, head_q, head_s
@@ -2580,10 +2728,10 @@ def w8a8_kv8_kernel_phase(card_line: str) -> dict:
     def timed(name, case, kern, plain, lib, nbytes, ops, rate, shape, extra,
               iters=56):
         t1 = time.time()
-        entry = {**extra, "ms": device_ms(kern, iters),
-                 "plain_ms": device_ms(plain, 5),
+        entry = {**extra, "plain_ms": device_ms(plain, 5),
                  "library_ms": device_ms(lib, 5),
                  "call_ms": cuda_ms(kern, iters), **bound(nbytes, ops, rate)}
+        entry.setdefault("ms", device_ms(kern, iters))
         log(f"kernel-{name}-{case}", time.time() - t1, card_line,
             **fmt(entry))
         report[(name, case)] = dict(entry, shape=shape)
@@ -2592,40 +2740,23 @@ def w8a8_kv8_kernel_phase(card_line: str) -> dict:
     for case, entry in w8a8_matmul_child(card_line).items():
         report[("int8_matmul_w8a8", case)] = entry
 
-    # the int8-KV megakernel at 4 slots, one idle slot
-    s = 4
-    n_pages = 1 + s * maxp
-    for case, lens in (("s4", [65, 200, 384]), ("s4-long", [1, 700, 2047])):
-        shape = (n_layers, n_pages, page, hkv, dh)
-        kq, ks = PA.quantize_kv_page(torch.randn(shape, generator=gen,
-                                                 device="cuda"))
-        vq, vs = PA.quantize_kv_page(torch.randn(shape, generator=gen,
-                                                 device="cuda"))
-        lens_t = torch.tensor(lens + [1], dtype=torch.int32, device="cuda")
-        perm = torch.randperm(n_pages - 1, generator=gen, device="cuda") + 1
-        tables = perm[:s * maxp].reshape(s, maxp).to(torch.int32)
-        tables[-1] = 0                                    # the idle slot
-        pos = (lens_t - 1).long()
-        page_idx = tables.long().gather(1, (pos // page)[:, None])[:, 0]
-        page_idx[-1] = 0
-        page_idx = page_idx.to(torch.int32)
-        off = (pos % page).to(torch.int32)
-        off[-1] = 0
-        x = torch.randn((s, d), generator=gen, device="cuda").bfloat16()
-        ang = torch.rand((s, dh // 2), generator=gen, device="cuda") * 6.28
-        c2, s2 = DL.make_rope_maps(torch.cos(ang), torch.sin(ang))
+    # the int8-KV megakernel at 4 slots, one idle slot; its device times
+    # from a process of its own (``megakernel_child``)
+    mega = megakernel_child(card_line, kv8=True)
+    for case, lens, idle, route in MEGA_CASES[True]:
+        c = mega_inputs(gen, lens, idle, route, True, n_layers, d, hkv, dh,
+                        page, maxp)
+        s = c["s"]
+        kq, ks, vq, vs = c["pools"]
+        x, c2, s2, page_idx, off, lens_t, tables = (
+            c[k] for k in ("x", "c2", "s2", "page_idx", "off", "lens_t",
+                           "tables"))
 
-        def kern(li, kq=kq, ks=ks, vq=vq, vs=vs, tables=tables):
-            return DL.decoder_layer_int8_kv8(
-                x, c2, s2, *[layers[li][k] for k in LAYER_KEYS], page_idx,
-                off, kq, ks[li], vq, vs[li], lens_t, layer=li,
-                tables=tables)[0]
+        def kern(li, c=c):
+            return mega_call(c, layers[li], li)
 
-        def plain(li, kq=kq, ks=ks, vq=vq, vs=vs, tables=tables):
-            return DL.decoder_layer_int8_kv8_plain(
-                x, c2, s2, *[layers[li][k] for k in LAYER_KEYS], page_idx,
-                off, kq, ks[li], vq, vs[li], lens_t, layer=li,
-                tables=tables)[0]
+        def plain(li, c=c):
+            return mega_call(c, layers[li], li, plain=True)
 
         def lib(li, kq=kq, ks=ks, vq=vq, vs=vs, tables=tables):
             return library_layer_kv8(x, c2, s2, layers[li], page_idx, off,
@@ -2639,7 +2770,7 @@ def w8a8_kv8_kernel_phase(card_line: str) -> dict:
         for t, b0 in zip((kq, ks, vq, vs), before):
             t[li].copy_(b0)
         want = plain(li)
-        act = slice(0, s - 1)
+        act = slice(0, c["act"])
         rows = (page_idx[act].long(), off[act].long())
         pages = page_idx[act].long()
         checks = held(got[act], want[act], INT8_LAYER_TOL,
@@ -2677,8 +2808,10 @@ def w8a8_kv8_kernel_phase(card_line: str) -> dict:
                                      f"{label} scale {steps} bf16 steps from "
                                      f"the twin's")
             checks[f"{label}_scale_max_bf16_steps"] = steps
-        positions = sum(lens) + 1
-        used = sum(-(-n // page) for n in lens) + 1
+        checks.update(megakernel_plan(DL, s, d, hq, hkv, dh, f, x.device,
+                                      kv8=True), **mega[case])
+        positions = sum(lens) + idle
+        used = sum(-(-n // page) for n in lens) + idle
         w_bytes = d * a3 + a * d + d * 2 * f + f * d
         timed("decoder_layer_int8_kv8", case, cycling(kern, n_layers),
               cycling(plain, n_layers), cycling(lib, n_layers),
@@ -2687,8 +2820,8 @@ def w8a8_kv8_kernel_phase(card_line: str) -> dict:
               + 2 * 4 * used * hkv + 12 * s,
               2.0 * s * w_bytes + 4.0 * hq * dh * positions, BF16_OPS_PER_S,
               {"S": s, "D": d, "Hq": hq, "Hkv": hkv, "Dh": dh, "F": f,
-               "page": page, "lens": lens + [1]}, checks)
-        del kq, vq, ks, vs, before, after
+               "page": page, "lens": lens + [1] * idle}, checks)
+        del c, kq, vq, ks, vs, before, after
         torch.cuda.empty_cache()
 
     # the batched attention alias at 4 x 2048, bit for bit the paged kernel

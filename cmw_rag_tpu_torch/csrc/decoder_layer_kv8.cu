@@ -29,6 +29,11 @@ int decoder_layer_kv8_blocks(int mt, int dh) {
   return blocks_by_tile<int8_t>(mt, dh);
 }
 
+// As decoder_layer_encode of csrc/decoder_layer.cu.
+int decoder_layer_kv8_encode(const void* w, int k, int n, void* map) {
+  return encode_weight(w, k, n, map);
+}
+
 // As decoder_layer_int8 of csrc/decoder_layer.cu, over int8 pools with this
 // layer's [P, Hkv] float32 scale planes k_scale and v_scale (both required,
 // updated in place), on the paged route (slot_cap 0, tables given).
@@ -44,14 +49,15 @@ int decoder_layer_int8_kv8(
     float eps, int ks_qkv, int ks_wo, int ks_gu, int ks_dn, float* part_b,
     float* qbuf, float* aout, float* x1, float* y, void* out, float* k_scale,
     float* v_scale, int noattn, int attn_split, int n_split,
-    float* attn_part, int* attn_count, void* stream) {
+    float* attn_part, int* attn_count, const void* maps, int* counts,
+    int ring, int grid, void* stream) {
   return run_layer<int8_t>(
       x, c2, s2, attn_norm, wqkv_q, wqkv_s, q_norm, k_norm, wo_q, wo_s,
       ffn_norm, gateup_q, gateup_s, down_q, down_s, page_idx, off, k_pool,
       v_pool, lens, tables, part_a, s, d, hq, hkv, dh, f, page, maxp,
       slot_cap, slot_maxp, slot_base, eps, ks_qkv, ks_wo, ks_gu, ks_dn,
       part_b, qbuf, aout, x1, y, out, k_scale, v_scale, noattn, attn_split,
-      n_split, attn_part, attn_count, stream);
+      n_split, attn_part, attn_count, maps, counts, ring, grid, stream);
 }
 
 }  // extern "C"

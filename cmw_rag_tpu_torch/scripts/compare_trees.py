@@ -21,10 +21,12 @@ busy ms and its first-step gates; phase 9's slot attention, fused MLP and
 megakernel records and its profiled int8 decode step; phase 10's W8A8
 records (the whole call's device time, the kernels a call, the split),
 its profiled w8a8 decode step and its int8-KV megakernel records; phase
-8's paged kernel records, by phase, and its profiled native decode step),
-then one line with every run's summary; ``--out`` keeps the phases' whole
-reports, one JSON line a run. The phases' own log lines go to stderr.
-Needs a card.
+8's paged kernel records, by phase, and its profiled native decode step;
+the megakernels' records carry their device ms whole, with attention
+ablated (``noattn_ms``) and at each split, where the tree's phases time
+them in a process of their own, ``chip_smoke.megakernel_child``), then one
+line with every run's summary; ``--out`` keeps the phases' whole reports, one
+JSON line a run. The phases' own log lines go to stderr. Needs a card.
 """
 
 from __future__ import annotations
@@ -110,7 +112,9 @@ def summary(phases: dict) -> dict:
             out.setdefault("int8_kernels", {}).update({
                 case: {k: r.get(k) for k in ("ms", "plain_ms", "library_ms",
                                              "bound_ms", "split", "n_split",
-                                             "grid_blocks", "ms_by_split")}
+                                             "grid_blocks", "ms_by_split",
+                                             "noattn_ms", "ring", "splits",
+                                             "grid_waits")}
                 for case, r in phases[phase]["kernels"].items()
                 if case.split("/")[0] in INT8_KERNELS})
     w8 = phases.get("w8a8_kv8")

@@ -1289,6 +1289,179 @@ def test_megakernel_noattn_matches_plain_twin(card, kv8):
     _close(got[:3], want[:3], 1e-3)
 
 
+#: megakernel widths by head dim: (Hq, Hkv, D, F, page); qwen3guard-0.6b's
+#: at Dh 128, a small model's at Dh 64
+MEGA_WIDTHS = {128: (16, 8, 1024, 3072, 64), 64: (8, 2, 256, 384, 16)}
+#: (int8 pages, rows, route): 1, 4 and 8 rows on both routes, 16 and 32
+#: on the paged one (the forced paged route's row tiles); int8 pages take
+#: the paged route only
+MEGA_ROWS = ([(False, s, "slot") for s in (1, 4, 8)]
+             + [(kv8, s, "paged") for kv8 in (False, True)
+                for s in (1, 4, 8, 16, 32)])
+
+
+def _mega_case(card, s, dh, route, kv8, seed, maxp=8):
+    """A megakernel call with every one of ``s`` slots active, each at its
+    own length (short, on either side of a page, the whole table), on the
+    slot-major (``route`` "slot") or paged route, bf16 or int8 pages: →
+    (args before the pools, pools (int8: with their [L, P, Hkv] scales),
+    lens, route keywords, tables)."""
+    hq, hkv, d, f, page = MEGA_WIDTHS[dh]
+    gen = torch.Generator(device=card).manual_seed(seed)
+    lay = _layer(card, gen, d, hq, hkv, dh, f)
+    n_pages = 1 + s * maxp
+    shape = (2, n_pages, page, hkv, dh)
+    full = maxp * page
+    lens = [(1, page - 1, page + 1, full, 2 * page, 3)[i % 6] + i % 3
+            for i in range(s)]
+    lens = [min(n, full) for n in lens]
+    lens_t = torch.tensor(lens, dtype=torch.int32, device=card)
+    if route == "slot":
+        tables = PA.slot_tables(s, maxp, maxp, 1, card)
+        kw = dict(attn_slot=True, slot_cap=-(-max(lens) // page),
+                  slot_maxp=maxp)
+    else:
+        tables = (torch.randperm(n_pages - 1, generator=gen, device=card)
+                  + 1).reshape(s, maxp).to(torch.int32)
+        kw = dict(tables=tables)
+    pos = (lens_t - 1).long()
+    page_idx = tables.long().gather(1, (pos // page)[:, None])[:, 0]
+    off = (pos % page).to(torch.int32)
+    if kv8:
+        kq, ks = PA.quantize_kv_page(torch.randn(shape, generator=gen,
+                                                 device=card))
+        vq, vs = PA.quantize_kv_page(torch.randn(shape, generator=gen,
+                                                 device=card))
+        pools = (kq, ks, vq, vs)
+    else:
+        pools = (torch.randn(shape, generator=gen, device=card).bfloat16(),
+                 torch.randn(shape, generator=gen, device=card).bfloat16())
+    x = torch.randn((s, d), generator=gen, device=card).bfloat16()
+    ang = torch.rand((s, dh // 2), generator=gen, device=card) * 6.28
+    c2, s2 = DL.make_rope_maps(torch.cos(ang), torch.sin(ang))
+    args = (x, c2, s2, *[lay[k] for k in LAYER], page_idx.to(torch.int32),
+            off)
+    return args, pools, lens_t, kw, tables
+
+
+def _mega_call(args, pools, lens_t, kw, kv8, ablate=""):
+    """One megakernel (or twin, ``plain``) call over layer 1: → (output,
+    the pools and planes as the call left them)."""
+    if kv8:
+        kq, ks, vq, vs = pools
+        out = DL.decoder_layer_int8_kv8(*args, kq, ks[1], vq, vs[1], lens_t,
+                                        layer=1, ablate=ablate, **kw)[0]
+    else:
+        out = DL.decoder_layer_int8(*args, *pools, lens_t, layer=1,
+                                    ablate=ablate, **kw)[0]
+    return out
+
+
+def _mega_twin(args, pools, lens_t, kw, kv8, ablate=""):
+    if kv8:
+        kq, ks, vq, vs = pools
+        return DL.decoder_layer_int8_kv8_plain(
+            *args, kq, ks[1], vq, vs[1], lens_t, layer=1, ablate=ablate,
+            **kw)[0]
+    return DL.decoder_layer_int8_plain(*args, *pools, lens_t, layer=1,
+                                       ablate=ablate, **kw)[0]
+
+
+@pytest.mark.parametrize("dh", [64, 128])
+@pytest.mark.parametrize("kv8,s,route", MEGA_ROWS)
+def test_megakernels_at_every_row_tile_route_and_head_dim(card, attn_split,
+                                                          kv8, s, route, dh):
+    """Both megakernels against their twins at 1 to 32 rows (row tiles of
+    8 and 16; two of 16 at 32 rows), both routes (int8 pages: the paged one), Dh 64 and 128:
+    the output, the written rows (and int8 pages' scales) within the
+    tolerances, every other row and scale bit for bit; a second launch bit
+    for bit the first; NaN in every row past each length (bf16 pages)
+    changes nothing."""
+    args, pools, lens_t, kw, tables = _mega_case(card, s, dh, route, kv8,
+                                                 seed=s * 7 + dh)
+    page = MEGA_WIDTHS[dh][4]
+    before = [t.clone() for t in pools]
+    twin_pools = [t.clone() for t in pools]
+    n0 = (DL.decoder_layer_int8_kv8 if kv8 else DL.decoder_layer_int8).launches
+    got = _mega_call(args, pools, lens_t, kw, kv8)
+    want = _mega_twin(args, twin_pools, lens_t, kw, kv8)
+    torch.cuda.synchronize()
+    assert (DL.decoder_layer_int8_kv8 if kv8 else
+            DL.decoder_layer_int8).launches == n0 + 1
+    _close(got, want, 1e-3)
+    page_idx, off = args[-2].long(), args[-1].long()
+    rows = (page_idx, off)
+    pool_idx = (0, 2) if kv8 else (0, 1)
+    for i in pool_idx:
+        pool, twin, old = pools[i], twin_pools[i], before[i]
+        keep = torch.ones(pool.shape[:3], dtype=torch.bool, device=card)
+        keep[1][rows] = False
+        assert torch.equal(pool[keep], old[keep])
+        if kv8:
+            assert (pool[1][rows].int() - twin[1][rows].int()).abs().max() <= 1
+        else:
+            _close(pool[1][rows], twin[1][rows], 1e-3)
+    if kv8:
+        for i in (1, 3):
+            plane, twin, old = pools[i], twin_pools[i], before[i]
+            keep = torch.ones(plane.shape[:2], dtype=torch.bool, device=card)
+            keep[1][page_idx] = False
+            assert torch.equal(plane[keep], old[keep])
+            assert ((plane[1][page_idx] - twin[1][page_idx]).abs()
+                    <= _bf16_step(twin[1][page_idx])).all()
+    again = _mega_call(args, pools, lens_t, kw, kv8)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    if not kv8:
+        _poison_past(pools, 1, lens_t.tolist(), tables, page)
+        after = _mega_call(args, pools, lens_t, kw, kv8)
+        torch.cuda.synchronize()
+        assert torch.equal(after, got)
+
+
+@pytest.mark.parametrize("dh", [64, 128])
+@pytest.mark.parametrize("s", [4, 16])
+@pytest.mark.parametrize("kv8", [False, True])
+def test_megakernels_noattn_at_both_head_dims(card, s, dh, kv8):
+    """The ablation (the attention output is q) against the twin's."""
+    args, pools, lens_t, kw, _ = _mega_case(card, s, dh, "paged", kv8,
+                                            seed=s + dh)
+    got = _mega_call(args, [t.clone() for t in pools], lens_t, kw, kv8,
+                     ablate="noattn")
+    want = _mega_twin(args, [t.clone() for t in pools], lens_t, kw, kv8,
+                      ablate="noattn")
+    torch.cuda.synchronize()
+    _close(got, want, 1e-3)
+
+
+@pytest.mark.parametrize("kv8", [False, True])
+@pytest.mark.parametrize("s", [4, 32])
+def test_megakernels_run_one_kernel_a_call(card, kv8, s):
+    """A megakernel call is one launch of the megakernel and nothing else
+    (its workspace is made once, the weights' maps once)."""
+    args, pools, lens_t, kw, _ = _mega_case(card, s, 128, "paged", kv8,
+                                            seed=3)
+    names = _cuda_kernels(lambda: _mega_call(args, pools, lens_t, kw, kv8))
+    assert len(names) == 1 and "decoder_layer_kernel" in names[0], names
+
+
+def test_megakernels_build_without_spills(card):
+    """ptxas (``scripts/kernel_resources.py``) reports no spill stores or
+    loads and no stack for any instance of either megakernel."""
+    from pathlib import Path
+
+    from cmw_rag_tpu_torch.scripts import kernel_resources as KR
+
+    root = Path(__file__).resolve().parents[1]
+    for stem in ("decoder_layer", "decoder_layer_kv8"):
+        _, kernels = KR.compile_source(root, stem)
+        mega = [k for k in kernels if "decoder_layer_kernel" in k["kernel"]]
+        assert len(mega) == 4, [k["kernel"] for k in kernels]
+        for k in mega:
+            assert (k["spill_stores"], k["spill_loads"], k["stack"]) \
+                == (0, 0, 0), k
+
+
 def test_batched_stream_and_dma_aliases_equal_their_kernels(card):
     q, kp, vp, tables, lens = _paged_case(card, 4, 16, 8, 128, 64, 32,
                                           [1, 63, 2047], seed=7)
