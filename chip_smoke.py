@@ -1951,15 +1951,38 @@ def split_items(lens, positions: int, hkv: int, s: int) -> dict:
             "live_items": hkv * live}
 
 
-def megakernel_plan(DL, s, d, hq, hkv, dh, f, device, kv8=False) -> dict:
-    """The megakernel's host plan for a call (``layer_plan``): its grid,
-    row tile, ring stages, the four products' splits and its grid-wide
-    waits a layer."""
-    plan = DL.layer_plan(s, d, hq, hkv, dh, f,
-                         DL._grid(device, DL.layer_tile(s), dh, kv8))
+def plan_info(plan, grid_waits: int) -> dict:
+    """A weight-phase plan's numbers for a record: its grid, row tile,
+    ring stages, the products' splits (QKV, wo, gate/up, down; the fused
+    MLP's QKV slot is empty), the tiles merged from splits, the busiest
+    block's 8 KB stages and the grid-wide waits a call."""
+    from cmw_rag_tpu_torch.ops import weight_phases as WP
+
     return {"grid_blocks": plan.grid, "row_tile": plan.mt, "ring": plan.ring,
             "splits": [q.ks for q in plan.products],
-            "grid_waits": DL.GRID_WAITS}
+            "merges": sum(plan.mtiles * q.ctiles for q in plan.products
+                          if q.ks > 1),
+            "block_stages": max(WP.layer_block_stages(plan)),
+            "grid_waits": grid_waits}
+
+
+def megakernel_plan(DL, s, d, hq, hkv, dh, f, device, kv8=False) -> dict:
+    """The megakernel's host plan for a call (``layer_plan``)."""
+    from cmw_rag_tpu_torch.ops import weight_phases as WP
+
+    return plan_info(WP.layer_plan(s, d, hq, hkv, dh, f,
+                                   DL._grid(device, WP.layer_tile(s), dh,
+                                            kv8)), DL.GRID_WAITS)
+
+
+def mlp_plan_info(s, d, a, f, device) -> dict:
+    """The fused MLP's host plan for a call (``mlp_plan``)."""
+    from cmw_rag_tpu_torch.ops import fused_mlp as FM
+    from cmw_rag_tpu_torch.ops import weight_phases as WP
+
+    return plan_info(WP.mlp_plan(s, d, a, f,
+                                 FM._grid(device, WP.layer_tile(s))),
+                     FM.GRID_WAITS)
 
 
 #: the megakernels' cases: name, active lengths, idle slots (on the null
@@ -2041,18 +2064,100 @@ def mega_call(c: dict, layer: dict, li: int, ablate: str = "",
               **c["kw"])[0]
 
 
+def window_ms(fn, iters: int, kernel: str, what: str) -> float:
+    """Device ms of ``kernel``: the mean of its records in one complete
+    profiler window of ``iters`` calls of ``fn``
+    (``profile_query.kernel_window`` with its name: the profiler on the
+    card drops some records even in a fresh process, PERF.md §7, and a
+    window short of one is taken again, three times, then this raises)."""
+    from cmw_rag_tpu_torch.scripts.profile_query import kernel_window
+
+    events, _ = kernel_window(fn, iters, kernel)
+    spans = [e.time_range.end - e.time_range.start for e in events
+             if kernel in e.name]
+    if len(spans) != iters:
+        raise RuntimeError(f"{what}: {len(spans)} records in a window of "
+                           f"{iters} calls")
+    return sum(spans) / len(spans) / 1e3
+
+
+#: the fused MLP's cases: name, rows (4 slots with int8 KV; 16, the int8
+#: default past 8 slots; 32, two row tiles and a ring that runs ahead)
+MLP_CASES = (("s4", 4), ("s16", 16), ("s32", 32))
+#: the fused MLP's name in the profiler's records
+MLP_KERNEL = "fused_mlp_kernel"
+
+
+def mlp_inputs(gen, s: int, d: int = 1024, a: int = 2048):
+    """The fused MLP's x [S, D] and attention output [S, A], bf16."""
+    import torch
+
+    x = torch.randn((s, d), generator=gen, device="cuda").bfloat16()
+    attn = (0.1 * torch.randn((s, a), generator=gen, device="cuda")
+            ).bfloat16()
+    return x, attn
+
+
+def mlp_timings() -> dict:
+    """Device ms of the fused MLP at ``MLP_CASES`` over 28 layers' weights
+    in turn, each the mean of its records in one complete profiler window
+    of 56 calls (``window_ms``), with its plan (``mlp_plan_info``: splits,
+    merges, the busiest block's stages, the ring, the grid-wide waits)."""
+    import torch
+    from cmw_rag_tpu_torch.ops import fused_mlp as FM
+
+    n_layers, iters, d, a, f = 28, 56, 1024, 2048, 3072
+    gen = torch.Generator(device="cuda").manual_seed(19)
+    layers = int8_layers(n_layers, gen)
+    out = {}
+    for case, s in MLP_CASES:
+        x, attn = mlp_inputs(gen, s, d, a)
+
+        def call(li, x=x, attn=attn):
+            return FM.fused_mlp_int8(x, attn, *[layers[li][k]
+                                                for k in MLP_KEYS])
+        out[case] = {"ms": window_ms(cycling(call, n_layers), iters,
+                                     MLP_KERNEL, f"fused MLP {case}"),
+                     **mlp_plan_info(s, d, a, f, x.device)}
+    return out
+
+
+def timings_child(card_line: str, fn: str, *args) -> dict:
+    """``fn(*args)`` of this file in a process of its own, started from this
+    file's directory: late in one long process the profiler drops kernel
+    records (PERF.md §7), and these windows must be complete."""
+    import subprocess
+
+    code = ("import json, sys\nsys.path.insert(0, '.')\n"
+            "import chip_smoke as c\n"
+            f"r = c.{fn}(*{args!r})\n"
+            "print('CHILD_RECORDS ' + json.dumps(r), flush=True)\n")
+    t0 = time.time()
+    proc = subprocess.run([sys.executable, "-c", code],
+                          cwd=Path(__file__).resolve().parent,
+                          capture_output=True, text=True)
+    result = None
+    for line in proc.stdout.splitlines():
+        if line.startswith("CHILD_RECORDS "):
+            result = json.loads(line[len("CHILD_RECORDS "):])
+        else:
+            print(line, flush=True)
+    if proc.returncode != 0 or result is None:
+        sys.stderr.write(proc.stderr[-4000:])
+        raise AssertionError(f"{fn} failed ({proc.returncode})")
+    log(fn, time.time() - t0, card_line, args=list(args),
+        **{case: r["ms"] for case, r in result.items()})
+    return result
+
+
 def megakernel_timings(kv8: bool = False) -> dict:
     """Device ms of the decoder-layer megakernel (``kv8``: the int8-KV
     one) at ``MEGA_CASES`` over 28 layers' weights in turn: whole, with
     attention ablated ("noattn") and at splits of 64 and 128 positions.
     Each is the mean of the megakernel's records in one complete profiler
-    window of 56 calls (``profile_query.kernel_window`` with its name: the
-    profiler on the card drops some of these records even in a fresh
-    process, PERF.md §7, and a window short of one is taken again, three
-    times, then this raises)."""
+    window of 56 calls (``window_ms``)."""
     import torch
     from cmw_rag_tpu_torch.ops import paged_attention as PA
-    from cmw_rag_tpu_torch.scripts.profile_query import kernel_window
 
     n_layers, iters = 28, 56
     gen = torch.Generator(device="cuda").manual_seed(18)
@@ -2064,15 +2169,9 @@ def megakernel_timings(kv8: bool = False) -> dict:
         def call(li, ablate="", c=c):
             return mega_call(c, layers[li], li, ablate)
 
-        def dev(fn):
-            events, _ = kernel_window(cycling(fn, n_layers), iters,
-                                      MEGA_KERNEL)
-            spans = [e.time_range.end - e.time_range.start for e in events
-                     if MEGA_KERNEL in e.name]
-            if len(spans) != iters:
-                raise RuntimeError(f"megakernel {case}: {len(spans)} "
-                                   f"records in a window of {iters} calls")
-            return sum(spans) / len(spans) / 1e3
+        def dev(fn, case=case):
+            return window_ms(cycling(fn, n_layers), iters, MEGA_KERNEL,
+                             f"megakernel {case}")
 
         rec = {"ms": dev(call),
                "noattn_ms": dev(lambda li: call(li, "noattn")),
@@ -2088,35 +2187,6 @@ def megakernel_timings(kv8: bool = False) -> dict:
         del c
         torch.cuda.empty_cache()
     return out
-
-
-def megakernel_child(card_line: str, kv8: bool = False) -> dict:
-    """``megakernel_timings`` in a process of its own, started from this
-    file's directory: late in one long process the profiler drops kernel
-    records (PERF.md §7), and these windows must be complete."""
-    import subprocess
-
-    code = ("import json, sys\nsys.path.insert(0, '.')\n"
-            "import chip_smoke as c\n"
-            f"r = c.megakernel_timings({kv8!r})\n"
-            "print('MEGA_RECORDS ' + json.dumps(r), flush=True)\n")
-    t0 = time.time()
-    proc = subprocess.run([sys.executable, "-c", code],
-                          cwd=Path(__file__).resolve().parent,
-                          capture_output=True, text=True)
-    result = None
-    for line in proc.stdout.splitlines():
-        if line.startswith("MEGA_RECORDS "):
-            result = json.loads(line[len("MEGA_RECORDS "):])
-        else:
-            print(line, flush=True)
-    if proc.returncode != 0 or result is None:
-        sys.stderr.write(proc.stderr[-4000:])
-        raise AssertionError(f"the megakernel timings failed "
-                             f"({proc.returncode})")
-    log("megakernel-timings", time.time() - t0, card_line, kv8=kv8,
-        **{case: r["ms"] for case, r in result.items()})
-    return result
 
 
 def split_bounds_phase(layers, card_line: str) -> dict:
@@ -2297,11 +2367,11 @@ def int8_kernel_phase(card_line: str) -> dict:
         del kp, vp
         torch.cuda.empty_cache()
 
-    # the fused MLP at 4 and 16 slots
-    for case, s in (("s4", 4), ("s16", 16)):
-        x = torch.randn((s, d), generator=gen, device="cuda").bfloat16()
-        attn = (0.1 * torch.randn((s, a), generator=gen, device="cuda")
-                ).bfloat16()
+    # the fused MLP at 4, 16 and 32 slots; its device times from complete
+    # profiler windows in a process of its own (``mlp_timings``)
+    mlp = timings_child(card_line, "mlp_timings")
+    for case, s in MLP_CASES:
+        x, attn = mlp_inputs(gen, s, d, a)
 
         def kern(li):
             return FM.fused_mlp_int8(x, attn, *[layers[li][k]
@@ -2319,15 +2389,16 @@ def int8_kernel_phase(card_line: str) -> dict:
         record("fused_mlp_int8", case, cycling(kern, n_layers),
                cycling(plain, n_layers), cycling(lib, n_layers), got, want,
                INT8_LAYER_TOL, mlp_w + 4 * (3 * d + 2 * f) + 2 * s * (2 * d + a),
-               2.0 * s * mlp_w, {"S": s, "D": d, "A": a, "F": f})
+               2.0 * s * mlp_w, {"S": s, "D": d, "A": a, "F": f},
+               extra=mlp[case])
 
     # the megakernel at 4 slots: slot-major (contexts within cap 6) and
     # paged (one context of 2047, past the slot-major budget), one idle
     # slot; at 8 slots x 256, slot-major, every slot active (the decode
     # cell's batch); its device times (also with attention ablated,
     # "noattn", and at each split) from a process of its own
-    # (``megakernel_child``)
-    mega = megakernel_child(card_line)
+    # (``timings_child``)
+    mega = timings_child(card_line, "megakernel_timings", False)
     for case, lens, idle, route in MEGA_CASES[False]:
         c = mega_inputs(gen, lens, idle, route, False, n_layers, d, hkv, dh,
                         page, maxp)
@@ -2741,8 +2812,8 @@ def w8a8_kv8_kernel_phase(card_line: str) -> dict:
         report[("int8_matmul_w8a8", case)] = entry
 
     # the int8-KV megakernel at 4 slots, one idle slot; its device times
-    # from a process of its own (``megakernel_child``)
-    mega = megakernel_child(card_line, kv8=True)
+    # from a process of its own (``timings_child``)
+    mega = timings_child(card_line, "megakernel_timings", True)
     for case, lens, idle, route in MEGA_CASES[True]:
         c = mega_inputs(gen, lens, idle, route, True, n_layers, d, hkv, dh,
                         page, maxp)
@@ -3615,7 +3686,7 @@ def main() -> int:
     int8_cases = {"int8_matmul": ("qkv-s4", "head-s4", "qkv-s16"),
                   "paged_decode_attention_dma_slot": ("s4-cap6", "s4-cap2",
                                                       "s16-cap6"),
-                  "fused_mlp_int8": ("s4", "s16"),
+                  "fused_mlp_int8": ("s4", "s16", "s32"),
                   "decoder_layer_int8": ("s4-slot", "s4-paged")}
     int8_runs = int8["engine"]["runs"]
     for name, (replaces, source) in INT8_KERNELS.items():
@@ -3633,7 +3704,9 @@ def main() -> int:
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "max_err_past_one_step", "tolerance", "shape")})
         split_keys = ("split", "n_split", "items", "live_items",
-                      "grid_blocks", "ms_by_split", "bit_equal_launches")
+                      "grid_blocks", "ms_by_split", "bit_equal_launches",
+                      "noattn_ms", "row_tile", "ring", "splits", "merges",
+                      "block_stages", "grid_waits")
         row.update({k: main_case[k] for k in split_keys if k in main_case})
         for case in cases[1:]:
             entry = int8["kernels"][(name, case)]

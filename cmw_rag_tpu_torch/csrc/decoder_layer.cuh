@@ -1,8 +1,9 @@
 // The decoder-layer decode megakernel's device code, shared by
 // csrc/decoder_layer.cu (bf16 KV pages) and csrc/decoder_layer_kv8.cu (int8
 // KV pages): each source instantiates the kernel for its pool type only, so
-// the two compile in parallel. The build hashes this header, hopper.cuh and
-// int8_decode.cuh with each (ops/cuda_build.py).
+// the two compile in parallel. The build hashes this header,
+// weight_phases.cuh, hopper.cuh and int8_decode.cuh with each
+// (ops/cuda_build.py).
 //
 // One int8-weight decoder layer, for one new token per slot, in ONE launch
 // (Hopper, sm_90a). Function, per slot s: y = bf16(x * rsqrt(mean(x^2) +
@@ -23,98 +24,41 @@
 // the time goes to latency: the weights' first bytes, and the round trips
 // of the phases that depend on each other.
 //
-// Design: ONE persistent cooperative launch, one block a SM of eight
-// consumer warps and a producer warp (the grid is the host plan's, at most
-// the co-resident blocks). Nine warps leave a thread 168 registers (three
-// warps share a quarter of the register file); the kernel is written to
-// need no more (no spills: scripts/kernel_resources.py).
-// - The weight products (QKV, wo, gate/up, down) are one list of work
-//   items, (row tile, column tile, split of the contraction) of each
-//   product in phase order; block b takes items b, b + grid, ... (the host
-//   plan, ops/decoder_layer.py layer_plan, picks the splits). A gate/up
-//   item takes the gate tile and the up tile of the same columns, so that
-//   its merge can form h.
-// - Weights arrive by TMA (a 2-D map a weight, boxes of 64 rows x 128
-//   columns, 128-byte swizzle; the host encodes each map once and caches
-//   it) into a ring of 8 KB stages on mbarriers. The block issues the first
-//   `ring` stages of the block's items of ALL four products at kernel
-//   entry: the weights do not depend on the activations, so phase n + 1's
-//   weights land while phase n computes and while the grid waits. At up to
-//   16 rows the plan sizes the ring to hold every stage of the block's
-//   items (about 17 stages, 136 KB, at qwen3guard-0.6b's width): all of
-//   them are in flight from the first instruction. A producer warp issues
-//   them and exits: the issue lasts as long as the memory system takes to
-//   accept a block's share of the weights (microseconds, all blocks
-//   streaming at once), which a consumer warp issuing them spent off its
-//   own work, and the phases' waits for each other with it. The consumer
-//   warps meet on a named barrier of their own; attend_split and the grid
-//   barrier meet on the block-wide one, which, once the producer has
-//   exited, waits on the consumers alone. With more rows the ring runs
-//   ahead: consumer thread 0 refills a stage as soon as the block is done
-//   with it, so the next stages (across the grid barriers too) stay in
-//   flight.
-// - Products on the tensor cores: mma.sync m16n8k16 bf16 x bf16 -> f32,
-//   the weights as operand A (16 output columns x 16 contraction rows),
-//   the bf16 activations, held in shared memory, as operand B (8 rows a
-//   fragment; 8 or 16 rows a row tile). A thread reads four bytes
-//   (four columns) from each of the contraction rows 2t, 2t + 1, 2t + 8 and
-//   2t + 9 of a 16-row step (with the swizzle, a warp's loads hit 32
-//   distinct banks), transposes them with byte permutes and turns each
-//   byte into bf16 exactly (|w| <= 127): 128 + its low 7 bits built as a
-//   bf16's bits, 128 or 256 (its sign) subtracted. Warp w takes 32 columns
-//   (w % 4) and half of each 64-row stage (w / 4); the halves are added in
-//   a fixed order at the item's end.
-// - Each activation is formed once a consumer, in bulk, into shared memory
-//   before the item's first stage: the attention norm of x, bf16 of the
-//   attention output, the FFN norm of x1, h as the gate/up merge wrote it.
-//   A block that takes a QKV or gate/up item reads its row tile's rows of
-//   x or x1 whole for their norms, summing the squares in the previous
-//   kernel's order (row_rstd's, block_sum's): a norm one float32 step off
-//   the twin's moves y or y2 a bf16 step at a few elements, and such a step
-//   in y moves the layer's output past its tolerance at a dozen elements
-//   (the twin's own output, stepped so, does the same).
-// - Splits of the contraction write float32 partial tiles to the
-//   workspace; the last to arrive (an acquire-release counter a tile, set
-//   back to 0 by it) reads all of them, its loads in flight together with
-//   those of the epilogue's operands (scales, RoPE maps, the residual),
-//   adds them in split order (runs repeat bit for bit), scales, and writes
-//   what the next phase reads once per element: q after its head norm and
-//   RoPE (float32) and the K/V rows (phase 2 of the TPU kernel, folded
-//   in); x1; h = bf16(silu(g) * u); the output with its residual. (Those
-//   loads go after the arrival: a release waits for the thread's earlier
-//   loads too.)
-// - The plan's numbers are copied to shared memory at entry: the item
-//   arithmetic reads them there, not by dependent constant-bank loads of
-//   the kernel parameters.
+// Design: the weight phases of csrc/weight_phases.cuh (one persistent
+// cooperative launch, one block a SM of eight consumer warps and a producer
+// warp that puts the block's weight stages of all four products in flight
+// by TMA at entry; mma.sync bf16 products; splits merged by the last to
+// arrive; the host plan is ops/weight_phases.py layer_plan), with the
+// megakernel's own pieces:
+// - The QKV merge writes q after its head norm and RoPE (float32) and the
+//   K/V rows (phase 2 of the TPU kernel, folded in). A block that takes a
+//   QKV item reads its row tile's rows of x whole for the attention norm.
 // - Three grid-wide waits a layer, where every block needs every other's
 //   output: attention -> wo, wo -> the FFN norm, gate/up -> down. The QKV
 //   merges release a counter a (row tile, KV head group); an attention item
 //   of (slot, KV head, split) waits (acquire) until all of its group's
 //   rep + 2 heads are merged. Every block is resident, so the waits end.
-// - Attention is attend_split() of csrc/int8_decode.cuh as before, one
-//   (slot, KV head, split) item at a time; the last split of a (slot, KV
-//   head) to finish merges the others' partials (attn_part) in split order
-//   and sets its counter (attn_count) back to 0. Only the live items (those
-//   under the slot's length) are handed out, numbered densely, so that an
-//   item past a length takes no block's turn: with one block a SM, fewer
-//   rounds of items.
+// - Attention is attend_split() of csrc/int8_decode.cuh, one (slot, KV
+//   head, split) item at a time, in the activations' and tile buffer's
+//   shared memory; the last split of a (slot, KV head) to finish merges the
+//   others' partials (attn_part) in split order and sets its counter
+//   (attn_count) back to 0. Only the live items (those under the slot's
+//   length) are handed out, numbered densely, so that an item past a
+//   length takes no block's turn: with one block a SM, fewer rounds of
+//   items.
 // Counters live in the wrapper's per-(device, stream) workspace: zero when
 // made, and every launch leaves them 0 (the block that reads a counter last
 // resets it; the head-group counters are reset after the first grid-wide
-// wait). Data written in the launch is read back with ld.global.cg. The
-// caller guarantees that active slots write distinct rows; idle slots
-// write row 0 of the null page, whose output nobody samples. A launch whose
-// grid cannot be co-resident fails, and the failure is returned.
+// wait). The caller guarantees that active slots write distinct rows; idle
+// slots write row 0 of the null page, whose output nobody samples. A launch
+// whose grid cannot be co-resident fails, and the failure is returned.
 //
 // The ablation "noattn" (the TPU kernels' ablate argument, diagnosis only:
 // wrong outputs on purpose) skips attention; wo reads q as its input.
 
 #pragma once
 
-#include <string.h>
-
-#include "hopper.cuh"
-#include "int8_decode.cuh"
+#include "weight_phases.cuh"
 
 namespace {
 
@@ -122,57 +66,16 @@ using namespace i8d;
 
 constexpr float kKvHeadroom = 1.25f / 127.0f;  // KV_HEADROOM / 127
 
-// The weight phases' geometry (mirrored by ops/decoder_layer.py).
-constexpr int kCols = 128;             // a box's columns (128 bytes)
-constexpr int kRows = 64;              // a box's contraction rows: a stage
-constexpr int kStage = kCols * kRows;  // 8 KB
-constexpr int kKCap = 1024;            // contraction rows of an item, at most
-constexpr int kActRow = kKCap + 8;     // bf16 a row of the activations
-constexpr int kTW = 2 * kCols + 4;     // floats a row of the tile buffer
-constexpr int kMaxRing = 32;           // ring stages, at most
-constexpr int kBlock = kThreads + 32;  // 8 consumer warps, 1 producer warp
-constexpr int kConsBar = 1;            // the consumers' named barrier
-constexpr int kInitBar = 2;            // the ring is initialised: everyone
-constexpr int kSmemLimit = 232448;     // a block's shared memory (sm_90)
-constexpr int kStaticSlack = 1024;     // static shared memory, at most
-
-enum { kQkv = 0, kWo = 1, kGu = 2, kDn = 3 };
-
-// Dynamic shared memory beside the ring: slack to align the ring to 1024
-// bytes (the swizzle's period), the activations [MT][kActRow] bf16 and the
-// tile buffer [MT][kTW] float32 (attend_split's scratch shares these two).
-__host__ __device__ constexpr int fixed_smem(int mt) {
-  return 1024 + mt * kActRow * 2 + mt * kTW * 4;
-}
-__host__ __device__ constexpr int layer_smem(int mt, int ring) {
-  return fixed_smem(mt) + ring * kStage;
-}
-__host__ __device__ constexpr int max_ring(int mt) {
-  return (kSmemLimit - kStaticSlack - fixed_smem(mt)) / kStage < kMaxRing
-             ? (kSmemLimit - kStaticSlack - fixed_smem(mt)) / kStage
-             : kMaxRing;
-}
 static_assert(attend_smem(128) <= 8 * kActRow * 2 + 8 * kTW * 4,
               "attention's scratch fits the activations and tile buffer");
 
-// One weight product of the layer's list.
-struct Product {
-  int ctiles;   // column tiles (gate/up: pairs of a gate and an up tile)
-  int nb;       // boxes a stage: 1, or 2 for gate/up
-  int ks;       // splits of the contraction
-  int steps;    // stages of the contraction (K / 64)
-  int n;        // output columns (gate/up: F)
-  int box_off;  // column of box 1 past box 0 (gate/up: F)
-  int items;    // row tiles x ctiles x ks
-  int base;     // its first item in the layer's list
-};
-
 struct alignas(64) LayerArgs {
-  CUtensorMap maps[4];  // wqkv, wo, gate/up, down; boxes of 64 x 128
-  Product prod[4];
+  // the weight phases: x, the scales and norms, S, D, A, F, eps; part: the
+  // partial tiles; h [S, F] bf16; x1 [S, D]; out [S, D]; wo_in: the
+  // attention output (noattn: q)
+  WeightArgs w;
   const float* c2;  // [S, Dh] RoPE maps
   const float* s2;
-  const float* anorm;  // [D]
   const float* wqkv_s;
   const float* qn;  // [Dh]
   const float* kn;
@@ -190,103 +93,8 @@ struct alignas(64) LayerArgs {
   int* attn_count;   // [S, Hkv] splits written, left 0
   float* qbuf;       // [S, Hq, Dh]
   float* aout;       // [S, Hq, Dh]
-  int* tile_count;   // [the most tiles of a product] arrivals, left 0
   int* ready;        // [row tiles, Hkv] heads merged, reset after wait 1
-  int mtiles, ring, total;  // row tiles, ring stages, items in the list
-  // x, the scales and norms, S, D, A, F, eps; part_a: the partial tiles;
-  // part_b: h [S, F] bf16; x1 [S, D]; out [S, D] (ybuf is not read)
-  MlpArgs mlp;
 };
-
-// Item g of the layer's list (prod: the block's shared copy of the plan,
-// read without the kernel parameters' dependent constant loads).
-struct Item {
-  int prod, mt, ct, ki, s0, s1;  // stages [s0, s1) of the contraction
-};
-
-__device__ __forceinline__ Item item_at(const Product* prod, int g) {
-  int pr = 0;
-  while (pr < 3 && g >= prod[pr + 1].base) ++pr;
-  const Product& q = prod[pr];
-  const int i = g - q.base;
-  Item t;
-  t.prod = pr;
-  t.ki = i % q.ks;
-  const int tile = i / q.ks;
-  t.ct = tile % q.ctiles;
-  t.mt = tile / q.ctiles;
-  t.s0 = t.ki * q.steps / q.ks;
-  t.s1 = (t.ki + 1) * q.steps / q.ks;
-  return t;
-}
-
-// This block's first item of product pr.
-__device__ __forceinline__ int first_item(const Product& q) {
-  const int g = static_cast<int>(gridDim.x);
-  return q.base + ((static_cast<int>(blockIdx.x) - q.base) % g + g) % g;
-}
-
-// Thread 0's walk over the block's stages, in the order the block uses
-// them: items b, b + grid, ...; each item's stages; each stage's boxes.
-struct Walk {
-  int g, s, b, issued;
-  Item t;
-  const Product* prod;
-  __device__ void start(const LayerArgs& p, const Product* plan) {
-    prod = plan;
-    g = blockIdx.x;
-    s = b = issued = 0;
-    if (g < p.total) {
-      t = item_at(prod, g);
-      s = t.s0;
-    }
-  }
-  __device__ bool more(const LayerArgs& p) const { return g < p.total; }
-  // The next stage into its slot (load false: only step past it).
-  __device__ void issue(const LayerArgs& p, unsigned char* ring,
-                        uint64_t* full, bool load = true) {
-    const Product& q = prod[t.prod];
-    const int slot = issued % p.ring;
-    if (load) {
-      hopper::mbar_arrive_expect_tx(&full[slot], kStage);
-      hopper::tma_load_2d(ring + slot * kStage, &p.maps[t.prod], &full[slot],
-                          t.ct * kCols + b * q.box_off, s * kRows);
-    }
-    ++issued;
-    if (++b < q.nb) return;
-    b = 0;
-    if (++s < t.s1) return;
-    g += gridDim.x;
-    if (g < p.total) {
-      t = item_at(prod, g);
-      s = t.s0;
-    }
-  }
-};
-
-__device__ __forceinline__ int ld_acquire(const int* c) {
-  int v;
-  asm volatile("ld.acquire.gpu.global.s32 %0, [%1];\n"
-               : "=r"(v) : "l"(c) : "memory");
-  return v;
-}
-
-__device__ __forceinline__ void red_release(int* c, int v) {
-  asm volatile("red.release.gpu.global.add.s32 [%0], %1;\n"
-               :: "l"(c), "r"(v) : "memory");
-}
-
-__device__ __forceinline__ int atom_add_acq_rel(int* c, int v) {
-  int old;
-  asm volatile("atom.add.acq_rel.gpu.global.s32 %0, [%1], %2;\n"
-               : "=r"(old) : "l"(c), "r"(v) : "memory");
-  return old;
-}
-
-// The consumer warps' barrier (the producer warp takes no part).
-__device__ __forceinline__ void csync() {
-  hopper::named_bar_sync(kConsBar, kThreads);
-}
 
 // Spins (one thread) until *c reaches target; a wait that never ends traps
 // instead of hanging the card.
@@ -327,69 +135,6 @@ __device__ int nth_slot_past(const int* lens, int s, int cap, int split,
   return s;  // not reached: k is under slots_past
 }
 
-// Rows r0..r3 of four adjacent columns (one word a row) -> one word a
-// column, its rows low byte first.
-__device__ __forceinline__ void transpose4(const uint32_t* w, uint32_t* col) {
-  const uint32_t lo01 = __byte_perm(w[0], w[1], 0x5140);
-  const uint32_t hi01 = __byte_perm(w[0], w[1], 0x7362);
-  const uint32_t lo23 = __byte_perm(w[2], w[3], 0x5140);
-  const uint32_t hi23 = __byte_perm(w[2], w[3], 0x7362);
-  col[0] = __byte_perm(lo01, lo23, 0x5410);
-  col[1] = __byte_perm(lo01, lo23, 0x7632);
-  col[2] = __byte_perm(hi01, hi23, 0x5410);
-  col[3] = __byte_perm(hi01, hi23, 0x7632);
-}
-
-// Four int8 values (lowest byte first) as two bf16 pairs, exactly: lo =
-// (b0, b1), hi = (b2, b3), the lower value in the lower half. A lane 0x43mm
-// (mm the byte's low 7 bits) is 128 + mm; less 128 (the byte's sign bit
-// clear) or 256 (set), 0x4300 or 0x4380, it is the byte's value (|w| <=
-// 128, so both bf16 values and the difference are exact).
-__device__ __forceinline__ void i8x4_bf16(uint32_t w, uint32_t& lo,
-                                          uint32_t& hi) {
-  const uint32_t m = w & 0x7F7F7F7Fu, sgn = w & 0x80808080u;
-  const uint32_t vlo = __byte_perm(m, 0x43434343u, 0x5140);
-  const uint32_t vhi = __byte_perm(m, 0x43434343u, 0x7362);
-  const uint32_t slo = __byte_perm(sgn, 0x43434343u, 0x5140);
-  const uint32_t shi = __byte_perm(sgn, 0x43434343u, 0x7362);
-  asm("sub.rn.bf16x2 %0, %1, %2;\n" : "=r"(lo) : "r"(vlo), "r"(slo));
-  asm("sub.rn.bf16x2 %0, %1, %2;\n" : "=r"(hi) : "r"(vhi), "r"(shi));
-}
-
-// d += A[16, 16] B[16, 8], bf16 x bf16 -> f32 (mma.sync m16n8k16; lane l,
-// g = l / 4, t = l % 4: a[0] = A[g][2t, 2t + 1], a[1] = A[g + 8][2t, ..],
-// a[2] = A[g][2t + 8, ..], a[3] = A[g + 8][2t + 8, ..]; b0 = B[2t, 2t +
-// 1][g], b1 = B[2t + 8, 2t + 9][g]; d = D[g][2t, 2t + 1], D[g + 8][2t,
-// 2t + 1]).
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float a, float b) {
-  __nv_bfloat162 h = __floats2bfloat162_rn(a, b);  // .x = a, the low half
-  return *reinterpret_cast<uint32_t*>(&h);
-}
-
-__device__ __forceinline__ uint4 pack8(const float (&v)[8]) {
-  return make_uint4(pack_bf16(v[0], v[1]), pack_bf16(v[2], v[3]),
-                    pack_bf16(v[4], v[5]), pack_bf16(v[6], v[7]));
-}
-
-__device__ __forceinline__ void unpack8(const uint4& u, float (&v)[8]) {
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 f = __bfloat1622float2(h[i]);
-    v[2 * i] = f.x;
-    v[2 * i + 1] = f.y;
-  }
-}
-
 // One K or V row of DH values, EL = DH / 32 a lane, into an int8 pool row
 // `dst` against the page's scale `*scale` (set from the row when fresh):
 // the rounding points of the TPU kernel (bf16 first, then the amax).
@@ -417,317 +162,6 @@ __device__ __forceinline__ void store_row_bf16(const float* t, int el,
   for (int e = 0; e < el; ++e) dst[e] = __float2bfloat16(t[e]);
 }
 
-// The block's shared state and its thread roles, as the phases use them.
-template <int F>
-struct Block {
-  static constexpr int MT = 8 * F;
-  const LayerArgs& p;
-  unsigned char* ring;
-  __nv_bfloat16* act;  // [MT][kActRow]
-  float* tb;           // [MT][kTW]
-  uint64_t* full;
-  float* rstd;   // [MT]
-  int* flag;
-  Walk& walk;    // thread 0's
-  int use;       // stages used so far (the same in every thread)
-  bool refill;   // the block has more stages than the ring holds
-  int tid, lane, warp;
-
-  // The item's products, partial over its stages, into tb [MT][nb * 128]
-  // (before the scale). The activations must be in act.
-  template <int NB>
-  __device__ __forceinline__ void mma_item(const Item& t) {
-    const int kh = warp >> 2, cq = warp & 3;
-    const int g8 = lane >> 2, t4 = lane & 3;
-    // the swizzled offsets of rows 2t, 2t + 1, 2t + 8, 2t + 9 of a 16-row
-    // step at this thread's four columns 32 cq + 4 g8 (the 128-byte swizzle
-    // moves 16-byte chunk c of row r to c ^ (r % 8))
-    const int chunk = 2 * cq + (g8 >> 2);
-    int off[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = 2 * t4 + (i & 1) + 8 * (i >> 1);
-      off[i] = r * kCols + ((chunk ^ (r & 7)) << 4) + 4 * (g8 & 3);
-    }
-    float acc[NB][F][2][4];
-#pragma unroll
-    for (int b = 0; b < NB; ++b)
-#pragma unroll
-      for (int f = 0; f < F; ++f)
-#pragma unroll
-        for (int h = 0; h < 2; ++h)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) acc[b][f][h][e] = 0.f;
-
-    for (int s = t.s0; s < t.s1; ++s) {
-      const int kact = (s - t.s0) * kRows;
-#pragma unroll
-      for (int b = 0; b < NB; ++b) {
-        const int u = use + b;
-        const int slot = u % p.ring;
-        hopper::mbar_wait(&full[slot], static_cast<uint32_t>(u / p.ring) & 1u);
-        const unsigned char* st = ring + slot * kStage;
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {  // this warp's two 16-row steps
-          const int kb = 32 * kh + 16 * j;
-          uint32_t w[4], col[4], lo[4], hi[4];
-#pragma unroll
-          for (int i = 0; i < 4; ++i)
-            w[i] = *reinterpret_cast<const uint32_t*>(st + kb * kCols + off[i]);
-          transpose4(w, col);
-#pragma unroll
-          for (int c = 0; c < 4; ++c) i8x4_bf16(col[c], lo[c], hi[c]);
-          // A tile h: its rows g8, g8 + 8 are columns 4 g8 + 2h, + 1
-          const uint32_t a0[4] = {lo[0], lo[1], hi[0], hi[1]};
-          const uint32_t a1[4] = {lo[2], lo[3], hi[2], hi[3]};
-#pragma unroll
-          for (int f = 0; f < F; ++f) {
-            const __nv_bfloat16* ar =
-                act + (8 * f + g8) * kActRow + kact + kb + 2 * t4;
-            const uint32_t b0 = *reinterpret_cast<const uint32_t*>(ar);
-            const uint32_t b1 = *reinterpret_cast<const uint32_t*>(ar + 8);
-            mma_bf16(acc[b][f][0], a0, b0, b1);
-            mma_bf16(acc[b][f][1], a1, b0, b1);
-          }
-        }
-      }
-      use += NB;
-      if (refill) {  // the stages just used are free: refill them
-        csync();
-        if (tid == 0)
-          for (int b = 0; b < NB && walk.more(p); ++b)
-            walk.issue(p, ring, full);
-      }
-    }
-
-    // the two halves of the contraction meet in tb, in a fixed order: this
-    // thread's sums are rows 8f + 2 t4 + e, columns 32 cq + 4 g8 .. + 3
-    csync();  // tb is free
-    if (kh == 1) {
-#pragma unroll
-      for (int b = 0; b < NB; ++b)
-#pragma unroll
-        for (int f = 0; f < F; ++f)
-#pragma unroll
-          for (int e = 0; e < 2; ++e)
-            *reinterpret_cast<float4*>(
-                tb + (8 * f + 2 * t4 + e) * kTW + b * kCols + 32 * cq +
-                4 * g8) = make_float4(acc[b][f][0][e], acc[b][f][0][2 + e],
-                                      acc[b][f][1][e], acc[b][f][1][2 + e]);
-    }
-    csync();
-    if (kh == 0) {
-#pragma unroll
-      for (int b = 0; b < NB; ++b)
-#pragma unroll
-        for (int f = 0; f < F; ++f)
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            float4* dst = reinterpret_cast<float4*>(
-                tb + (8 * f + 2 * t4 + e) * kTW + b * kCols + 32 * cq +
-                4 * g8);
-            const float4 o = *dst;
-            *dst = make_float4(acc[b][f][0][e] + o.x, acc[b][f][0][2 + e] + o.y,
-                               acc[b][f][1][e] + o.z,
-                               acc[b][f][1][2 + e] + o.w);
-          }
-    }
-    csync();
-  }
-
-  // The item's sums are in tb. With splits, this split's partial tile goes
-  // to the workspace and the block counts its arrival: → whether it is
-  // the tile's last (then gather() adds the splits and the block runs the
-  // epilogue). One split: true.
-  __device__ __forceinline__ bool arrive(const Product& q, const Item& t) {
-    if (q.ks == 1) return true;
-    const int w = q.nb * kCols;      // floats a partial row
-    const int tile = t.mt * q.ctiles + t.ct;
-    float* part = p.mlp.part_a + static_cast<int64_t>(tile) * q.ks * MT * w;
-    for (int i = tid; i < MT * w / 4; i += kThreads) {
-      const int r = i / (w / 4), c = 4 * (i % (w / 4));
-      *reinterpret_cast<float4*>(part + (t.ki * MT + r) * w + c) =
-          *reinterpret_cast<const float4*>(tb + r * kTW + c);
-    }
-    csync();
-    if (tid == 0) *flag = atom_add_acq_rel(p.tile_count + tile, 1) == q.ks - 1;
-    csync();
-    return *flag != 0;
-  }
-
-  // The last split reads all of them (a thread's loads in flight
-  // together) and adds them in split order into tb.
-  __device__ __forceinline__ void gather(const Product& q, const Item& t) {
-    if (q.ks == 1) return;
-    const int w = q.nb * kCols;
-    const int tile = t.mt * q.ctiles + t.ct;
-    const float* part =
-        p.mlp.part_a + static_cast<int64_t>(tile) * q.ks * MT * w;
-#pragma unroll 1
-    for (int i = tid; i < MT * w / 4; i += kThreads) {
-      const int r = i / (w / 4), c = 4 * (i % (w / 4));
-      const float* src = part + r * w + c;
-      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-      for (int j0 = 0; j0 < q.ks; j0 += 8) {
-        float4 x[8];
-#pragma unroll
-        for (int u = 0; u < 8; ++u)
-          x[u] = j0 + u < q.ks
-                     ? __ldcg(reinterpret_cast<const float4*>(
-                           src + static_cast<int64_t>(j0 + u) * MT * w))
-                     : make_float4(0.f, 0.f, 0.f, 0.f);
-#pragma unroll
-        for (int u = 0; u < 8; ++u) {
-          if (j0 + u < q.ks) {
-            v.x += x[u].x;
-            v.y += x[u].y;
-            v.z += x[u].z;
-            v.w += x[u].w;
-          }
-        }
-      }
-      *reinterpret_cast<float4*>(tb + r * kTW + c) = v;
-    }
-    if (tid == 0) p.tile_count[tile] = 0;  // every split has counted
-    csync();
-  }
-
-  // rstd[r] = 1 / sqrt(mean(x^2) + eps) of row m0 + r of x (0 past S), one
-  // warp a row, in row_rstd's order (each lane's elements lane, lane + 32,
-  // ... fused into its sum in turn, then the lanes' butterfly), so that y
-  // rounds to bf16 where the previous kernel's did; a lane's loads (32 at
-  // D 1024) are in flight together.
-  __device__ __forceinline__ void x_rstd(int m0) {
-    const MlpArgs& m = p.mlp;
-    for (int r = warp; r < MT; r += kWarps) {
-      const int si = m0 + r;
-      float ss = 0.f;
-      if (si < m.s) {
-        const __nv_bfloat16* row = m.x + static_cast<int64_t>(si) * m.d;
-        for (int i0 = lane; i0 < m.d; i0 += 32 * 32) {
-          float v[32];
-#pragma unroll
-          for (int u = 0; u < 32; ++u)
-            v[u] = i0 + 32 * u < m.d ? to_f(row[i0 + 32 * u]) : 0.f;
-#pragma unroll
-          for (int u = 0; u < 32; ++u)
-            if (i0 + 32 * u < m.d) ss += v[u] * v[u];
-        }
-      }
-      ss = warp_sum(ss);
-      if (lane == 0)
-        rstd[r] = si < m.s ? rsqrtf(ss / static_cast<float>(m.d) + m.eps)
-                           : 0.f;
-    }
-  }
-
-  // The FFN norm's rstd of the row tile's rows, in block_sum's order as the
-  // previous kernel took it (thread t's elements t, t + 256, ... fused into
-  // its sum in turn, each warp's butterfly, the warps' sums added in
-  // order), 8 rows at a time with all of a thread's loads in flight. red
-  // holds 8 x kWarps floats.
-  __device__ __forceinline__ void x1_rstd(int m0, float* red) {
-    const MlpArgs& m = p.mlp;
-    for (int r0 = 0; r0 < MT; r0 += 8) {
-      float ss[8];
-#pragma unroll
-      for (int i = 0; i < 8; ++i) ss[i] = 0.f;
-      for (int n0 = tid; n0 < m.d; n0 += 4 * kThreads) {
-        float v[8][4];
-#pragma unroll
-        for (int i = 0; i < 8; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            const int si = m0 + r0 + i, n = n0 + j * kThreads;
-            v[i][j] = si < m.s && n < m.d
-                          ? __ldcg(m.x1 + static_cast<int64_t>(si) * m.d + n)
-                          : 0.f;
-          }
-#pragma unroll
-        for (int i = 0; i < 8; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j)
-            if (n0 + j * kThreads < m.d) ss[i] += v[i][j] * v[i][j];
-      }
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        const float w = warp_sum(ss[i]);
-        if (lane == 0) red[i * kWarps + warp] = w;
-      }
-      csync();
-      if (tid < 8) {
-        const int si = m0 + r0 + tid;
-        float total = 0.f;
-#pragma unroll
-        for (int w = 0; w < kWarps; ++w) total += red[tid * kWarps + w];
-        rstd[r0 + tid] =
-            si < m.s ? rsqrtf(total / static_cast<float>(m.d) + m.eps) : 0.f;
-      }
-      csync();
-    }
-  }
-
-  // Eight input values of a product (and the norm's weights) at chunk c of
-  // the item's [MT rows, len columns from k0] activations.
-  struct Chunk {
-    float v[8], w[8];
-  };
-
-  __device__ __forceinline__ void load_chunk(int prod, int m0, int k0,
-                                             int chunks, int c,
-                                             Chunk& ch) const {
-    const MlpArgs& m = p.mlp;
-    const int r = c / chunks, k = k0 + 8 * (c % chunks), si = m0 + r;
-#pragma unroll
-    for (int i = 0; i < 8; ++i) ch.v[i] = ch.w[i] = 0.f;
-    if (c >= MT * chunks || si >= m.s) return;
-    const float* src = nullptr;
-    if (prod == kQkv) {  // x and the attention norm's weights
-      unpack8(*reinterpret_cast<const uint4*>(
-                  m.x + static_cast<int64_t>(si) * m.d + k), ch.v);
-#pragma unroll
-      for (int i = 0; i < 8; ++i) ch.w[i] = p.anorm[k + i];
-    } else if (prod == kWo) {  // the attention output (noattn: q)
-      src = (p.noattn ? p.qbuf : p.aout) + static_cast<int64_t>(si) * m.a + k;
-    } else if (prod == kGu) {  // x1 and the FFN norm's weights
-      src = m.x1 + static_cast<int64_t>(si) * m.d + k;
-#pragma unroll
-      for (int i = 0; i < 8; ++i) ch.w[i] = m.fnw[k + i];
-    } else {  // h, bf16 as the gate/up merge wrote it
-      unpack8(__ldcg(reinterpret_cast<const uint4*>(
-                  reinterpret_cast<const __nv_bfloat16*>(m.part_b) +
-                  static_cast<int64_t>(si) * m.f + k)), ch.v);
-    }
-    if (src != nullptr) {
-      const float4 lo = __ldcg(reinterpret_cast<const float4*>(src));
-      const float4 hi = __ldcg(reinterpret_cast<const float4*>(src + 4));
-      ch.v[0] = lo.x; ch.v[1] = lo.y; ch.v[2] = lo.z; ch.v[3] = lo.w;
-      ch.v[4] = hi.x; ch.v[5] = hi.y; ch.v[6] = hi.z; ch.v[7] = hi.w;
-    }
-  }
-
-  // act[r][0, len) = bf16 of the product's input at row m0 + r, columns
-  // [k0, k0 + len) (rows past S: zeros), a chunk of 8 a thread at a time;
-  // with `ahead`, `first` is this thread's first chunk, loaded ahead.
-  __device__ __forceinline__ void form(int prod, int m0, int k0, int len,
-                                       const Chunk& first, bool ahead) {
-    const int chunks = len / 8;
-#pragma unroll 2
-    for (int c = tid; c < MT * chunks; c += kThreads) {
-      Chunk ch;
-      if (c == tid && ahead)
-        ch = first;
-      else
-        load_chunk(prod, m0, k0, chunks, c, ch);
-      const int r = c / chunks, k = 8 * (c % chunks);
-      if (prod == kQkv || prod == kGu) {  // the norms: (v * rstd) * w
-#pragma unroll
-        for (int i = 0; i < 8; ++i) ch.v[i] = ch.v[i] * rstd[r] * ch.w[i];
-      }
-      *reinterpret_cast<uint4*>(act + r * kActRow + k) = pack8(ch.v);
-    }
-  }
-};
 
 template <int F, int DH, typename TP>
 __global__ void __launch_bounds__(kBlock, 1)
@@ -736,14 +170,12 @@ decoder_layer_kernel(const __grid_constant__ LayerArgs p) {
   constexpr bool kInt8 = sizeof(TP) == 1;
   constexpr int EL = DH / 32;
   constexpr int kHeads = kCols / DH;  // heads a QKV column tile
-  // epilogue elements a thread loads ahead: all of them at 8 rows; one at
-  // 16 rows, whose accumulators leave no registers for more
-  constexpr int kAhead = F == 1 ? MT / 2 : 1;
   extern __shared__ unsigned char smem_raw[];
+  const WeightArgs& w = p.w;
   unsigned char* ring = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
   __nv_bfloat16* act =
-      reinterpret_cast<__nv_bfloat16*>(ring + p.ring * kStage);
+      reinterpret_cast<__nv_bfloat16*>(ring + w.ring * kStage);
   float* tb = reinterpret_cast<float*>(act + MT * kActRow);
   __shared__ uint64_t full[kMaxRing];
   __shared__ float rstd[MT];
@@ -752,49 +184,17 @@ decoder_layer_kernel(const __grid_constant__ LayerArgs p) {
   TP* const k_pool = static_cast<TP*>(p.k_pool);
   TP* const v_pool = static_cast<TP*>(p.v_pool);
   cg::grid_group grid = cg::this_grid();
-  const MlpArgs& m = p.mlp;
-  const int s = m.s, d = m.d;
+  const int s = w.s;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int nh = p.hq + 2 * p.hkv, rep = p.hq / p.hkv;
 
-  // the producer warp: the ring, then the block's first `ring` stages of
-  // every product in flight (the memory system takes them as fast as it
-  // streams: microseconds of issue, off the consumers' path); then it
-  // exits, so that the block-wide barriers of attend_split and of the grid
-  // wait on the consumers only
-  static_assert(sizeof(Product) * 4 == 32 * sizeof(int), "a lane an int");
   if (warp == kWarps) {
-    reinterpret_cast<int*>(plan)[lane] =
-        reinterpret_cast<const int*>(p.prod)[lane];
-    __syncwarp();
-    if (lane == 0) {
-      for (int i = 0; i < p.ring; ++i) hopper::mbar_init(&full[i], 1);
-      hopper::fence_barrier_init();
-      for (int i = 0; i < 4; ++i) hopper::prefetch_tensor_map(&p.maps[i]);
-    }
-    __syncwarp();
-    hopper::named_bar_arrive(kInitBar, kBlock);
-    if (lane == 0) {
-      Walk w;
-      w.start(p, plan);
-      for (int i = 0; i < p.ring && w.more(p); ++i) w.issue(p, ring, full);
-    }
+    produce(w, plan, ring, full);
     return;
   }
-  hopper::named_bar_sync(kInitBar, kBlock);  // the ring and plan are set
-  int uses = 0;  // the block's stages, to know whether the ring refills
-  for (int g = blockIdx.x; g < p.total; g += gridDim.x) {
-    const Item t = item_at(plan, g);
-    uses += (t.s1 - t.s0) * plan[t.prod].nb;
-  }
-  // consumer thread 0 refills the ring past its first `ring` stages
-  Walk walk;
-  if (tid == 0 && uses > p.ring) {
-    walk.start(p, plan);
-    for (int i = 0; i < p.ring && walk.more(p); ++i)
-      walk.issue(p, ring, full, false);
-  }
-  Block<F> blk{p, ring, act, tb, full, rstd, &flag, walk, 0, uses > p.ring,
+  Walk walk;  // consumer thread 0 refills the ring past its first stages
+  const bool refill = consume_start(w, plan, walk);
+  Block<F> blk{w, plan, ring, act, tb, full, rstd, &flag, walk, 0, refill,
                tid, lane, warp};
 
   // 1-2. the QKV items; each tile's merge: head norms, RoPE, q out, k and v
@@ -825,10 +225,10 @@ decoder_layer_kernel(const __grid_constant__ LayerArgs p) {
         float ws[EL], c2[EL], s2[EL], nw[EL];
         int pg, off;
       };
-      auto head_of = [&](int w, Head& hd) {
-        const int r = w / kHeads, h = t.ct * kHeads + w % kHeads;
+      auto head_of = [&](int wi, Head& hd) {
+        const int r = wi / kHeads, h = t.ct * kHeads + wi % kHeads;
         const int si = t.mt * MT + r;
-        const bool in = w < MT * kHeads && si < s && h < nh;
+        const bool in = wi < MT * kHeads && si < s && h < nh;
         const float* nw = h < p.hq ? p.qn : p.kn;
 #pragma unroll
         for (int e = 0; e < EL; ++e) {
@@ -845,15 +245,15 @@ decoder_layer_kernel(const __grid_constant__ LayerArgs p) {
       Head head0;  // in flight with the splits' loads (8-row tiles)
       if constexpr (F == 1) head_of(warp, head0);
       blk.gather(q, t);
-      for (int w = warp; w < MT * kHeads; w += kWarps) {
-        const int r = w / kHeads, h = t.ct * kHeads + w % kHeads;
+      for (int wi = warp; wi < MT * kHeads; wi += kWarps) {
+        const int r = wi / kHeads, h = t.ct * kHeads + wi % kHeads;
         const int si = t.mt * MT + r;
         if (si >= s || h >= nh) continue;
         Head hd;
-        if (F == 1 && w == warp)
+        if (F == 1 && wi == warp)
           hd = head0;
         else
-          head_of(w, hd);
+          head_of(wi, hd);
         float tv[EL];
 #pragma unroll
         for (int e = 0; e < EL; ++e) {
@@ -877,7 +277,7 @@ decoder_layer_kernel(const __grid_constant__ LayerArgs p) {
         float ss = 0.f;
 #pragma unroll
         for (int e = 0; e < EL; ++e) ss += tv[e] * tv[e];
-        const float rn = rsqrtf(warp_sum(ss) / static_cast<float>(DH) + m.eps);
+        const float rn = rsqrtf(warp_sum(ss) / static_cast<float>(DH) + w.eps);
         float n[EL], o[EL];
 #pragma unroll
         for (int e = 0; e < EL; ++e) n[e] = tv[e] * rn * hd.nw[e];
@@ -958,168 +358,13 @@ decoder_layer_kernel(const __grid_constant__ LayerArgs p) {
   }
   grid.sync();  // wait 1: wo reads every head of the attention output
   if (blockIdx.x == 0)
-    for (int i = tid; i < p.mtiles * p.hkv; i += kThreads) p.ready[i] = 0;
+    for (int i = tid; i < w.mtiles * p.hkv; i += kThreads) p.ready[i] = 0;
 
-  // 4. wo; each tile's merge: x1 = x + (attn @ wo) * wo_s
-  {
-    const Product& q = plan[kWo];
-    for (int g = first_item(q); g < q.base + q.items; g += gridDim.x) {
-      const Item t = item_at(plan, g);
-      csync();
-      blk.form(kWo, t.mt * MT, t.s0 * kRows, (t.s1 - t.s0) * kRows,
-               typename Block<F>::Chunk{}, false);
-      csync();
-      blk.template mma_item<1>(t);
-      if (!blk.arrive(q, t)) continue;
-      // this thread's elements of the tile: their operands (x and wo_s); the
-      // first ones' loads in flight with the splits'
-      auto operands = [&](int k, float& ea, float& eb) {
-        const int i = tid + k * kThreads, r = i / kCols, c = i % kCols;
-        const int si = t.mt * MT + r, col = t.ct * kCols + c;
-        const bool in = si < s && col < d;
-        ea = in ? to_f(m.x[static_cast<int64_t>(si) * d + col]) : 0.f;
-        eb = in ? m.wo_s[col] : 0.f;
-      };
-      float ea[kAhead], eb[kAhead];
-#pragma unroll
-      for (int k = 0; k < kAhead; ++k) operands(k, ea[k], eb[k]);
-      blk.gather(q, t);
-#pragma unroll
-      for (int k = 0; k < MT / 2; ++k) {
-        float a, b;
-        if (k < kAhead) {
-          a = ea[k];
-          b = eb[k];
-        } else {
-          operands(k, a, b);
-        }
-        const int i = tid + k * kThreads, r = i / kCols, c = i % kCols;
-        const int si = t.mt * MT + r, col = t.ct * kCols + c;
-        if (si < s && col < d)
-          m.x1[static_cast<int64_t>(si) * d + col] = a + tb[r * kTW + c] * b;
-      }
-    }
-  }
-  grid.sync();  // wait 2: the FFN norm needs every column of x1
-
-  // 5. gate/up; each pair's merge: h = bf16(silu(g) * u)
-  {
-    const Product& q = plan[kGu];
-    int have_mt = -1;
-    for (int g = first_item(q); g < q.base + q.items; g += gridDim.x) {
-      const Item t = item_at(plan, g);
-      const int len = (t.s1 - t.s0) * kRows;
-      typename Block<F>::Chunk first;  // as in the QKV items
-      if constexpr (F == 1)
-        blk.load_chunk(kGu, t.mt * MT, t.s0 * kRows, len / 8, tid, first);
-      csync();
-      if (t.mt != have_mt) {
-        blk.x1_rstd(t.mt * MT, tb);
-        have_mt = t.mt;
-      }
-      blk.form(kGu, t.mt * MT, t.s0 * kRows, len, first, F == 1);
-      csync();
-      blk.template mma_item<2>(t);
-      if (!blk.arrive(q, t)) continue;
-      // this thread's elements of the tile: their operands (the gate's and up's scales); the
-      // first ones' loads in flight with the splits'
-      auto operands = [&](int k, float& ea, float& eb) {
-        const int i = tid + k * kThreads, r = i / kCols, c = i % kCols;
-        const int si = t.mt * MT + r, col = t.ct * kCols + c;
-        const bool in = si < s && col < m.f;
-        ea = in ? m.gu_s[col] : 0.f;
-        eb = in ? m.gu_s[m.f + col] : 0.f;
-      };
-      float ea[kAhead], eb[kAhead];
-#pragma unroll
-      for (int k = 0; k < kAhead; ++k) operands(k, ea[k], eb[k]);
-      blk.gather(q, t);
-#pragma unroll
-      for (int k = 0; k < MT / 2; ++k) {
-        float a, b;
-        if (k < kAhead) {
-          a = ea[k];
-          b = eb[k];
-        } else {
-          operands(k, a, b);
-        }
-        const int i = tid + k * kThreads, r = i / kCols, c = i % kCols;
-        const int si = t.mt * MT + r, col = t.ct * kCols + c;
-        if (si >= s || col >= m.f) continue;
-        const float gv = tb[r * kTW + c] * a;
-        const float uv = tb[r * kTW + kCols + c] * b;
-        reinterpret_cast<__nv_bfloat16*>(m.part_b)[
-            static_cast<int64_t>(si) * m.f + col] =
-            __float2bfloat16(gv * (1.f / (1.f + expf(-gv))) * uv);
-      }
-    }
-  }
-  grid.sync();  // wait 3: down reads every column of h
-
-  // 6. down; each tile's merge: out = x1 + (h @ down) * down_s
-  {
-    const Product& q = plan[kDn];
-    for (int g = first_item(q); g < q.base + q.items; g += gridDim.x) {
-      const Item t = item_at(plan, g);
-      csync();
-      blk.form(kDn, t.mt * MT, t.s0 * kRows, (t.s1 - t.s0) * kRows,
-               typename Block<F>::Chunk{}, false);
-      csync();
-      blk.template mma_item<1>(t);
-      if (!blk.arrive(q, t)) continue;
-      // this thread's elements of the tile: their operands (x1 and down_s); the
-      // first ones' loads in flight with the splits'
-      auto operands = [&](int k, float& ea, float& eb) {
-        const int i = tid + k * kThreads, r = i / kCols, c = i % kCols;
-        const int si = t.mt * MT + r, col = t.ct * kCols + c;
-        const bool in = si < s && col < d;
-        ea = in ? __ldcg(m.x1 + static_cast<int64_t>(si) * d + col) : 0.f;
-        eb = in ? m.dn_s[col] : 0.f;
-      };
-      float ea[kAhead], eb[kAhead];
-#pragma unroll
-      for (int k = 0; k < kAhead; ++k) operands(k, ea[k], eb[k]);
-      blk.gather(q, t);
-#pragma unroll
-      for (int k = 0; k < MT / 2; ++k) {
-        float a, b;
-        if (k < kAhead) {
-          a = ea[k];
-          b = eb[k];
-        } else {
-          operands(k, a, b);
-        }
-        const int i = tid + k * kThreads, r = i / kCols, c = i % kCols;
-        const int si = t.mt * MT + r, col = t.ct * kCols + c;
-        if (si < s && col < d)
-          m.out[static_cast<int64_t>(si) * d + col] =
-              __float2bfloat16(a + tb[r * kTW + c] * b);
-      }
-    }
-  }
-}
-
-// Row tile of S rows: 8 or 16 (8 rows a fragment; more rows take more row
-// tiles: a 32-row tile's accumulators spilled under 168 registers a
-// thread).
-__host__ __device__ constexpr int frags_of(int s) { return s <= 8 ? 1 : 2; }
-
-// Blocks of kBlock threads of a cooperative launch of kern with `smem`
-// bytes of dynamic shared memory: all that fit on the card at once (the
-// attribute set to `smem`). Negative: a CUDA error code.
-template <class K>
-int resident_blocks(K kern, int smem) {
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return -static_cast<int>(err);
-  int dev = 0, sms = 0, per_sm = 0;
-  if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
-      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                    dev)) != cudaSuccess ||
-      (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-           &per_sm, kern, kBlock, smem)) != cudaSuccess)
-    return -static_cast<int>(err);
-  return per_sm * sms;
+  blk.wo_phase();  // 4. x1 = x + (attn @ wo) * wo_s
+  grid.sync();     // wait 2: the FFN norm needs every column of x1
+  blk.gu_phase();  // 5. h = bf16(silu(g) * u)
+  grid.sync();     // wait 3: down reads every column of h
+  blk.dn_phase();  // 6. out = x1 + (h @ down) * down_s
 }
 
 template <int F, int DH, typename TP>
@@ -1137,20 +382,20 @@ int launch(const LayerArgs& p, int grid, cudaStream_t stream) {
   if (blocks <= 0)
     return blocks < 0 ? -blocks
                       : static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
-  if (grid > blocks || p.ring > max_ring(8 * F))
+  if (grid > blocks || p.w.ring > max_ring(8 * F))
     return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
   void* args[] = {const_cast<LayerArgs*>(&p)};
   const cudaError_t err = cudaLaunchCooperativeKernel(
       reinterpret_cast<const void*>(decoder_layer_kernel<F, DH, TP>),
-      dim3(grid), dim3(kBlock), args, layer_smem(8 * F, p.ring), stream);
+      dim3(grid), dim3(kBlock), args, layer_smem(8 * F, p.w.ring), stream);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int DH, typename TP>
 int by_rows(const LayerArgs& p, int grid, cudaStream_t stream) {
-  return frags_of(p.mlp.s) == 1 ? launch<1, DH, TP>(p, grid, stream)
-                                 : launch<2, DH, TP>(p, grid, stream);
+  return frags_of(p.w.s) == 1 ? launch<1, DH, TP>(p, grid, stream)
+                              : launch<2, DH, TP>(p, grid, stream);
 }
 
 template <typename TP, int DH>
@@ -1165,20 +410,6 @@ int blocks_by_tile(int mt, int dh) {
   if (dh == 64) return blocks_dh<TP, 64>(mt);
   if (dh == 128) return blocks_dh<TP, 128>(mt);
   return -static_cast<int>(cudaErrorInvalidValue);
-}
-
-// The tensor map of a weight w [k, n] int8 (n a multiple of 16, 16-byte
-// aligned): boxes of 64 rows x 128 columns, 128-byte swizzle, into the
-// sizeof(CUtensorMap) = 128 bytes at `map`. Returns the CUDA error code.
-inline int encode_weight(const void* w, int k, int n, void* map) {
-  if (map == nullptr || k < kRows || n < 16 || n % 16 != 0)
-    return static_cast<int>(cudaErrorInvalidValue);
-  CUtensorMap mp;
-  const int err = hopper_host::encode_2d(
-      &mp, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, w, static_cast<uint64_t>(n),
-      static_cast<uint64_t>(k), kCols, kRows, 128);
-  if (err == 0) memcpy(map, &mp, sizeof(CUtensorMap));
-  return err;
 }
 
 // The C entry of either source: checks the arguments, then launches the
@@ -1214,8 +445,6 @@ int run_layer(
       reinterpret_cast<uintptr_t>(x) % 16 != 0 ||
       (dh != 64 && dh != 128))
     return static_cast<int>(cudaErrorInvalidValue);
-  const int mt = 8 * frags_of(s);
-  const int mtiles = (s + mt - 1) / mt;
   const int a3 = (hq + 2 * hkv) * dh;
   // columns, boxes a stage, splits, contraction rows, box 1's offset
   const int spec[4][5] = {{a3, 1, ks_qkv, d, 0},
@@ -1224,28 +453,28 @@ int run_layer(
                           {d, 1, ks_dn, f, 0}};
   LayerArgs p;
   memset(&p, 0, sizeof(p));
-  memcpy(p.maps, maps, sizeof(p.maps));
-  int base = 0, most_tiles = 0;
-  for (int i = 0; i < 4; ++i) {
-    Product& q = p.prod[i];
-    q.n = spec[i][0];
-    q.nb = spec[i][1];
-    q.ks = spec[i][2];
-    q.steps = spec[i][3] / kRows;
-    q.box_off = spec[i][4];
-    q.ctiles = (q.n + kCols - 1) / kCols;
-    if (q.ks < 1 || q.ks > q.steps ||
-        (q.steps + q.ks - 1) / q.ks > kKCap / kRows)
-      return static_cast<int>(cudaErrorInvalidValue);
-    q.items = mtiles * q.ctiles * q.ks;
-    q.base = base;
-    base += q.items;
-    most_tiles = mtiles * q.ctiles > most_tiles ? mtiles * q.ctiles
-                                                : most_tiles;
-  }
+  WeightArgs& w = p.w;
+  w.s = s;
+  const int most_tiles = set_products(w, spec, maps, ring);
+  if (most_tiles < 0) return static_cast<int>(cudaErrorInvalidValue);
+  w.x = static_cast<const __nv_bfloat16*>(x);
+  w.anorm = attn_norm;
+  w.wo_in = noattn ? qbuf : aout;
+  w.wo_s = wo_s;
+  w.fnw = ffn_norm;
+  w.gu_s = gateup_s;
+  w.dn_s = down_s;
+  w.part = part_a;
+  w.h = reinterpret_cast<__nv_bfloat16*>(part_b);
+  w.x1 = x1;
+  w.out = static_cast<__nv_bfloat16*>(out);
+  w.tile_count = counts;
+  w.d = d;
+  w.a = a;
+  w.f = f;
+  w.eps = eps;
   p.c2 = c2;
   p.s2 = s2;
-  p.anorm = attn_norm;
   p.wqkv_s = wqkv_s;
   p.qn = q_norm;
   p.kn = k_norm;
@@ -1271,15 +500,8 @@ int run_layer(
   p.attn_count = attn_count;
   p.qbuf = qbuf;
   p.aout = aout;
-  p.tile_count = counts;
   p.ready = counts + most_tiles;
-  p.mtiles = mtiles;
-  p.ring = ring;
-  p.total = base;
-  p.mlp = MlpArgs{static_cast<const __nv_bfloat16*>(x), wo_q, wo_s, ffn_norm,
-                  gateup_q, gateup_s, down_q, down_s, s, d, a, f, eps,
-                  ks_wo, ks_gu, ks_dn, part_a, part_b, x1, y,
-                  static_cast<__nv_bfloat16*>(out)};
+  (void)wqkv_q, (void)wo_q, (void)gateup_q, (void)down_q, (void)y;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   return dh == 64 ? by_rows<64, TP>(p, grid, st) : by_rows<128, TP>(p, grid, st);
 }

@@ -1,9 +1,9 @@
 // Device code shared by the int8-weight decode kernels for Hopper (sm_90a):
-// csrc/int8_matmul.cu, csrc/slot_attention.cu, csrc/fused_mlp.cu and
-// csrc/decoder_layer.cu. Each source includes this header; the build hashes
-// it with each (ops/cuda_build.py).
+// csrc/int8_matmul.cu and csrc/slot_attention.cu include it, and the fused
+// MLP and the decoder-layer megakernels through csrc/weight_phases.cuh; the
+// build hashes it with each (ops/cuda_build.py).
 //
-// Three building blocks:
+// Two building blocks:
 //
 // int8_tile - one block computes a [MT rows, kBN columns] tile of
 //   act [M, K] @ w_int8 [K, N] over a contiguous range of the contraction,
@@ -51,17 +51,6 @@
 //   TPU's int8 pipeline folds them (paged_attention.py:685); a thread loads
 //   8 bytes (8 int8 values) of a row, so the layout of threads over a row
 //   is the bf16 one.
-//
-// mlp_phases - wo -> residual -> RMSNorm -> gate/up -> SiLU * up -> down ->
-//   residual, the fused MLP (csrc/fused_mlp.cu) and the back half of the
-//   megakernel (csrc/decoder_layer.cu), as phases of ONE cooperative launch
-//   separated by grid barriers: a TPU grid runs its steps in order, a GPU
-//   grid does not, so the order the TPU kernel gets from its grid comes from
-//   the barriers here. Each product is split over columns and over the
-//   contraction so that every block streams weights; the splits' float32
-//   partial sums are added in split order by the next phase (no float
-//   atomics: runs repeat bit for bit). Data written in the launch is read
-//   back with ld.global.cg.
 
 #pragma once
 
@@ -536,130 +525,6 @@ __device__ __forceinline__ float split_sum(const float* partial, int ks, int m,
   return sum;
 }
 
-// Every row's 1 / sqrt(mean(x^2) + eps) into rstd[m] (one warp a row).
-template <typename TX>
-__device__ void row_rstd(const TX* x, int m, int d, float eps, float* rstd) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  for (int r = warp; r < m; r += kWarps) {
-    float ss = 0.f;
-    for (int i = lane; i < d; i += 32) {
-      const float v = to_f(x[static_cast<int64_t>(r) * d + i]);
-      ss += v * v;
-    }
-    ss = warp_sum(ss);
-    if (lane == 0) rstd[r] = rsqrtf(ss / static_cast<float>(d) + eps);
-  }
-}
-
 namespace cg = cooperative_groups;
-
-// Sum of v over the block (every thread gets it); scratch holds kWarps floats.
-__device__ __forceinline__ float block_sum(float v, float* scratch) {
-  v = warp_sum(v);
-  if ((threadIdx.x & 31) == 0) scratch[threadIdx.x >> 5] = v;
-  __syncthreads();
-  float total = 0.f;
-#pragma unroll
-  for (int i = 0; i < kWarps; ++i) total += scratch[i];
-  __syncthreads();
-  return total;
-}
-
-struct MlpArgs {
-  const __nv_bfloat16* x;  // [S, D] residual in
-  const int8_t* wo_q;      // [A, D]
-  const float* wo_s;       // [D]
-  const float* fnw;        // [D] FFN norm
-  const int8_t* gu_q;      // [D, 2F], gate columns first
-  const float* gu_s;       // [2F]
-  const int8_t* dn_q;      // [F, D]
-  const float* dn_s;       // [D]
-  int s, d, a, f;
-  float eps;
-  int ks_wo, ks_gu, ks_dn;  // contraction splits
-  float* part_a;  // >= max(ks_wo, ks_dn) * S * D floats
-  float* part_b;  // ks_gu * S * 2F floats
-  float* x1;      // [S, D] residual after wo
-  float* ybuf;    // [S, D] bf16-rounded FFN input
-  __nv_bfloat16* out;  // [S, D]
-};
-
-// The fused MLP over an attention output read by load_attn(m, k) (already
-// rounded to bf16). Every block of the cooperative grid calls it.
-template <int MT, class LoadA>
-__device__ void mlp_phases(const MlpArgs& p, const LoadA& load_attn,
-                           unsigned char* smem, cg::grid_group& grid) {
-  __shared__ float scratch[kWarps];
-  const int tid = threadIdx.x;
-  // wo: partial sums of attn @ wo
-  const Split wo = make_split(p.s, MT, p.d, p.a, p.ks_wo);
-  for (int it = blockIdx.x; it < wo.items(); it += gridDim.x)
-    split_item<MT>(wo, it, p.wo_q, p.d, p.s, load_attn, p.part_a, smem);
-  grid.sync();
-  // x1 = x + (attn @ wo) * wo_s in float32, then the FFN norm, one block a row
-  for (int m = blockIdx.x; m < p.s; m += gridDim.x) {
-    float ss = 0.f;
-    for (int n = tid; n < p.d; n += kThreads) {
-      const int64_t i = static_cast<int64_t>(m) * p.d + n;
-      const float v = to_f(p.x[i]) +
-                      split_sum(p.part_a, p.ks_wo, p.s, p.d, m, n) * p.wo_s[n];
-      p.x1[i] = v;
-      ss += v * v;
-    }
-    const float r = rsqrtf(block_sum(ss, scratch) / static_cast<float>(p.d) +
-                           p.eps);
-    for (int n = tid; n < p.d; n += kThreads) {
-      const int64_t i = static_cast<int64_t>(m) * p.d + n;
-      p.ybuf[i] = bf16r(p.x1[i] * r * p.fnw[n]);
-    }
-  }
-  grid.sync();
-  // gate/up: partial sums of y @ w_gateup
-  const int f2 = 2 * p.f;
-  const Split gu = make_split(p.s, MT, f2, p.d, p.ks_gu);
-  auto load_y = [&](int m, int k) {
-    return __ldcg(p.ybuf + static_cast<int64_t>(m) * p.d + k);
-  };
-  for (int it = blockIdx.x; it < gu.items(); it += gridDim.x)
-    split_item<MT>(gu, it, p.gu_q, f2, p.s, load_y, p.part_b, smem);
-  grid.sync();
-  // down: h = bf16(silu(g) * u) is formed as it is loaded
-  const Split dn = make_split(p.s, MT, p.d, p.f, p.ks_dn);
-  auto load_h = [&](int m, int k) {
-    const float g =
-        split_sum(p.part_b, p.ks_gu, p.s, f2, m, k) * p.gu_s[k];
-    const float u =
-        split_sum(p.part_b, p.ks_gu, p.s, f2, m, p.f + k) * p.gu_s[p.f + k];
-    return bf16r(g * (1.f / (1.f + expf(-g))) * u);
-  };
-  for (int it = blockIdx.x; it < dn.items(); it += gridDim.x)
-    split_item<MT>(dn, it, p.dn_q, p.d, p.s, load_h, p.part_a, smem);
-  grid.sync();
-  // out = x1 + (h @ down) * down_s
-  const int64_t total = static_cast<int64_t>(p.s) * p.d;
-  for (int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + tid;
-       i < total; i += static_cast<int64_t>(gridDim.x) * kThreads) {
-    const int m = static_cast<int>(i / p.d), n = static_cast<int>(i % p.d);
-    p.out[i] = __float2bfloat16(
-        __ldcg(p.x1 + i) +
-        split_sum(p.part_a, p.ks_dn, p.s, p.d, m, n) * p.dn_s[n]);
-  }
-}
-
-// Blocks of a cooperative launch of kern: all that fit on the card at once.
-template <class K>
-int cooperative_blocks(K kern, int smem) {
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return -static_cast<int>(err);
-  int dev = 0, sms = 0, per_sm = 0;
-  if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
-      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                    dev)) != cudaSuccess ||
-      (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-           &per_sm, kern, kThreads, smem)) != cudaSuccess)
-    return -static_cast<int>(err);
-  return per_sm * sms;
-}
 
 }  // namespace i8d

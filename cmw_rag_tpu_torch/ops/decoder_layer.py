@@ -17,16 +17,18 @@ fused MLP of ``ops/fused_mlp``. ``lens`` already counts the new token.
   the pool dtype, attention in float32, its output rounded to bf16 before
   wo, then the fused MLP's points (``ops.fused_mlp``).
 - ``decoder_layer_int8`` is the wrapper. On CUDA tensors it launches the
-  cooperative kernel of ``csrc/decoder_layer.cuh``, built from
+  cooperative kernel of ``csrc/decoder_layer.cuh`` (on the weight phases
+  of ``csrc/weight_phases.cuh``), built from
   ``csrc/decoder_layer.cu`` (x and pools bf16, Dh 64
   or 128, Hq / Hkv at most 8, D, Hq·Dh and F multiples of 64) and adds one
   to its ``launches`` count; on CPU tensors it runs the twin. There is no
-  fallback. The launch follows the host plan ``layer_plan`` (the kernel's
-  own: the splits of the four weight products, the ring of weight stages,
-  the grid of one block a SM) and reads the weights through tensor maps
+  fallback. The launch follows the host plan ``weight_phases.layer_plan``
+  (the splits of the four weight products, the ring of weight stages, the
+  grid of one block a SM) and reads the weights through tensor maps
   encoded once a weight (``_weight_maps``). Its partial tiles, q, the
-  attention output, x1, h and the counters live in a per-(device, stream)
-  workspace (``_workspace``, as ``paged_attention.split_workspace``), with
+  attention output, x1, h and the counters live in the per-(device,
+  stream) workspace it shares with the fused MLP
+  (``weight_phases.workspace``), with
   the attention splits' partials and counters sized by
   ``paged_attention.split_scratch`` from the cap or the table width; the
   attention is split over positions (``paged_attention.ATTN_SPLIT``). The
@@ -65,7 +67,6 @@ import ctypes
 import functools
 import itertools
 import math
-from typing import NamedTuple
 
 import torch
 
@@ -73,6 +74,7 @@ from cmw_rag_tpu_torch.device import need, on_cpu
 from cmw_rag_tpu_torch.models.common import rms_norm
 from cmw_rag_tpu_torch.ops import cuda_build
 from cmw_rag_tpu_torch.ops import paged_attention as PA
+from cmw_rag_tpu_torch.ops import weight_phases as WP
 from cmw_rag_tpu_torch.ops.fused_mlp import fused_mlp_int8_xla, mlp_tail_plain
 from cmw_rag_tpu_torch.ops.int8_matmul import int8_matmul_xla
 from cmw_rag_tpu_torch.ops.paged_attention import (
@@ -247,131 +249,21 @@ def decoder_layer_int8_kv8_plain(x, c2, s2, attn_norm, wqkv_q, wqkv_s,
     return x_out, k_pools, k_scales, v_pools, v_scales
 
 
-#: the weight phases' geometry (``csrc/decoder_layer.cuh``): a TMA box of
-#: 128 columns x 64 contraction rows (one ring stage of 8 KB), at most
-#: 1024 contraction rows an item, a block's shared memory on sm_90 less
-#: the kernel's static share, at most 32 ring stages
-LAYER_COLS = 128
-LAYER_ROWS = 64
-LAYER_STAGE = LAYER_COLS * LAYER_ROWS
-LAYER_KCAP = 1024
-LAYER_SMEM_LIMIT = 232448 - 1024
-LAYER_MAX_RING = 32
 #: grid-wide waits a layer: attention -> wo, wo -> the FFN norm, gate/up
 #: -> down (attention waits on counters of its head group's QKV merges)
 GRID_WAITS = 3
 
 
-class Product(NamedTuple):
-    """One weight product of the megakernel's list: column tiles (gate/up:
-    pairs of a gate and an up tile of the same columns), boxes a stage,
-    splits of the contraction, its 64-row stages, output columns, the
-    column of box 1 past box 0."""
-    ctiles: int
-    nb: int
-    ks: int
-    steps: int
-    n: int
-    box_off: int
-
-
-class LayerPlan(NamedTuple):
-    """The megakernel's launch: row tile, row tiles, the four products,
-    ring stages, blocks, dynamic shared memory bytes."""
-    mt: int
-    mtiles: int
-    products: tuple
-    ring: int
-    grid: int
-    smem: int
-
-
-def layer_tile(s: int) -> int:
-    """Rows of the megakernel's row tile for ``s`` rows: 8 or 16 (the
-    ``mma.sync`` fragments hold 8 rows each; more rows take more row
-    tiles, since a 32-row tile's accumulators spill)."""
-    return 8 if s <= 8 else 16
-
-
-def layer_smem(mt: int, ring: int) -> int:
-    """Dynamic shared memory of the kernel: slack to align the ring, the
-    ring, the activations [mt, 1024 + 8] bf16, the tile buffer
-    [mt, 260] float32."""
-    return (1024 + mt * (LAYER_KCAP + 8) * 2 + mt * (2 * LAYER_COLS + 4) * 4
-            + ring * LAYER_STAGE)
-
-
-def layer_max_ring(mt: int) -> int:
-    """The most ring stages that fit beside the row tile's buffers."""
-    return min(LAYER_MAX_RING,
-               (LAYER_SMEM_LIMIT - layer_smem(mt, 0)) // LAYER_STAGE)
-
-
-def layer_items(plan: LayerPlan):
-    """The layer's list of work items in the kernel's order (``item_at``
-    of ``csrc/decoder_layer.cuh``): → [(product, row tile, column tile,
-    split, first stage, end stage)]; block b runs items b, b + grid, ..."""
-    items = []
-    for pr, q in enumerate(plan.products):
-        for i in range(plan.mtiles * q.ctiles * q.ks):
-            ki, tile = i % q.ks, i // q.ks
-            items.append((pr, tile // q.ctiles, tile % q.ctiles, ki,
-                          ki * q.steps // q.ks, (ki + 1) * q.steps // q.ks))
-    return items
-
-
-def layer_block_stages(plan: LayerPlan) -> list[int]:
-    """Ring stages (8 KB boxes) each block loads over the layer."""
-    stages = [0] * plan.grid
-    for g, (pr, _, _, _, s0, s1) in enumerate(layer_items(plan)):
-        stages[g % plan.grid] += (s1 - s0) * plan.products[pr].nb
-    return stages
-
-
-@functools.lru_cache(maxsize=None)
-def layer_plan(s: int, d: int, hq: int, hkv: int, dh: int, f: int,
-               blocks: int) -> LayerPlan:
-    """The megakernel's plan for ``s`` rows of a layer (D, Hq, Hkv, Dh, F)
-    on ``blocks`` co-resident blocks (one a SM).
-
-    Work items are (row tile, column tile, split of the contraction) of the
-    four products, one list in phase order, block b taking items b,
-    b + blocks, .... Each product is split so that its items about fill the
-    grid once (``blocks`` // tiles splits, at most one a stage), and at
-    least so far that an item's activations fit its 1024 rows. The ring
-    holds every stage of the busiest block where it fits (up to 16 rows at
-    qwen3guard-0.6b's width: all of a block's weights in flight from kernel
-    entry), else as many as fit (a ring that runs ahead)."""
-    mt = layer_tile(s)
-    mtiles = -(-s // mt)
-    a3, a = (hq + 2 * hkv) * dh, hq * dh
-    cap = LAYER_KCAP // LAYER_ROWS
-    products = []
-    for n, nb, k, box_off in ((a3, 1, d, 0), (d, 1, a, 0), (f, 2, d, f),
-                              (d, 1, f, 0)):
-        ctiles = -(-n // LAYER_COLS)
-        steps = k // LAYER_ROWS
-        ks = min(steps, max(1, blocks // (mtiles * ctiles)))
-        ks = max(ks, -(-steps // cap))
-        products.append(Product(ctiles, nb, ks, steps, n, box_off))
-    plan = LayerPlan(mt, mtiles, tuple(products), 2, blocks, 0)
-    ring = max(2, min(max(layer_block_stages(plan)), layer_max_ring(mt)))
-    return plan._replace(ring=ring, smem=layer_smem(mt, ring))
-
-
-def layer_workspace(plan: LayerPlan, s: int, d: int, hq: int, hkv: int,
+def layer_workspace(plan: WP.LayerPlan, s: int, d: int, hq: int, hkv: int,
                     dh: int, f: int) -> tuple[tuple[int, ...], int]:
     """Float32 words of each workspace buffer the kernel reads and writes
     (the split partial tiles, h as bf16, q, the attention output, x1; each
     a multiple of 4 words, so that every buffer starts 16-byte aligned) and
     the int32 counters (the products' arrival counters, then the head
     groups')."""
-    part = max([plan.mtiles * q.ctiles * q.ks * plan.mt * q.nb * LAYER_COLS
-                for q in plan.products if q.ks > 1], default=0)
     a = hq * dh
-    sizes = (part, -(-s * f // 2), s * a, s * a, s * d)
-    counts = (max(plan.mtiles * q.ctiles for q in plan.products)
-              + plan.mtiles * hkv)
+    sizes = (WP.part_words(plan), -(-s * f // 2), s * a, s * a, s * d)
+    counts = WP.tile_counters(plan) + plan.mtiles * hkv
     return tuple(-(-n // 4) * 4 for n in sizes), counts
 
 
@@ -412,42 +304,11 @@ def _entry(kv8: bool, which: str):
     return getattr(lib, names[("layer", "blocks", "encode").index(which)])
 
 
-_MAPS: dict = {}
-
-
 def _weight_maps(kv8: bool, weights) -> ctypes.Array:
-    """The four weights' tensor maps (QKV, wo, gate/up, down; TMA boxes of
-    64 rows x 128 columns), 4 x 128 bytes: each encoded once a weight, then
-    cached (a map holds the address, shape and strides only, so a weight
-    that takes a freed one's address and shape has the same map)."""
-    buf = ctypes.create_string_buffer(4 * 128)
-    for i, w in enumerate(weights):
-        key = (w.data_ptr(), tuple(w.shape))
-        one = _MAPS.get(key)
-        if one is None:
-            one = ctypes.create_string_buffer(128)
-            err = _entry(kv8, "encode")(w.data_ptr(), w.shape[0], w.shape[1],
-                                        one)
-            if err != 0:
-                raise RuntimeError(f"decoder_layer_int8: tensor map failed: "
-                                   f"CUDA error {err}")
-            _MAPS[key] = one
-        ctypes.memmove(ctypes.addressof(buf) + 128 * i, one, 128)
-    return buf
-
-
-_WORKSPACES: dict = {}
-
-
-def _workspace(device: torch.device, stream: int, n_float: int,
-               n_counts: int) -> tuple:
-    """The megakernel's workspace on ``stream``: at least ``n_float``
-    float32 words and ``n_counts`` int32 counters, zero when made; each
-    launch leaves its counters 0, so the launches of one stream share it
-    (``paged_attention.split_workspace``)."""
-    return PA.split_workspace(
-        _WORKSPACES, (device.index, stream), n_float, n_counts,
-        lambda n, dtype: torch.zeros((n,), dtype=dtype, device=device))
+    """The four weights' tensor maps (QKV, wo, gate/up, down), 4 x 128
+    bytes, each encoded once a weight (``weight_phases.weight_maps``)."""
+    return WP.weight_maps(_entry(kv8, "encode"), weights,
+                          "decoder_layer_int8")
 
 
 def _check_ablate(ablate: str) -> None:
@@ -463,7 +324,7 @@ def launch_config(s: int, d: int, hq: int, hkv: int, dh: int, f: int,
     (slot, KV head) of at most ``width`` pages), its partials' floats and
     counters. → (plan, float sizes, n_split, attention floats, counters in
     all)."""
-    plan = layer_plan(s, d, hq, hkv, dh, f, blocks)
+    plan = WP.layer_plan(s, d, hq, hkv, dh, f, blocks)
     sizes, counts = layer_workspace(plan, s, d, hq, hkv, dh, f)
     n_split, part_shape, n_attn = PA.split_scratch(
         s, hkv, hq // hkv, dh, width * page, PA.ATTN_SPLIT)
@@ -514,9 +375,9 @@ def _launch(x, c2, s2, weights, page_idx, off, k_pools, v_pools, lens,
                 or not t.is_contiguous()):
             raise ValueError(f"{name}: float32 [{n_pages}, {hkv}] contiguous "
                              f"expected, got {t.dtype} {tuple(t.shape)}")
-    if d % LAYER_ROWS or a % LAYER_ROWS or f % LAYER_ROWS:
+    if d % WP.LAYER_ROWS or a % WP.LAYER_ROWS or f % WP.LAYER_ROWS:
         raise ValueError(f"D={d}, Hq*Dh={a} and F={f} must be multiples of "
-                         f"{LAYER_ROWS}")
+                         f"{WP.LAYER_ROWS}")
     if slot is not None:
         slot_cap, slot_maxp, slot_base = slot
         maxp = 0
@@ -532,7 +393,7 @@ def _launch(x, c2, s2, weights, page_idx, off, k_pools, v_pools, lens,
     dev = x.device
     plan, sizes, n_split, n_attn, n_counts = launch_config(
         s, d, hq, hkv, dh, f, page, slot_cap if slot is not None else maxp,
-        _grid(dev, layer_tile(s), dh, kv8))
+        _grid(dev, WP.layer_tile(s), dh, kv8))
     maps = _weight_maps(kv8, (wqkv_q, wo_q, gateup_q, down_q))
     out = torch.empty_like(x)
     stride = n_pages * page * hkv * dh * k_pools.element_size()  # one layer
@@ -543,8 +404,8 @@ def _launch(x, c2, s2, weights, page_idx, off, k_pools, v_pools, lens,
         # float32 words: the partial tiles, h, q, the attention output, x1,
         # attention's split partials; int32: the products' and head groups'
         # counters, then attention's
-        floats, counts = _workspace(dev, stream, sum(sizes) + n_attn,
-                                    n_counts)
+        floats, counts = WP.workspace(dev, stream, sum(sizes) + n_attn,
+                                      n_counts)
         part_a, part_b, qbuf, aout, x1, attn_part = (
             floats.data_ptr() + 4 * o
             for o in itertools.accumulate((0,) + sizes))

@@ -15,22 +15,29 @@ first.
   silu(g) · u`` rounded to bf16, the down sum in float32 times ``down_s``,
   the output in x's dtype.
 - ``fused_mlp_int8`` is the wrapper. On CUDA tensors it launches the
-  cooperative kernel of ``csrc/fused_mlp.cu`` (x and attn bf16, D, A and F
-  multiples of 64) and adds one to its ``launches`` count; on CPU tensors it
-  runs the plain twin. There is no fallback. ``block_f`` is the TPU
-  kernel's d_ff block and changes nothing here.
+  cooperative kernel of ``csrc/fused_mlp.cu`` (the megakernel's weight
+  phases, ``csrc/weight_phases.cuh``; x and attn bf16, any S, D, A and F
+  multiples of 64) and adds one to its ``launches`` count; on CPU tensors
+  it runs the plain twin. There is no fallback. The launch follows the
+  host plan ``weight_phases.mlp_plan`` and reads the weights through
+  tensor maps encoded once a weight (``weight_phases.weight_maps``); its
+  partial tiles, h, x1 and counters live in the per-(device, stream)
+  workspace it shares with the megakernels (``weight_phases.workspace``),
+  so a call allocates only its output. ``block_f`` is the TPU kernel's
+  d_ff block and changes nothing here.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+import itertools
 
 import torch
 
 from cmw_rag_tpu_torch.device import need, on_cpu
 from cmw_rag_tpu_torch.ops import cuda_build
-from cmw_rag_tpu_torch.ops.int8_matmul import K_TILE, N_TILE, k_split, m_tile
+from cmw_rag_tpu_torch.ops import weight_phases as WP
 
 
 def fused_mlp_int8_xla(x, attn, wo_q, wo_s, ffn_norm_w, gateup_q, gateup_s,
@@ -71,9 +78,14 @@ def fused_mlp_int8_plain(x, attn, wo_q, wo_s, ffn_norm_w, gateup_q, gateup_s,
                           eps, x.dtype)
 
 
+#: grid-wide waits a call: wo -> the FFN norm, gate/up -> down
+GRID_WAITS = 2
+
+
 @functools.lru_cache(maxsize=None)
 def _grid(device: torch.device, mt: int) -> int:
-    """Blocks of the cooperative launch: all that can be resident at once."""
+    """Blocks of the cooperative launch: all that can be resident at once
+    at the most shared memory the plan gives the row tile (one a SM)."""
     with torch.cuda.device(device):
         n = _lib().fused_mlp_blocks(mt)
     if n <= 0:
@@ -85,32 +97,31 @@ def _lib() -> ctypes.CDLL:
     lib = cuda_build.library("fused_mlp")
     if not getattr(lib, "_typed", False):
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.fused_mlp_int8.argtypes = ([p] * 9 + [i] * 4 + [f] + [i] * 3
-                                       + [p] * 6)
+        lib.fused_mlp_int8.argtypes = ([p] * 6 + [i] * 4 + [f] + [i] * 3
+                                       + [p] * 6 + [i] * 2 + [p])
         lib.fused_mlp_int8.restype = ctypes.c_int
         lib.fused_mlp_blocks.argtypes = [i]
         lib.fused_mlp_blocks.restype = ctypes.c_int
+        lib.fused_mlp_encode.argtypes = [p, i, i, p]
+        lib.fused_mlp_encode.restype = ctypes.c_int
         lib._typed = True
     return lib
 
 
-def mlp_splits(s: int, d: int, f: int, a: int, blocks: int):
-    """Contraction splits of the wo, gate/up and down products, each the
-    largest that keeps its work items within one wave of ``blocks``."""
-    mtiles = -(-s // m_tile(s))
-    return (k_split(a, mtiles * -(-d // N_TILE), blocks),
-            k_split(d, mtiles * -(-2 * f // N_TILE), blocks),
-            k_split(f, mtiles * -(-d // N_TILE), blocks))
+def mlp_workspace(plan: WP.LayerPlan, s: int, d: int,
+                  f: int) -> tuple[tuple[int, ...], int]:
+    """Float32 words of each workspace buffer the kernel reads and writes
+    (the split partial tiles, h as bf16, x1; each a multiple of 4 words,
+    so that every buffer starts 16-byte aligned) and its int32 arrival
+    counters."""
+    sizes = (WP.part_words(plan), -(-s * f // 2), s * d)
+    return tuple(-(-n // 4) * 4 for n in sizes), WP.tile_counters(plan)
 
 
-def fused_mlp_int8(x, attn, wo_q, wo_s, ffn_norm_w, gateup_q, gateup_s,
-                   down_q, down_s, block_f: int = 768, eps: float = 1e-6):
-    """x [S, D] residual, attn [S, A] attention output (flattened heads) →
-    [S, D] in x.dtype, with the kernel's rounding points."""
-    args = (x, attn, wo_q, wo_s, ffn_norm_w, gateup_q, gateup_s, down_q,
-            down_s)
-    if on_cpu(*args):
-        return fused_mlp_int8_plain(*args, eps=eps)
+def _launch(x, attn, wo_q, wo_s, ffn_norm_w, gateup_q, gateup_s, down_q,
+            down_s, eps: float) -> torch.Tensor:
+    """Check every operand and launch the kernel with the plan, the maps
+    and the workspace; → out."""
     s, d = x.shape
     a = wo_q.shape[0]
     f = down_q.shape[0]
@@ -122,29 +133,41 @@ def fused_mlp_int8(x, attn, wo_q, wo_s, ffn_norm_w, gateup_q, gateup_s,
     for name, t, n in (("wo_s", wo_s, d), ("ffn_norm_w", ffn_norm_w, d),
                        ("gateup_s", gateup_s, 2 * f), ("down_s", down_s, d)):
         need(t, name, torch.float32, (n,))
-    if d % K_TILE or a % K_TILE or f % K_TILE:
+    if d % WP.LAYER_ROWS or a % WP.LAYER_ROWS or f % WP.LAYER_ROWS:
         raise ValueError(f"D={d}, A={a} and F={f} must be multiples of "
-                         f"{K_TILE}")
-    mt = m_tile(s)
-    ks_wo, ks_gu, ks_dn = mlp_splits(s, d, f, a, _grid(x.device, mt))
+                         f"{WP.LAYER_ROWS}")
     dev = x.device
-    # one float32 scratch: partial sums (two), x1, y
-    sizes = (max(ks_wo, ks_dn) * s * d, ks_gu * s * 2 * f, s * d, s * d)
-    scratch = torch.empty((sum(sizes),), dtype=torch.float32, device=dev)
-    base = scratch.data_ptr()
-    part_a, part_b, x1, y = (base, base + 4 * sizes[0],
-                             base + 4 * (sizes[0] + sizes[1]),
-                             base + 4 * (sizes[0] + sizes[1] + sizes[2]))
+    plan = WP.mlp_plan(s, d, a, f, _grid(dev, WP.layer_tile(s)))
+    sizes, n_counts = mlp_workspace(plan, s, d, f)
+    maps = WP.weight_maps(_lib().fused_mlp_encode, (wo_q, gateup_q, down_q),
+                          "fused_mlp_int8")
     out = torch.empty_like(x)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
+        floats, counts = WP.workspace(dev, stream, sum(sizes), n_counts)
+        part, h, x1 = (floats.data_ptr() + 4 * o
+                       for o in itertools.accumulate((0,) + sizes[:-1]))
+        ks_wo, ks_gu, ks_dn = (q.ks for q in plan.products[1:])
         err = _lib().fused_mlp_int8(
-            x.data_ptr(), attn.data_ptr(), wo_q.data_ptr(), wo_s.data_ptr(),
-            ffn_norm_w.data_ptr(), gateup_q.data_ptr(), gateup_s.data_ptr(),
-            down_q.data_ptr(), down_s.data_ptr(), s, d, a, f, eps, ks_wo,
-            ks_gu, ks_dn, part_a, part_b, x1, y, out.data_ptr(), stream)
+            x.data_ptr(), attn.data_ptr(), wo_s.data_ptr(),
+            ffn_norm_w.data_ptr(), gateup_s.data_ptr(), down_s.data_ptr(),
+            s, d, a, f, eps, ks_wo, ks_gu, ks_dn, part, h, x1,
+            out.data_ptr(), maps, counts.data_ptr(), plan.ring, plan.grid,
+            stream)
     if err != 0:
         raise RuntimeError(f"fused_mlp_int8 launch failed: CUDA error {err}")
+    return out
+
+
+def fused_mlp_int8(x, attn, wo_q, wo_s, ffn_norm_w, gateup_q, gateup_s,
+                   down_q, down_s, block_f: int = 768, eps: float = 1e-6):
+    """x [S, D] residual, attn [S, A] attention output (flattened heads) →
+    [S, D] in x.dtype, with the kernel's rounding points."""
+    args = (x, attn, wo_q, wo_s, ffn_norm_w, gateup_q, gateup_s, down_q,
+            down_s)
+    if on_cpu(*args):
+        return fused_mlp_int8_plain(*args, eps=eps)
+    out = _launch(*args, eps)
     fused_mlp_int8.launches += 1
     return out
 

@@ -7,7 +7,7 @@ the call falls on both alike.
 
     python -m cmw_rag_tpu_torch.scripts.compare_trees BASE_ROOT \\
         [--phases flash,long_context,training,int8_llm,w8a8_kv8,paged_kernel,local_llm]
-        [--out FILE]
+        [--steps int8-s16,int8-kv8] [--out FILE]
 
 BASE_ROOT is another checkout of the repository (for example the parent
 commit, ``git archive <commit> chip_smoke.py cmw_rag_tpu_torch | tar -x -C
@@ -24,9 +24,13 @@ its profiled w8a8 decode step and its int8-KV megakernel records; phase
 8's paged kernel records, by phase, and its profiled native decode step;
 the megakernels' records carry their device ms whole, with attention
 ablated (``noattn_ms``) and at each split, where the tree's phases time
-them in a process of their own, ``chip_smoke.megakernel_child``), then one
+them in a process of their own, ``chip_smoke.timings_child``), then one
 line with every run's summary; ``--out`` keeps the phases' whole reports, one
-JSON line a run. The phases' own log lines go to stderr. Needs a card.
+JSON line a run. ``--steps`` also profiles one decode step of each named
+engine configuration (``STEPS``) in every run, through the tree's own
+``scripts/local_llm.py --profile`` in a process of its own (4 active
+slots; the summary's ``steps``). The phases' own log lines go to stderr.
+Needs a card.
 """
 
 from __future__ import annotations
@@ -53,6 +57,11 @@ W8A8_READINGS = ("ms", "call_ms", "plain_ms", "library_ms", "bound_ms",
 #: the readings of phase 8's paged kernel records (rows 15, 16 and 18)
 PAGED_READINGS = ("ms", "call_ms", "plain_ms", "library_ms", "bound_ms",
                   "split", "n_split", "ms_by_split", "kernels_per_call")
+
+#: decode-step configurations ``--steps`` profiles: the CLI's arguments
+STEPS = {"int8-s16": ("--weights", "int8", "--slots", "16"),
+         "int8-kv8": ("--weights", "int8", "--kv-dtype", "int8"),
+         "int8-s4": ("--weights", "int8")}
 
 _CHILD = """
 import json, sys, torch
@@ -89,6 +98,21 @@ def run_tree(root: Path, phases: list[str]) -> dict:
     raise RuntimeError(f"{root}: no result line")
 
 
+def run_step(root: Path, name: str) -> dict:
+    """One decode step of configuration ``name`` profiled by the tree's own
+    CLI (``scripts/local_llm.py --profile``) in a process started from
+    ``root``; → the profile's step readings."""
+    proc = subprocess.run(
+        [sys.executable, "-m", "cmw_rag_tpu_torch.scripts.local_llm",
+         *STEPS[name], "--profile", "--max-new-tokens", "4"],
+        cwd=root, capture_output=True, text=True)
+    if proc.returncode != 0:
+        sys.stderr.write(proc.stdout[-2000:] + proc.stderr[-4000:])
+        raise RuntimeError(f"{root}: step {name} failed ({proc.returncode})")
+    prof = json.loads(proc.stdout.strip().splitlines()[-1])
+    return {k: prof.get(k) for k in INT8_STEP + ("named_kernels",)}
+
+
 def summary(phases: dict) -> dict:
     """The readings a comparison of two trees reads, from one run."""
     out = {}
@@ -114,7 +138,8 @@ def summary(phases: dict) -> dict:
                                              "bound_ms", "split", "n_split",
                                              "grid_blocks", "ms_by_split",
                                              "noattn_ms", "ring", "splits",
-                                             "grid_waits")}
+                                             "grid_waits", "merges",
+                                             "block_stages")}
                 for case, r in phases[phase]["kernels"].items()
                 if case.split("/")[0] in INT8_KERNELS})
     w8 = phases.get("w8a8_kv8")
@@ -146,6 +171,9 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("base", type=Path, help="root of the base checkout (A)")
     ap.add_argument("--phases", default=",".join(PHASES))
+    ap.add_argument("--steps", default="",
+                    help="decode-step configurations to profile: "
+                    + ",".join(STEPS))
     ap.add_argument("--out", type=Path, default=None,
                     help="also write every run's result here as JSON lines")
     args = ap.parse_args(argv)
@@ -153,18 +181,26 @@ def main(argv=None) -> int:
     for p in phases:
         if p not in PHASES:
             ap.error(f"unknown phase {p}")
+    steps = [s for s in args.steps.split(",") if s]
+    for s in steps:
+        if s not in STEPS:
+            ap.error(f"unknown step {s}")
     trees = {"A": args.base.resolve(), "B": HERE}
     runs = []
     for i, tree in enumerate("ABBA"):
-        res = run_tree(trees[tree], phases)
+        res = (run_tree(trees[tree], phases) if phases
+               else {"card": None, "phases": {}})
+        res["steps"] = {s: run_step(trees[tree], s) for s in steps}
         row = {"tree": tree, "run": i, "root": str(trees[tree]), **res}
         runs.append(row)
         print(json.dumps({"tree": tree, "run": i, "card": res["card"],
-                          "summary": summary(res["phases"])}), flush=True)
+                          "summary": summary(res["phases"]),
+                          "steps": res["steps"]}), flush=True)
     if args.out:
         args.out.write_text("".join(json.dumps(r) + "\n" for r in runs))
     print(json.dumps({"summary": [{"tree": r["tree"], "run": r["run"],
-                                   **summary(r["phases"])} for r in runs]}),
+                                   **summary(r["phases"]),
+                                   "steps": r["steps"]} for r in runs]}),
           flush=True)
     return 0
 

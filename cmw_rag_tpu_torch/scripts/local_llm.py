@@ -71,6 +71,9 @@ LAYER_KERNEL_NAMES = ("decoder_layer_kernel",)
 #: device-side name of the W8A8 matmul (one kernel a call, the activation
 #: quantization and the merge of its splits inside it)
 W8A8_KERNEL_NAMES = ("w8a8_mma_kernel",)
+#: device-side name of the fused MLP (int8 weights past the megakernel's
+#: route: past 8 slots, or int8 KV)
+MLP_KERNEL_NAMES = ("fused_mlp_kernel",)
 
 
 def spec_with_tokenizer_vocab(slug: str = SPEC):
@@ -199,10 +202,13 @@ def profile_decode(engine: PagedLLMEngine,
 
 def profile_names(engine: PagedLLMEngine) -> tuple:
     """The kernels whose share ``profile_decode`` reports for the engine's
-    route: the megakernel, the W8A8 matmul, or the paged kernel."""
+    route: the megakernel, the W8A8 matmul, the fused MLP, or the paged
+    kernel."""
     if engine.layer_fused:
         return LAYER_KERNEL_NAMES
-    return W8A8_KERNEL_NAMES if engine.w8a8 else PAGED_KERNEL_NAMES
+    if engine.w8a8:
+        return W8A8_KERNEL_NAMES
+    return MLP_KERNEL_NAMES if engine.mlp_fused else PAGED_KERNEL_NAMES
 
 
 def main() -> None:

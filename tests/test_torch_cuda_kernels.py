@@ -19,10 +19,11 @@ bf16 before attending; the kernel keeps them in float32), with the scatter
 wrapper's pools equal to the twin's bit for bit. The int8-weight kernels:
 int8_matmul to one bf16 step (bf16 outputs) plus 1e-5 of the largest
 |output| (float32 sums of exact products in another order); slot-major
-attention as the paged kernel; the fused MLP and the decoder-layer
-megakernel to one bf16 step plus 1e-3 of the largest |output| (both round
-the normed input, y and h to bf16, and sums in another order can put one of
-those a step apart, which moves every product it feeds), the megakernel's
+attention as the paged kernel; the fused MLP (one kernel a call) and the
+decoder-layer megakernel to one bf16 step plus 1e-3 of the largest
+|output| (both round the normed input, y and h to bf16, and sums in
+another order can put one of those a step apart, which moves every
+product it feeds), the megakernel's
 written pool rows within the same of the twin's and every other row
 unchanged, bit for bit. The W8A8 matmul and the int8 x int8 scan equal
 their twins bit for bit (exact integer sums, the same scale order; the
@@ -659,25 +660,15 @@ def test_paged_attention_at_split_and_page_boundaries(card, paged_split, rep,
 
 def _cuda_kernels(fn, iters=1):
     """The names of the CUDA kernels ``iters`` calls of ``fn`` run, under
-    torch.profiler, after one warm-up call (which makes the workspace) and
-    a warm-up profiler step (which turns the device tracing on before the
-    window opens)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile, schedule
+    torch.profiler (``profile_query.kernel_window``): after one warm-up call
+    (which makes the workspace) and a warm-up profiler step (which turns
+    the device tracing on before the window opens), with host time at the
+    window's edges; a window that recorded no kernel at all (the profiler
+    on the card loses some, PERF.md §7) is taken again, three in all."""
+    from cmw_rag_tpu_torch.scripts.profile_query import kernel_window
 
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA],
-                 schedule=schedule(wait=0, warmup=1, active=1,
-                                   repeat=1)) as prof:
-        fn()
-        torch.cuda.synchronize()
-        prof.step()
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-        prof.step()
-    return [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    events, _ = kernel_window(fn, iters)
+    return [e.name for e in events]
 
 
 def test_every_paged_wrapper_runs_one_kernel_a_call(card):
@@ -917,10 +908,14 @@ MLP = ("wo_q", "wo_s", "ffn_norm", "w_gateup_q", "w_gateup_s", "w_down_q",
 LAYER = ("attn_norm", "wqkv_q", "wqkv_s", "q_norm", "k_norm") + MLP
 
 
-@pytest.mark.parametrize("s,d,a,f", [(4, 1024, 2048, 3072),
-                                     (16, 1024, 2048, 3072),
-                                     (1, 256, 512, 384), (40, 256, 128, 192)])
+@pytest.mark.parametrize("s,d,a,f", [
+    *[(s, 1024, 2048, 3072) for s in (1, 4, 8, 9, 16, 17, 32, 40)],
+    (1, 256, 512, 384), (40, 256, 128, 192)])
 def test_fused_mlp_matches_plain_twin(card, s, d, a, f):
+    """The fused MLP against its twin at qwen3guard-0.6b's width on either
+    side of each row tile (8, 16) and at two and three 16-row tiles, and
+    at small widths (F 192: half a column tile; A 128: two stages): within
+    the tolerance, bit for bit on a second launch, one kernel a call."""
     gen = torch.Generator(device=card).manual_seed(s + d)
     lay = _layer(card, gen, d, a // 128, a // 128, 128, f)
     x = torch.randn((s, d), generator=gen, device=card).bfloat16()
@@ -932,6 +927,9 @@ def test_fused_mlp_matches_plain_twin(card, s, d, a, f):
     assert FM.fused_mlp_int8.launches == n0 + 1 and got.dtype == torch.bfloat16
     _close(got, want, 1e-3)
     assert torch.equal(got, FM.fused_mlp_int8(x, attn, *[lay[k] for k in MLP]))
+    names = _cuda_kernels(
+        lambda: FM.fused_mlp_int8(x, attn, *[lay[k] for k in MLP]))
+    assert len(names) == 1 and "fused_mlp_kernel" in names[0], names
 
 
 def _layer_case(card, case):
@@ -1447,16 +1445,19 @@ def test_megakernels_run_one_kernel_a_call(card, kv8, s):
 
 def test_megakernels_build_without_spills(card):
     """ptxas (``scripts/kernel_resources.py``) reports no spill stores or
-    loads and no stack for any instance of either megakernel."""
+    loads and no stack for any instance of either megakernel or of the
+    fused MLP on their weight phases."""
     from pathlib import Path
 
     from cmw_rag_tpu_torch.scripts import kernel_resources as KR
 
     root = Path(__file__).resolve().parents[1]
-    for stem in ("decoder_layer", "decoder_layer_kv8"):
+    for stem, name, n in (("decoder_layer", "decoder_layer_kernel", 4),
+                          ("decoder_layer_kv8", "decoder_layer_kernel", 4),
+                          ("fused_mlp", "fused_mlp_kernel", 2)):
         _, kernels = KR.compile_source(root, stem)
-        mega = [k for k in kernels if "decoder_layer_kernel" in k["kernel"]]
-        assert len(mega) == 4, [k["kernel"] for k in kernels]
+        mega = [k for k in kernels if name in k["kernel"]]
+        assert len(mega) == n, [k["kernel"] for k in kernels]
         for k in mega:
             assert (k["spill_stores"], k["spill_loads"], k["stack"]) \
                 == (0, 0, 0), k

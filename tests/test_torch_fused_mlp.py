@@ -70,11 +70,3 @@ def test_twin_rounds_where_the_kernel_rounds():
     gold = T.fused_mlp_int8_xla(*targs)
     assert not torch.equal(twin, gold)
     assert (twin - gold).abs().max() < 2e-2
-
-
-def test_splits_fill_one_wave():
-    # qwen3guard-0.6b at 4 slots on 132 blocks: wo 16 column tiles x 8,
-    # gate/up 96 x 1, down 16 x 8
-    assert T.mlp_splits(4, 1024, 3072, 2048, 132) == (8, 1, 8)
-    assert T.mlp_splits(4, 1024, 3072, 2048, 264) == (16, 2, 16)
-    assert T.mlp_splits(40, 256, 384, 512, 132) == (8, 4, 6)

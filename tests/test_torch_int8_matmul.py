@@ -163,13 +163,16 @@ def test_build_hash_follows_included_headers(tmp_path, monkeypatch):
 def test_every_new_source_is_built():
     """Each int8 decode source is built and hashed with the headers it
     includes, recursively (the two megakernel sources share
-    ``decoder_layer.cuh``, which includes ``hopper.cuh`` for its TMA
-    pieces and ``int8_decode.cuh``; the W8A8 kernel of ``int8_matmul.cu``
-    takes its TMA and mma pieces from ``hopper.cuh``)."""
-    megakernel = ["decoder_layer.cuh", "hopper.cuh", "int8_decode.cuh"]
+    ``decoder_layer.cuh``, which includes the weight phases of
+    ``weight_phases.cuh``, built on ``hopper.cuh`` for its TMA pieces and
+    ``int8_decode.cuh``; the fused MLP is those weight phases too; the
+    W8A8 kernel of ``int8_matmul.cu`` takes its TMA and mma pieces from
+    ``hopper.cuh``)."""
+    phases = ["weight_phases.cuh", "hopper.cuh", "int8_decode.cuh"]
+    megakernel = ["decoder_layer.cuh"] + phases
     for stem, want in (("int8_matmul", ["hopper.cuh", "int8_decode.cuh"]),
                        ("slot_attention", ["int8_decode.cuh"]),
-                       ("fused_mlp", ["int8_decode.cuh"]),
+                       ("fused_mlp", phases),
                        ("decoder_layer", megakernel),
                        ("decoder_layer_kv8", megakernel)):
         assert stem in cuda_build.SOURCES
