@@ -81,11 +81,15 @@ Phases, each printed with its seconds beside the card's name and power limit:
    every query the union finding at least what the probed search finds of
    the exact top-10 in the index's own arithmetic. Then each IVF kernel against its plain twin at ``nprobe``
    64, with the phase-2 rules: probed Q 1 and Q 8 at k 20, union Q 8 and
-   Q 32 at k 20 and Q 8 at k 1000. Times: the kernel, its twin, one
-   library yardstick timed here only (``index_select`` of the probed
-   blocks' rows, ``torch.matmul``, ``torch.topk``) and the bound (the rows
-   of the distinct blocks read once, 2D + 4 bytes a row in bf16 and D + 8
-   in int8, against 2 x Q x rows scanned x D operations). The manual-DMA
+   Q 32 at k 20 and Q 8 at k 129, 256 and 1000. Times: the kernel, its
+   twin, one library yardstick timed here only (``index_select`` of the
+   probed blocks' rows, ``torch.matmul``, ``torch.topk``) and the bound
+   (the rows of the distinct blocks read once, 2D + 4 bytes a row in bf16
+   and D + 8 in int8, against 2 x Q x rows scanned x D operations); each
+   union record also the scan's and the selection's device times apart,
+   from one complete profiler window over all union cases, in a process
+   of its own that builds the indexes again (``ivf_union_timings``: late
+   in one long process the profiler drops kernel records). The manual-DMA
    alias of the probed kernel (``ivf_probed_scan_dma``) once at Q 1,
    bit for bit ``ivf_probed_scan``.
 7. segmented - ``Retriever`` with ``frida-hybrid`` and the rerank ensemble
@@ -252,6 +256,7 @@ before printing any result. It imports torch, numpy and the port only.
 
 from __future__ import annotations
 
+import functools
 import json
 import sys
 import time
@@ -383,6 +388,11 @@ def bf16_step(x):
     return torch.where(x == 0, torch.zeros_like(x), step)
 
 
+#: phase 6's kernel records: (case, route, Q, k) at nprobe 64
+IVF_CASES = (("q1", "probed", 1, TOP_K), ("q8", "probed", 8, TOP_K),
+             ("q8", "union", 8, TOP_K), ("q32", "union", 32, TOP_K),
+             ("q8k129", "union", 8, 129), ("q8k256", "union", 8, 256),
+             ("q8k1000", "union", 8, 1000))
 #: the IVF wrappers and the TPU kernels they replace
 IVF_KERNELS = {"ivf_probed_scan": "cmw_rag_tpu/ops/ivf_scan.py:95",
                "ivf_probed_scan_int8": "cmw_rag_tpu/ops/ivf_scan.py:567",
@@ -1012,6 +1022,48 @@ def library_ivf(corpus, scales, ids, queries, table, k, block_n):
     return ts, i.gather(1, ti)
 
 
+def scan_select_ms(kerns: dict, iters: int = 10, tries: int = 3) -> dict:
+    """Device ms of each IVF call's two launches apart, the scan
+    (``ivf_scan_kernel``) and the selection (``select_kernel``), for every
+    call of ``kerns`` (key -> call) from one complete ``torch.profiler``
+    window over all of them, ``iters`` calls each in turn (one window for
+    all, not one a call: many profiler sessions in one process lose later
+    windows' records); a window short of any record is taken again,
+    ``tries`` in all. → {key: {"scan_ms", "select_ms"}}."""
+    from cmw_rag_tpu_torch.scripts.profile_query import kernel_window
+
+    keys = list(kerns)
+
+    def run():
+        for key in keys:
+            for _ in range(iters):
+                kerns[key]()
+
+    def ms(events):
+        return sum(e.time_range.end - e.time_range.start
+                   for e in events) / 1e3 / iters
+
+    for _ in range(tries):
+        events, _ = kernel_window(run, 1, "ivf_scan_kernel")
+        ours = sorted((e for e in events if "ivf_scan_kernel" in e.name
+                       or "select_kernel" in e.name),
+                      key=lambda e: e.time_range.start)
+        if len(ours) != 2 * iters * len(keys):
+            continue
+        out = {}
+        for j, key in enumerate(keys):
+            chunk = ours[2 * iters * j: 2 * iters * (j + 1)]
+            scan = [e for e in chunk if "ivf_scan_kernel" in e.name]
+            select = [e for e in chunk if "select_kernel" in e.name]
+            if len(scan) != iters or len(select) != iters:
+                break
+            out[key] = {"scan_ms": ms(scan), "select_ms": ms(select)}
+        else:
+            return out
+    raise RuntimeError(f"{tries} profiler windows of {iters} calls of "
+                       f"{len(keys)} IVF cases were all incomplete")
+
+
 def ivf_recall(idx, q, truth, own_truth, card_line: str, label: str) -> dict:
     """The IVF path: ``IVFIndex.search`` of the queries ``q`` (float32, unit)
     as a batch (union) and query by query (probed) at nprobe 4, 16, 64;
@@ -1085,14 +1137,11 @@ def ivf_phase(card_line: str) -> dict:
     log("ivf-path", time.time() - t0, card_line, launches=json.dumps(
         {n: launches[n] for n in IVF_KERNELS}))
 
-    cases = [("q1", "probed", 1, TOP_K), ("q8", "probed", 8, TOP_K),
-             ("q8", "union", 8, TOP_K), ("q32", "union", 32, TOP_K),
-             ("q8k1000", "union", 8, 1000)]
     report = {}
     d, bn = I.DIM, I.BLOCK_N
     for label, idx in (("bf16", b), ("int8", b8)):
         sc = idx.scales
-        for case, kind, nq, k in cases:
+        for case, kind, nq, k in IVF_CASES:
             t0 = time.time()
             q = queries[:nq].contiguous()
             probes = idx.probe(q.float(), I.NPROBE)
@@ -1166,8 +1215,37 @@ def ivf_phase(card_line: str) -> dict:
         entry, shape=report[("ivf_probed_scan", "q1")]["shape"])
     del index, b, b8
     torch.cuda.empty_cache()
+    for key, t in timings_child(card_line, "ivf_union_timings").items():
+        report[tuple(key.split("/"))].update(
+            {x: t[x] for x in ("scan_ms", "select_ms")})
     return {"kernels": report, "launches": launches, "recall_at_10": recall,
             "build_s": build_s}
+
+
+def ivf_union_timings() -> dict:
+    """Device ms of each union case's two launches apart, the scan and the
+    selection (``scan_select_ms``), over phase 6's indexes built again, for
+    ``timings_child``: → {"name/case": {"ms", "scan_ms", "select_ms"}}."""
+    from cmw_rag_tpu_torch.index.ivf import IVFIndex, union_blocks
+    from cmw_rag_tpu_torch.ops import ivf_scan as V
+    from cmw_rag_tpu_torch.scripts import ivf as I
+
+    rows, ids, queries, _ = I.clustered_corpus()
+    calls = {}
+    for quantize in (False, True):
+        idx = IVFIndex.build(rows, ids, block_n=I.BLOCK_N, quantize=quantize)
+        name = "ivf_union_scan" + ("_int8" if quantize else "")
+        extra = () if idx.scales is None else (idx.scales,)
+        for case, kind, nq, k in IVF_CASES:
+            if kind == "union":
+                q = queries[:nq].contiguous()
+                table, nu = union_blocks(idx.probe(q.float(), I.NPROBE))
+                calls[f"{name}/{case}"] = functools.partial(
+                    getattr(V, name), idx.corpus, *extra, idx.ids, q, table,
+                    k, I.BLOCK_N, nu)
+    times = scan_select_ms(calls)
+    return {key: {"ms": t["scan_ms"] + t["select_ms"], **t}
+            for key, t in times.items()}
 
 
 def segmented_phase(card_line: str) -> dict:
@@ -3638,7 +3716,8 @@ def main() -> int:
            for case in ("window", "train", "full")},
     })
     ivf_cases = {"ivf_probed_scan": ("q1", "q8"),
-                 "ivf_union_scan": ("q8", "q32", "q8k1000")}
+                 "ivf_union_scan": ("q8", "q32", "q8k129", "q8k256",
+                                    "q8k1000")}
     for name, replaces in IVF_KERNELS.items():
         cases = ivf_cases[name.removesuffix("_int8")]
         main_case = ivf["kernels"][(name, cases[0])]
@@ -3651,11 +3730,13 @@ def main() -> int:
                                   for c in cases)}
         row.update({k: main_case[k] for k in ("ms", "plain_ms", "bound_ms",
                                               "bound_by", "library_ms",
-                                              "shape")})
+                                              "scan_ms", "select_ms", "shape")
+                    if k in main_case})
         for case in cases[1:]:
-            row[case] = {k: ivf["kernels"][(name, case)][k]
-                         for k in ("ms", "plain_ms", "library_ms", "bound_ms",
-                                   "bound_by", "max_abs_err", "shape")}
+            row[case] = {k: v for k, v in ivf["kernels"][(name, case)].items()
+                         if k in ("ms", "plain_ms", "library_ms", "bound_ms",
+                                  "bound_by", "max_abs_err", "scan_ms",
+                                  "select_ms", "shape")}
         rows.append(row)
     runs = llm["engine"]["runs"]
     for name, replaces in PAGED_KERNELS.items():

@@ -26,65 +26,83 @@
 // What bounds it: every row read is read once, rows x (2D + 4) bytes for
 // bf16 and rows x (D + 8) for int8 (row, scale, id), against 2*Q*rows*D
 // operations. With Q <= 32 that is at most ~32 operations per byte, far
-// under the H100's ~295, so the scan is bound by device-memory bandwidth.
-// At Q = 1 a CTA reads one or two 512 KB tiles, so the latency of those
-// reads, not the bandwidth, is what this simple design leaves exposed.
+// under the H100's ~295, so the scan is bound by device-memory bandwidth;
+// what it must add is the scores it hands to the selection (4 bytes a row
+// and query, ~1.6% of the rows' bytes at Q 8 and D 1024, written to and
+// read back from L2 where they fit).
 //
-// Design: the structure of csrc/topk_scan.cu, with tiles reached through
-// the table instead of by address.
-//   * Launch 1 (ivf_scan_kernel): a grid of (CTAs x query groups). A group
-//     is 32 queries sharing the union table row, or one query with its own
-//     probed row (the m16n8k16 tile then wastes 31 of 32 query columns:
-//     acceptable, the kernel waits on bytes). A block is ceil(block_n / 256)
-//     tiles of 256 rows, the last masked at block_n; each CTA walks a
-//     contiguous range of the group's (entry, tile) pairs, loading each
-//     entry's block index itself. Its 8 warps each own 32 rows and compute
-//     the 32 x 32 score tile with mma.sync (bf16 in, fp32 accumulate),
-//     corpus fragments read straight from device memory with 16-byte loads
-//     (8-byte for int8) and the query block staged in shared memory over D
-//     in 256-column chunks.
-//   * One warp per query folds the tile into that query's running top-k
-//     (sorted, in shared memory) under a threshold gate: only a row that
-//     beats the current k-th entry is inserted. An id already in the list
-//     is skipped, so a repeated block adds nothing.
-//   * k > 128 (kLarge): the running lists live in global memory, in the
-//     [n_ctas, Q, k] partial buffer and a second buffer of that shape used
-//     in turn; a tile's candidates are compacted in shared memory and every
-//     entry computes its rank in the union (see topk_scan.cu). A candidate
-//     equal to a running entry (same score and id: a repeated block scores
-//     the same row with the same instructions) is dropped first.
-//   * Launch 2 (merge_kernel): one block per query merges the n_ctas sorted
-//     lists, skipping an entry equal to the one it just emitted (the same
-//     row reached from a repeated block in another CTA).
-// Ids must be unique across the corpus (the index stores row ids). The
-// source is self-contained: its helpers repeat topk_scan.cu's (the
-// tile loads take a row mask, the folds and the merge skip repeats), so
-// neither library's build depends on the other's source.
+// Design (two launches a chunk of at most kChunk = 64 queries, the chunks
+// in turn, so that the candidate workspace holds one chunk's scores and
+// does not grow with the batch; a chunk's two groups of 32 read the same
+// tiles at about the same time, so the second mostly finds them in L2):
+//   * ivf_scan_kernel: a persistent grid of one CTA a SM (times query
+//     groups), each walking the (table entry, 256-row tile) items
+//     blockIdx.x, + gridDim.x, ... of its group; the number of entries is
+//     read on the device (n_valid), so nothing is sized by the table's
+//     padded width. A producer warp streams each tile's rows into a 4-stage
+//     ring of mbarriers by TMA (a 2-D map over corpus [N, D], encoded once
+//     per corpus tensor by the caller: boxes of 256 rows x 128 bytes with
+//     the 128-byte swizzle, 32 KB a stage). The query group (8, 16 or 32
+//     queries: one to four n8 tiles) stays in shared memory for the whole
+//     CTA where it fits, loaded once by TMA in 64-column chunks; where it
+//     does not (32 queries at D 5120), each stage carries its columns'
+//     query chunks beside the rows. Eight consumer warps own 32 rows each
+//     and compute the [256 rows x group] scores with mma.sync m16n8k16
+//     (bf16 in, fp32 sums), fragments by ldmatrix from the swizzled
+//     stages; int8 rows are widened to bf16 in registers (the 4 bytes a
+//     thread holds are k 4t..4t+3; the query fragments are taken at the
+//     same permutation of k, which leaves every dot product unchanged) and
+//     multiplied by their scale after the product. A warp writes its rows'
+//     scores for the group's queries, and (once, not per query) their ids,
+//     into the selection's candidate workspace at the row's place in the
+//     table (entry * block_n + row; the workspace holds ws_cols entries a
+//     query, which the host sets to min(table_cols, n_blocks) when n_valid
+//     is given, since the distinct entries it counts cannot exceed
+//     n_blocks; entries past the ws_cols-th are not scanned). An entry
+//     whose block is out of range or listed earlier in the same table row
+//     scans nothing and writes ids of -1, so a repeated block's rows are
+//     dropped before the selection counts. The CTAs also clear the
+//     selection's histograms and counters.
+//   * select_k::select_kernel (select_k.cuh): the exact selection over each
+//     query's candidates (every row of its table row's first n_valid
+//     entries), a radix select of the k-th key over several CTAs a query,
+//     then a compaction and an ordered placement whose serial work does not
+//     grow with k.
+// Ids must be unique across the corpus (the index stores row ids).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <string.h>
+
+#include <atomic>
+
+#include "hopper.cuh"
+#include "select_k.cuh"
 
 namespace {
 
-constexpr int kWarps = 8;
-constexpr int kThreads = kWarps * 32;
-constexpr int kQT = 32;                      // queries per group: 4 n8 tiles
-constexpr int kNT = kQT / 8;
-constexpr int kMT = 2;                       // m16 tiles per warp
-constexpr int kRows = kWarps * kMT * 16;     // 256 rows per tile
-constexpr int kDC = 256;                     // query columns staged per chunk
-constexpr int kQStride = kDC + 32;           // bf16 per staged row (+64 B)
-constexpr int kScStride = kRows + 4;         // floats per score row
-constexpr int kMaxK = 128;                   // largest k kept in shared memory
-constexpr int kMergeLists = 4 * kThreads;    // lists one merge block handles
-constexpr float kNegInf = -3.0e38f;
+using hopper::mbar_init;
+using hopper::mbar_wait;
+using hopper::named_bar_arrive;
+using hopper::named_bar_sync;
 
-// (score desc, id asc); an entry with id < 0 ranks below every valid one.
-__device__ __forceinline__ bool better(float s1, int i1, float s2, int i2) {
-  if (i2 < 0) return i1 >= 0;
-  if (i1 < 0) return false;
-  return s1 > s2 || (s1 == s2 && i1 < i2);
+constexpr int kWarps = 8;                    // consumer warps
+constexpr int kThreads = (kWarps + 1) * 32;  // + the producer warp
+constexpr int kRows = 256;                   // rows a tile, 32 a warp
+constexpr int kSpan = 128;                   // bytes of a row a stage
+constexpr int kStage = kRows * kSpan;        // 32 KB of rows a stage
+constexpr int kRing = 4;
+constexpr int kQCols = 64;                   // bf16 query columns a chunk
+constexpr int kInitBar = 1;                  // named barrier: ring ready
+constexpr int kMaxSmem = 232448 - 1024;      // dynamic, beside the static
+constexpr int kChunk = 64;                   // queries a scan + selection
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(hopper::smem_u32(p)));
 }
 
 __device__ __forceinline__ void mma_bf16(float (&c)[4], uint32_t a0,
@@ -97,484 +115,415 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], uint32_t a0,
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
 }
 
-__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x = low half
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// 8 consecutive values of corpus row `row` from column `col` as 4 bf16x2
-// words, zeros unless `ok` and col < d. D % 8 == 0 keeps loads aligned.
-__device__ __forceinline__ void load_row8(const __nv_bfloat16* corpus,
-                                          int64_t row, int col, bool ok, int d,
-                                          uint32_t (&w)[4]) {
-  uint4 v = make_uint4(0u, 0u, 0u, 0u);
-  if (ok && col < d)
-    v = __ldg(reinterpret_cast<const uint4*>(corpus + row * d + col));
-  w[0] = v.x; w[1] = v.y; w[2] = v.z; w[3] = v.w;
-}
-
-__device__ __forceinline__ void load_row8(const int8_t* corpus, int64_t row,
-                                          int col, bool ok, int d,
-                                          uint32_t (&w)[4]) {
-  uint2 v = make_uint2(0u, 0u);
-  if (ok && col < d)
-    v = __ldg(reinterpret_cast<const uint2*>(corpus + row * d + col));
-  const uint32_t u[2] = {v.x, v.y};
+// Bytes 0, 1 and 2, 3 of four int8 values as two bf16x2 words, exactly
+// and without conversion instructions: byte b ^ 0x80 (b + 128) under the
+// float exponent of 2^23 is 2^23 + b + 128, less 2^23 + 128 is b, whose
+// bf16 is its float's high half (|b| <= 128 needs 8 significant bits).
+__device__ __forceinline__ void widen(uint32_t u, uint32_t& lo, uint32_t& hi) {
+  const uint32_t x = u ^ 0x80808080u;
+  float f[4];
 #pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const float e0 = static_cast<float>(static_cast<int8_t>(u[h] & 0xffu));
-    const float e1 = static_cast<float>(static_cast<int8_t>((u[h] >> 8) & 0xffu));
-    const float e2 = static_cast<float>(static_cast<int8_t>((u[h] >> 16) & 0xffu));
-    const float e3 = static_cast<float>(static_cast<int8_t>(u[h] >> 24));
-    w[2 * h] = pack_bf16x2(e0, e1);
-    w[2 * h + 1] = pack_bf16x2(e2, e3);
-  }
+  for (int i = 0; i < 4; ++i)
+    f[i] = __uint_as_float(__byte_perm(x, 0x4B000000u, 0x7550 + i)) -
+           8388736.0f;
+  lo = __byte_perm(__float_as_uint(f[0]), __float_as_uint(f[1]), 0x7632);
+  hi = __byte_perm(__float_as_uint(f[2]), __float_as_uint(f[3]), 0x7632);
 }
 
-// Index of the first entry of the sorted list rs/ri (length k) that is not
-// better than (s, id).
-__device__ __forceinline__ int lower_rank(const float* rs, const int* ri,
-                                          int k, float s, int id) {
-  int lo = 0, hi = k;
-  while (lo < hi) {
-    const int mid = (lo + hi) >> 1;
-    if (better(rs[mid], ri[mid], s, id)) lo = mid + 1; else hi = mid;
-  }
-  return lo;
+// Byte offset of 16-byte chunk `c` of row `r` in a 128-byte-swizzled tile.
+__device__ __forceinline__ int swz(int r, int c) {
+  return r * kSpan + ((c ^ (r & 7)) << 4);
 }
 
-// Large-k fold of one tile into one query's running list (one warp): rs/ri
-// is the current sorted list of k entries, ns/ni receives the merged one.
-// cs/ci is this warp's candidate staging area (kRows entries). tile_ids
-// holds the tile's ids (-1 past the block's end).
-__device__ __forceinline__ void fold_large(
-    const float* sc_row, const int* tile_ids, int k, const float* rs,
-    const int* ri, float* ns, int* ni, float* cs, int* ci, int lane) {
-  const float th_s = rs[k - 1];
-  const int th_i = ri[k - 1];
-  int nc = 0;
-  for (int base = 0; base < kRows; base += 32) {
-    const float s = sc_row[base + lane];
-    const int id = tile_ids[base + lane];
-    bool cand = id >= 0 && s > 0.5f * kNegInf && better(s, id, th_s, th_i);
-    if (cand) {  // a row already in the list (a repeated block) is no candidate
-      const int at = lower_rank(rs, ri, k, s, id);
-      cand = !(at < k && ri[at] == id && rs[at] == s);
-    }
-    const unsigned m = __ballot_sync(0xffffffffu, cand);
-    if (cand) {
-      const int p = nc + __popc(m & ((1u << lane) - 1u));
-      cs[p] = s;
-      ci[p] = id;
-    }
-    nc += __popc(m);
-  }
-  __syncwarp();
-  // candidates: rank = #better candidates + #better running entries
-  for (int j = lane; j < nc; j += 32) {
-    const float s = cs[j];
-    const int id = ci[j];
-    int r = 0;
-    for (int u = 0; u < nc; ++u) r += better(cs[u], ci[u], s, id) ? 1 : 0;
-    r += lower_rank(rs, ri, k, s, id);
-    if (r < k) { ns[r] = s; ni[r] = id; }
-  }
-  // running entries: rank = own index + #better candidates
-  for (int j = lane; j < k; j += 32) {
-    const float s = rs[j];
-    const int id = ri[j];
-    int r = j;
-    for (int u = 0; u < nc && r < k; ++u)
-      r += better(cs[u], ci[u], s, id) ? 1 : 0;
-    if (r < k) { ns[r] = s; ni[r] = id; }
-  }
-  __syncwarp();
+// Whether entry e of a table row scans its block: in range and not listed
+// earlier in the row (warp-collective; the same answer in every lane).
+__device__ __forceinline__ bool scans(const int* row, int e, int blk,
+                                      int n_blocks, int lane) {
+  if (blk < 0 || blk >= n_blocks) return false;
+  bool seen = false;
+  for (int j = lane; j < e; j += 32) seen |= __ldg(row + j) == blk;
+  return !__any_sync(0xffffffffu, seen);
 }
 
-template <typename T, bool kLarge>
-__global__ void __launch_bounds__(kThreads, 2)
-ivf_scan_kernel(const __nv_bfloat16* __restrict__ queries,
-                const T* __restrict__ corpus, const float* __restrict__ scales,
-                const int* __restrict__ ids, const int* __restrict__ table,
-                int table_cols, int per_query, const int* __restrict__ n_valid,
-                int nq, int n_blocks, int d, int block_n, int k,
-                float* part_s, int* part_i, float* alt_s, int* alt_i) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* q_sh = reinterpret_cast<__nv_bfloat16*>(smem);
-  float* sc = reinterpret_cast<float*>(smem + kQT * kQStride * 2);
-  int* tid_sh = reinterpret_cast<int*>(sc + kQT * kScStride);  // tile ids
-  // small k: sorted running lists [kQT, k]; large k: candidate staging
-  // [kWarps, kRows] (the running lists are in part_* / alt_*)
-  float* run_s = reinterpret_cast<float*>(tid_sh + kRows);
-  int* run_i = reinterpret_cast<int*>(run_s + (kLarge ? kWarps * kRows : kQT * k));
+struct ScanArgs {
+  const int* ids;         // [n_blocks * block_n]
+  const float* scales;    // int8 rows' scales, else null
+  const int* table;       // this chunk's: [per_query ? nq : 1, table_cols]
+  int table_cols;         // entries scanned a row: the workspace's
+  int per_query;
+  const int* n_valid;     // null, or a device count of entries
+  int nq, q_base;         // queries of this chunk, its first in the batch
+  int n_blocks, d, block_n;
+  int stream_q;           // the query chunks ride in the ring's stages
+  float* cand_s;          // [nq, table_cols * block_n]
+  int* cand_i;            // [per_query ? nq : 1, table_cols * block_n]
+  uint32_t* hist;         // the selection's, cleared here
+  uint32_t* counts;
+};
 
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int q0 = per_query ? blockIdx.y : blockIdx.y * kQT;
-  const int nqb = per_query ? 1 : min(kQT, nq - q0);
-  const int* row = table + (per_query ? static_cast<int64_t>(blockIdx.y) * table_cols : 0);
-  int cols = table_cols;
-  if (n_valid != nullptr) cols = max(0, min(cols, *n_valid));
-  const int tpb = (block_n + kRows - 1) / kRows;       // tiles per block
-  const int64_t n_tiles = static_cast<int64_t>(cols) * tpb;
-  const int64_t tile_begin = n_tiles * blockIdx.x / gridDim.x;
-  const int64_t tile_end = n_tiles * (blockIdx.x + 1) / gridDim.x;
+// T: bf16 or int8 rows; NT: n8 query tiles of a group (8 * NT queries).
+template <typename T, int NT>
+__global__ void __launch_bounds__(kThreads, 1)
+ivf_scan_kernel(const __grid_constant__ CUtensorMap c_map,
+                const __grid_constant__ CUtensorMap q_map, const ScanArgs a) {
+  constexpr int QG = 8 * NT;                       // query rows of a group
+  constexpr int EPS = kSpan / sizeof(T);           // row elements a stage
+  constexpr int QC = EPS / kQCols;                 // query chunks a stage
+  constexpr int kQChunk = QG * kSpan;              // bytes of a query chunk
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* ring = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  __shared__ uint64_t full[kRing], empty[kRing], qbar;
 
-  // bit qc / kWarps: the running list of query qc is in alt_* (large k)
-  unsigned parity = 0;
-  if constexpr (kLarge) {
-    for (int qc = warp; qc < nqb; qc += kWarps) {
-      const int64_t o = (static_cast<int64_t>(blockIdx.x) * nq + q0 + qc) * k;
-      for (int j = lane; j < k; j += 32) {
-        part_s[o + j] = kNegInf;
-        part_i[o + j] = -1;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int stage_bytes = kStage + (a.stream_q ? QC * kQChunk : 0);
+  unsigned char* q_sh = ring + kRing * stage_bytes;  // resident query
+  const int n_steps = (a.d + EPS - 1) / EPS;
+  const int n_chunks = n_steps * QC;               // the resident query's
+  const int group = blockIdx.y;
+  const int q0 = a.per_query ? group : group * QG;   // in this chunk
+  const int nqb = a.per_query ? 1 : min(QG, a.nq - q0);
+  const int* row = a.table + (a.per_query ? static_cast<int64_t>(group) * a.table_cols : 0);
+  int cols = a.table_cols;
+  if (a.n_valid != nullptr) cols = max(0, min(cols, *a.n_valid));
+  const int tpb = (a.block_n + kRows - 1) / kRows;   // tiles a block
+  const int items = cols * tpb;
+  const int64_t width = static_cast<int64_t>(a.table_cols) * a.block_n;
+
+  {  // clear the selection's histograms and counters
+    const int64_t cta = static_cast<int64_t>(blockIdx.y) * gridDim.x + blockIdx.x;
+    select_k::clear(a.hist, a.counts, a.nq, cta * kThreads + tid,
+                    static_cast<int64_t>(gridDim.x) * gridDim.y * kThreads);
+  }
+
+  if (warp == kWarps) {
+    // producer: initialises the ring, loads the resident query, then
+    // streams every stage of every item of this CTA, in order
+    if (lane == 0) {
+      hopper::prefetch_tensor_map(&c_map);
+      hopper::prefetch_tensor_map(&q_map);
+      for (int s = 0; s < kRing; ++s) {
+        mbar_init(&full[s], 1);
+        mbar_init(&empty[s], kWarps);
       }
+      mbar_init(&qbar, 1);
+      hopper::fence_barrier_init();
     }
     __syncwarp();
-  } else {
-    for (int i = threadIdx.x; i < kQT * k; i += kThreads) {
-      run_s[i] = kNegInf;
-      run_i[i] = -1;
+    named_bar_arrive(kInitBar, kThreads);
+    const int q_row0 = a.q_base + q0;
+    if (lane == 0 && !a.stream_q) {
+      hopper::mbar_arrive_expect_tx(&qbar, n_chunks * kQChunk);
+      for (int c = 0; c < n_chunks; ++c)
+        hopper::tma_load_2d(q_sh + c * kQChunk, &q_map, &qbar, c * kQCols,
+                            q_row0);
     }
-  }
-
-  for (int64_t tile = tile_begin; tile < tile_end; ++tile) {
-    const int blk = row[tile / tpb];
-    if (blk < 0 || blk >= n_blocks) continue;          // uniform over the CTA
-    const int sub = static_cast<int>(tile % tpb) * kRows;
-    const int lim = min(kRows, block_n - sub);         // rows of this tile
-    const int64_t tile_row0 = static_cast<int64_t>(blk) * block_n + sub;
-    const int rw0 = warp * (kMT * 16);                 // this warp's rows
-    float acc[kMT][kNT][4];
-#pragma unroll
-    for (int mt = 0; mt < kMT; ++mt)
-#pragma unroll
-      for (int nt = 0; nt < kNT; ++nt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
-
-    for (int dc = 0; dc < d; dc += kDC) {
-      __syncthreads();  // the previous chunk's (and tile's) readers are done
-      for (int v = threadIdx.x; v < kQT * (kDC / 8); v += kThreads) {
-        const int qr = v / (kDC / 8), c8 = (v % (kDC / 8)) * 8;
-        uint4 val = make_uint4(0u, 0u, 0u, 0u);
-        if (qr < nqb && dc + c8 < d)
-          val = *reinterpret_cast<const uint4*>(
-              queries + static_cast<int64_t>(q0 + qr) * d + dc + c8);
-        *reinterpret_cast<uint4*>(q_sh + qr * kQStride + c8) = val;
-      }
-      if (dc == 0)
-        for (int r = threadIdx.x; r < kRows; r += kThreads)
-          tid_sh[r] = r < lim ? ids[tile_row0 + r] : -1;
-      __syncthreads();
-      const int width = min(kDC, d - dc);
-#pragma unroll 2
-      for (int s = 0; s * 32 < width; ++s) {
-        const int col = dc + s * 32 + t * 8;
-        uint32_t a[kMT][2][4];
-#pragma unroll
-        for (int mt = 0; mt < kMT; ++mt)
-#pragma unroll
-          for (int h = 0; h < 2; ++h) {
-            const int rl = rw0 + mt * 16 + g + h * 8;
-            load_row8(corpus, tile_row0 + rl, col, rl < lim, d, a[mt][h]);
-          }
-        uint32_t b[kNT][4];
-#pragma unroll
-        for (int nt = 0; nt < kNT; ++nt) {
-          const uint4 v = *reinterpret_cast<const uint4*>(
-              q_sh + (nt * 8 + g) * kQStride + s * 32 + t * 8);
-          b[nt][0] = v.x; b[nt][1] = v.y; b[nt][2] = v.z; b[nt][3] = v.w;
-        }
-        // Logical k (2t+e) <-> physical column 8t+e and (8+2t+e) <-> 8t+2+e
-        // in the first mma; +4 physical columns in the second. The same
-        // permutation on both operands leaves every dot product unchanged.
-#pragma unroll
-        for (int mt = 0; mt < kMT; ++mt)
-#pragma unroll
-          for (int nt = 0; nt < kNT; ++nt) {
-            mma_bf16(acc[mt][nt], a[mt][0][0], a[mt][1][0], a[mt][0][1],
-                     a[mt][1][1], b[nt][0], b[nt][1]);
-            mma_bf16(acc[mt][nt], a[mt][0][2], a[mt][1][2], a[mt][0][3],
-                     a[mt][1][3], b[nt][2], b[nt][3]);
-          }
-      }
-    }
-
-    // accumulator (row g [+8], query 2t [+1]) -> sc[query][local row]
-#pragma unroll
-    for (int mt = 0; mt < kMT; ++mt)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int rl = rw0 + mt * 16 + g + h * 8;
-        float scale = 1.f;
-        if (scales != nullptr) scale = rl < lim ? scales[tile_row0 + rl] : 0.f;
-#pragma unroll
-        for (int nt = 0; nt < kNT; ++nt)
-#pragma unroll
-          for (int e = 0; e < 2; ++e)
-            sc[(nt * 8 + 2 * t + e) * kScStride + rl] =
-                acc[mt][nt][h * 2 + e] * scale;
-      }
-    __syncthreads();
-
-    if constexpr (kLarge) {
-      for (int qc = warp; qc < nqb; qc += kWarps) {
-        const int64_t o =
-            (static_cast<int64_t>(blockIdx.x) * nq + q0 + qc) * k;
-        const unsigned bit = 1u << (qc / kWarps);
-        const bool in_alt = (parity & bit) != 0;
-        fold_large(sc + qc * kScStride, tid_sh, k,
-                   (in_alt ? alt_s : part_s) + o, (in_alt ? alt_i : part_i) + o,
-                   (in_alt ? part_s : alt_s) + o, (in_alt ? part_i : alt_i) + o,
-                   run_s + warp * kRows, run_i + warp * kRows, lane);
-        parity ^= bit;
-      }
-      continue;
-    }
-
-    // one warp per query: fold the tile into the sorted running top-k
-    for (int qc = warp; qc < nqb; qc += kWarps) {
-      float* rs = run_s + qc * k;
-      int* ri = run_i + qc * k;
-      for (int base = 0; base < kRows; base += 32) {
-        const float s = sc[qc * kScStride + base + lane];
-        const int id = tid_sh[base + lane];
-        const bool cand = id >= 0 && s > 0.5f * kNegInf &&
-                          better(s, id, rs[k - 1], ri[k - 1]);
-        unsigned todo = __ballot_sync(0xffffffffu, cand);
-        while (todo) {
-          const int src = __ffs(todo) - 1;
-          todo &= todo - 1;
-          const float cs = __shfl_sync(0xffffffffu, s, src);
-          const int cid = __shfl_sync(0xffffffffu, id, src);
-          if (!better(cs, cid, rs[k - 1], ri[k - 1])) continue;  // warp-uniform
-          int pos = 0;
-          bool dup = false;
-          for (int j0 = 0; j0 < k; j0 += 32) {
-            const int j = j0 + lane;
-            pos += __popc(__ballot_sync(
-                0xffffffffu, j < k && better(rs[j], ri[j], cs, cid)));
-            dup |= __any_sync(0xffffffffu, j < k && ri[j] == cid);
-          }
-          if (dup) continue;  // warp-uniform: a repeated block's row
-          float mv_s[kMaxK / 32];
-          int mv_i[kMaxK / 32];
-#pragma unroll
-          for (int u = 0; u < kMaxK / 32; ++u) {
-            const int j = lane + 32 * u;
-            if (j >= pos && j < k - 1) { mv_s[u] = rs[j]; mv_i[u] = ri[j]; }
-          }
-          __syncwarp();
-#pragma unroll
-          for (int u = 0; u < kMaxK / 32; ++u) {
-            const int j = lane + 32 * u;
-            if (j >= pos && j < k - 1) { rs[j + 1] = mv_s[u]; ri[j + 1] = mv_i[u]; }
-          }
-          __syncwarp();
-          if (lane == 0) { rs[pos] = cs; ri[pos] = cid; }
-          __syncwarp();
+    int use = 0;
+    for (int it = blockIdx.x; it < items; it += gridDim.x) {
+      const int e = it / tpb;
+      const int blk = __ldg(row + e);
+      if (!scans(row, e, blk, a.n_blocks, lane)) continue;
+      const int r0 = blk * a.block_n + (it % tpb) * kRows;
+      if (lane == 0) {
+        for (int st = 0; st < n_steps; ++st) {
+          const int u = use + st, slot = u % kRing;
+          if (u >= kRing) mbar_wait(&empty[slot], ((u / kRing) - 1) & 1);
+          unsigned char* dst = ring + slot * stage_bytes;
+          hopper::mbar_arrive_expect_tx(&full[slot], stage_bytes);
+          hopper::tma_load_2d(dst, &c_map, &full[slot], st * EPS, r0);
+          if (a.stream_q)
+            for (int c = 0; c < QC; ++c)
+              hopper::tma_load_2d(dst + kStage + c * kQChunk, &q_map,
+                                  &full[slot], (st * QC + c) * kQCols, q_row0);
         }
       }
-    }
-  }
-
-  if constexpr (kLarge) {
-    // lists that ended in alt_* move to part_*, where the merge reads them
-    for (int qc = warp; qc < nqb; qc += kWarps) {
-      if (!(parity & (1u << (qc / kWarps)))) continue;
-      const int64_t o = (static_cast<int64_t>(blockIdx.x) * nq + q0 + qc) * k;
-      for (int j = lane; j < k; j += 32) {
-        part_s[o + j] = alt_s[o + j];
-        part_i[o + j] = alt_i[o + j];
-      }
+      use += n_steps;
     }
     return;
   }
-  __syncthreads();
-  for (int i = threadIdx.x; i < nqb * k; i += kThreads) {
-    const int qc = i / k, j = i % k;
-    const int64_t o = (static_cast<int64_t>(blockIdx.x) * nq + q0 + qc) * k + j;
-    part_s[o] = run_s[qc * k + j];
-    part_i[o] = run_i[qc * k + j];
-  }
-}
 
-// One block per query: k-way merge of n_lists sorted lists of length k; an
-// entry equal to the one just emitted (a repeated block's row that another
-// CTA also kept) is consumed without being emitted.
-__global__ void __launch_bounds__(kThreads)
-merge_kernel(const float* __restrict__ part_s, const int* __restrict__ part_i,
-             int n_lists, int nq, int k, float* __restrict__ out_s,
-             int* __restrict__ out_i) {
-  constexpr int kLPT = kMergeLists / kThreads;
-  __shared__ float ws[kWarps];
-  __shared__ int wi[kWarps], wl[kWarps];
-  __shared__ int winner, emitted;
-  const int q = blockIdx.x;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  // consumer warp w: rows 32w .. 32w + 31 of each tile
+  named_bar_sync(kInitBar, kThreads);
+  if (!a.stream_q) mbar_wait(&qbar, 0);
+  const int g = lane >> 2, t = lane & 3;
+  const int rw0 = warp * 32;
+  const bool write_ids = a.per_query || group == 0;
+  float* out_s = a.cand_s + static_cast<int64_t>(q0) * width;
+  int* out_i = a.cand_i + (a.per_query ? static_cast<int64_t>(group) * width : 0);
+  int use = 0;
+  for (int it = blockIdx.x; it < items; it += gridDim.x) {
+    const int e = it / tpb;
+    const int blk = __ldg(row + e);
+    const int sub = (it % tpb) * kRows;
+    const int lim = min(kRows, a.block_n - sub);       // rows of this tile
+    const int64_t slot0 = static_cast<int64_t>(e) * a.block_n + sub;
+    if (!scans(row, e, blk, a.n_blocks, lane)) {
+      if (write_ids && rw0 + lane < lim) out_i[slot0 + rw0 + lane] = -1;
+      continue;
+    }
+    const int64_t r0 = static_cast<int64_t>(blk) * a.block_n + sub;
+    float acc[2][NT][4];
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) acc[mt][nt][i] = 0.f;
 
-  int ptr[kLPT];
-  float hs[kLPT];
-  int hi[kLPT];
+    for (int st = 0; st < n_steps; ++st, ++use) {
+      const int slot = use % kRing;
+      mbar_wait(&full[slot], (use / kRing) & 1);
+      const unsigned char* cs = ring + slot * stage_bytes;
+      const unsigned char* qs =
+          a.stream_q ? cs + kStage : q_sh + st * QC * kQChunk;
+      if constexpr (sizeof(T) == 2) {
+        // four k16 steps: A by ldmatrix from the rows, B from the queries
 #pragma unroll
-  for (int u = 0; u < kLPT; ++u) {
-    const int l = threadIdx.x + u * kThreads;
-    ptr[u] = 0;
-    hs[u] = kNegInf;
-    hi[u] = -1;
-    if (l < n_lists) {
-      const int64_t o = (static_cast<int64_t>(l) * nq + q) * k;
-      hs[u] = part_s[o];
-      hi[u] = part_i[o];
-    }
-  }
-  float last_s = 0.f;
-  int last_i = -1;
-  for (int j = 0; j < k;) {
-    float bs = kNegInf;
-    int bi = -1, bl = -1;
+        for (int k2 = 0; k2 < 2; ++k2) {
+          uint32_t b[NT][4];
 #pragma unroll
-    for (int u = 0; u < kLPT; ++u)
-      if (better(hs[u], hi[u], bs, bi)) {
-        bs = hs[u]; bi = hi[u]; bl = threadIdx.x + u * kThreads;
-      }
+          for (int nt = 0; nt < NT; ++nt) {
+            const int qr = nt * 8 + (lane & 7);
+            ldsm_x4(b[nt], qs + swz(qr, 4 * k2 + (lane >> 3)));
+          }
 #pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      const float os = __shfl_xor_sync(0xffffffffu, bs, off);
-      const int oi = __shfl_xor_sync(0xffffffffu, bi, off);
-      const int ol = __shfl_xor_sync(0xffffffffu, bl, off);
-      if (better(os, oi, bs, bi)) { bs = os; bi = oi; bl = ol; }
-    }
-    if (lane == 0) { ws[warp] = bs; wi[warp] = bi; wl[warp] = bl; }
-    __syncthreads();
-    if (threadIdx.x == 0) {
-      float s = ws[0];
-      int i = wi[0], l = wl[0];
-      for (int w = 1; w < kWarps; ++w)
-        if (better(ws[w], wi[w], s, i)) { s = ws[w]; i = wi[w]; l = wl[w]; }
-      const bool again = i >= 0 && i == last_i && s == last_s;
-      if (!again) {
-        out_s[static_cast<int64_t>(q) * k + j] = i >= 0 ? s : kNegInf;
-        out_i[static_cast<int64_t>(q) * k + j] = i;
-        last_s = s;
-        last_i = i;
-      }
-      emitted = again ? 0 : 1;
-      winner = i >= 0 ? l : -1;
-    }
-    __syncthreads();
-    const int wlst = winner;
-    j += emitted;
+          for (int kh = 0; kh < 2; ++kh) {
+            const int kk = 2 * k2 + kh;
 #pragma unroll
-    for (int u = 0; u < kLPT; ++u)
-      if (threadIdx.x + u * kThreads == wlst) {
-        ++ptr[u];
-        hs[u] = kNegInf;
-        hi[u] = -1;
-        if (ptr[u] < k) {
-          const int64_t o = (static_cast<int64_t>(wlst) * nq + q) * k + ptr[u];
-          hs[u] = part_s[o];
-          hi[u] = part_i[o];
+            for (int mt = 0; mt < 2; ++mt) {
+              uint32_t av[4];
+              const int r = rw0 + mt * 16 + (lane & 15);
+              ldsm_x4(av, cs + swz(r, 2 * kk + (lane >> 4)));
+#pragma unroll
+              for (int nt = 0; nt < NT; ++nt)
+                mma_bf16(acc[mt][nt], av[0], av[1], av[2], av[3],
+                         b[nt][2 * kh], b[nt][2 * kh + 1]);
+            }
+          }
+        }
+      } else {
+        // four k32 steps of int8: each 16-byte chunk of a row gives one k16
+        // mma with k permuted (thread t holds bytes 4t .. 4t + 3)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          uint32_t raw[2][4];
+#pragma unroll
+          for (int mt = 0; mt < 2; ++mt) {
+            const int r = rw0 + mt * 16 + (lane & 15);
+            ldsm_x4(raw[mt], cs + swz(r, 2 * j + (lane >> 4)));
+          }
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int col = 32 * j + 16 * h + 4 * t;      // stage column
+            const unsigned char* qc = qs + (col / kQCols) * kQChunk;
+            const int cc = col % kQCols;
+#pragma unroll
+            for (int mt = 0; mt < 2; ++mt) {
+              uint32_t lo0, hi0, lo1, hi1;
+              widen(raw[mt][2 * h], lo0, hi0);       // row g
+              widen(raw[mt][2 * h + 1], lo1, hi1);   // row g + 8
+#pragma unroll
+              for (int nt = 0; nt < NT; ++nt) {
+                const uint2 b = *reinterpret_cast<const uint2*>(
+                    qc + swz(nt * 8 + g, cc >> 3) + 2 * (cc & 7));
+                mma_bf16(acc[mt][nt], lo0, lo1, hi0, hi1, b.x, b.y);
+              }
+            }
+          }
         }
       }
+      __syncwarp();
+      if (lane == 0) hopper::mbar_arrive(&empty[slot]);
+    }
+
+    // accumulator (row g [+8], query 2t [+1]) -> the candidate workspace
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int rl = rw0 + mt * 16 + g + 8 * h;
+        if (rl >= lim) continue;
+        float scale = 1.f;
+        if (a.scales != nullptr) scale = __ldg(a.scales + r0 + rl);
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+          for (int i = 0; i < 2; ++i) {
+            const int qc = nt * 8 + 2 * t + i;
+            if (qc < nqb)
+              out_s[qc * width + slot0 + rl] = acc[mt][nt][2 * h + i] * scale;
+          }
+      }
+    if (write_ids && rw0 + lane < lim)
+      out_i[slot0 + rw0 + lane] = __ldg(a.ids + r0 + rw0 + lane);
   }
 }
 
-size_t scan_smem_bytes(int k) {
-  const int run = k > kMaxK ? kWarps * kRows : kQT * k;
-  return static_cast<size_t>(kQT) * kQStride * 2 +
-         static_cast<size_t>(kQT) * kScStride * 4 +
-         static_cast<size_t>(kRows) * 4 + static_cast<size_t>(run) * 8;
+// Shared memory of a CTA: the ring, then the resident query (when the
+// query chunks do not ride in the stages; as many chunks as the stages
+// cover, those past D zero), + 1 KB for the alignment.
+int scan_smem(int qg, int d, int elem, bool stream_q) {
+  const int chunk = qg * kSpan, per_stage = kSpan / elem / kQCols;
+  if (stream_q) return kRing * (kStage + per_stage * chunk) + 1024;
+  const int steps = (d + kSpan / elem - 1) / (kSpan / elem);
+  return kRing * kStage + steps * per_stage * chunk + 1024;
 }
 
-template <typename T, bool kLarge>
-cudaError_t launch_scan(const void* queries, const T* corpus,
-                        const float* scales, const int* ids, const int* table,
-                        int table_cols, int per_query, const int* n_valid,
-                        int nq, int n_blocks, int d, int block_n, int k,
-                        int n_ctas, float* part_s, int* part_i, float* alt_s,
-                        int* alt_i, cudaStream_t st) {
-  const size_t smem = scan_smem_bytes(k);
-  cudaError_t err = cudaFuncSetAttribute(
-      ivf_scan_kernel<T, kLarge>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+// Opts the instance into the most dynamic shared memory it may take, on
+// the current device, once a device (the attribute is a device's).
+template <typename T, int NT>
+cudaError_t allow_smem() {
+  static std::atomic<unsigned long long> done{0};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
-  const dim3 grid(n_ctas, per_query ? nq : (nq + kQT - 1) / kQT);
-  ivf_scan_kernel<T, kLarge><<<grid, kThreads, smem, st>>>(
-      static_cast<const __nv_bfloat16*>(queries), corpus, scales, ids, table,
-      table_cols, per_query, n_valid, nq, n_blocks, d, block_n, k, part_s,
-      part_i, alt_s, alt_i);
+  const unsigned long long bit = dev < 64 ? 1ull << dev : 0;
+  if (done.load() & bit) return cudaSuccess;
+  err = cudaFuncSetAttribute(ivf_scan_kernel<T, NT>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             kMaxSmem);
+  if (err == cudaSuccess) done.fetch_or(bit);
+  return err;
+}
+
+template <typename T, int NT>
+cudaError_t launch_scan(const CUtensorMap& c_map, const CUtensorMap& q_map,
+                        const ScanArgs& a, int n_ctas, int groups,
+                        cudaStream_t st) {
+  constexpr int QG = 8 * NT;
+  ScanArgs args = a;
+  args.stream_q = scan_smem(QG, a.d, sizeof(T), false) > kMaxSmem;
+  const int smem = scan_smem(QG, a.d, sizeof(T), args.stream_q);
+  if (smem > kMaxSmem) return cudaErrorInvalidValue;
+  const cudaError_t err = allow_smem<T, NT>();
+  if (err != cudaSuccess) return err;
+  ivf_scan_kernel<T, NT><<<dim3(n_ctas, groups), kThreads, smem, st>>>(
+      c_map, q_map, args);
   return cudaGetLastError();
 }
 
 template <typename T>
-int launch(const void* queries, const T* corpus, const float* scales,
-           const int* ids, const int* table, int table_cols, int per_query,
-           const int* n_valid, int nq, int n_blocks, int d, int block_n, int k,
-           int n_ctas, float* part_s, int* part_i, float* alt_s, int* alt_i,
-           float* out_s, int* out_i, void* stream) {
-  if (nq < 1 || n_blocks < 1 || block_n < 1 || table_cols < 1 || d < 8 ||
-      d % 8 != 0 || k < 1 || n_ctas < 1 || n_ctas > kMergeLists ||
-      (per_query && nq > 65535) ||
-      (k > kMaxK && (alt_s == nullptr || alt_i == nullptr)))
+int launch(const void* c_map_host, const void* q_map_host, const float* scales,
+           const int* ids, const int* table, int table_cols, int ws_cols,
+           int per_query, const int* n_valid, int nq, int qg, int n_blocks,
+           int d, int block_n, int k, int n_ctas, int sel_ctas, float* cand_s,
+           int* cand_i, uint32_t* hist, uint32_t* counts, uint64_t* surv,
+           int64_t surv_stride, float* out_s, int* out_i, void* stream) {
+  // qg: the query group's rows, which the query map's boxes were encoded
+  // with (8 on the probed route, 8, 16 or 32 on the union route)
+  if (nq < 1 || n_blocks < 1 || block_n < 1 || table_cols < 1 ||
+      ws_cols < 1 || ws_cols > table_cols ||
+      (per_query && ws_cols != table_cols) || d < 8 ||
+      d % (16 / sizeof(T)) != 0 || k < 1 ||
+      n_ctas < 1 || sel_ctas < 1 ||
+      (qg != 8 && qg != 16 && qg != 32) || (per_query && qg != 8) ||
+      static_cast<int64_t>(n_blocks) * block_n > INT32_MAX)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err =
-      k > kMaxK
-          ? launch_scan<T, true>(queries, corpus, scales, ids, table,
-                                 table_cols, per_query, n_valid, nq, n_blocks,
-                                 d, block_n, k, n_ctas, part_s, part_i, alt_s,
-                                 alt_i, st)
-          : launch_scan<T, false>(queries, corpus, scales, ids, table,
-                                  table_cols, per_query, n_valid, nq, n_blocks,
-                                  d, block_n, k, n_ctas, part_s, part_i, alt_s,
-                                  alt_i, st);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  merge_kernel<<<nq, kThreads, 0, st>>>(part_s, part_i, n_ctas, nq, k, out_s,
-                                        out_i);
-  return static_cast<int>(cudaGetLastError());
+  CUtensorMap c_map, q_map;
+  memcpy(&c_map, c_map_host, sizeof(CUtensorMap));
+  memcpy(&q_map, q_map_host, sizeof(CUtensorMap));
+  const int64_t width = static_cast<int64_t>(ws_cols) * block_n;
+  for (int q0 = 0; q0 < nq; q0 += kChunk) {
+    const int cn = nq - q0 < kChunk ? nq - q0 : kChunk;
+    const int* rows = table + (per_query ? static_cast<int64_t>(q0) * table_cols : 0);
+    // a union table's one row is scanned over its first ws_cols entries;
+    // a probed table's rows (stride table_cols) over all of theirs
+    const ScanArgs a{ids, scales, rows, ws_cols, per_query, n_valid, cn, q0,
+                     n_blocks, d, block_n, 0, cand_s, cand_i, hist, counts};
+    const int groups = per_query ? cn : (cn + qg - 1) / qg;
+    cudaError_t err =
+        qg == 8  ? launch_scan<T, 1>(c_map, q_map, a, n_ctas, groups, st)
+      : qg == 16 ? launch_scan<T, 2>(c_map, q_map, a, n_ctas, groups, st)
+                 : launch_scan<T, 4>(c_map, q_map, a, n_ctas, groups, st);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    select_k::Args s{cand_s, width, cand_i, per_query ? width : 0, width,
+                     n_valid, block_n, k, hist, counts, surv, surv_stride,
+                     out_s + static_cast<int64_t>(q0) * k,
+                     out_i + static_cast<int64_t>(q0) * k, 0};
+    err = select_k::launch(s, cn, sel_ctas, st);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  return static_cast<int>(cudaSuccess);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Rows per tile, the most partial lists the merge takes, and the largest k
-// whose running lists stay in shared memory: the wrapper sizes the
-// [n_ctas, Q, k] partial buffers from these, and passes a second buffer of
-// that shape (alt_*) when k is larger (else null).
+// Rows of a scan tile; the selection's histogram and counter words a query.
 int ivf_scan_tile_rows() { return kRows; }
-int ivf_scan_max_ctas() { return kMergeLists; }
-int ivf_scan_max_shared_k() { return kMaxK; }
+int ivf_scan_clear_words() { return static_cast<int>(select_k::clear_words()); }
+// Queries a scan + selection takes (the workspace holds one such chunk).
+int ivf_scan_chunk() { return kChunk; }
 
-// queries [nq, d] bf16; corpus [n_blocks * block_n, d] bf16; ids
-// [n_blocks * block_n] int32; table [per_query ? nq : 1, table_cols] int32
-// block indices; n_valid: null, or a device int32 that limits every table
-// row to its first n_valid entries -> out_s [nq, k] f32, out_i [nq, k]
-// int32, any k >= 1. Returns the CUDA error code of the launches.
-int ivf_scan_bf16(const void* queries, const void* corpus, const int* ids,
-                  const int* table, int table_cols, int per_query,
-                  const int* n_valid, int nq, int n_blocks, int d, int block_n,
-                  int k, int n_ctas, float* part_s, int* part_i, float* alt_s,
-                  int* alt_i, float* out_s, int* out_i, void* stream) {
-  return launch(queries, static_cast<const __nv_bfloat16*>(corpus), nullptr,
-                ids, table, table_cols, per_query, n_valid, nq, n_blocks, d,
-                block_n, k, n_ctas, part_s, part_i, alt_s, alt_i, out_s, out_i,
-                stream);
+// The corpus's tensor map (boxes of 256 rows x 128 bytes, 128-byte
+// swizzle) for corpus [n, d] (bf16, or int8 when `int8`), into the
+// sizeof(CUtensorMap) = 128 bytes at `map`. Returns the CUDA error code.
+int ivf_scan_encode(const void* corpus, int int8, int n, int d, void* map) {
+  CUtensorMap m;
+  const int err = int8
+      ? hopper_host::encode_2d(&m, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, corpus,
+                               d, n, kSpan, kRows, 128)
+      : hopper_host::encode_2d(&m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+                               corpus, d, n, kSpan / 2, kRows, 128);
+  if (err == 0) memcpy(map, &m, sizeof(CUtensorMap));
+  return err;
 }
 
-// The same over an int8 corpus with f32 row scales [n_blocks * block_n].
-int ivf_scan_int8(const void* queries, const void* corpus, const float* scales,
+// The query group's tensor map (boxes of `qg` rows x 64 columns, 128-byte
+// swizzle; rows past nq read as zeros) for queries [nq, d] bf16, into the
+// 128 bytes at `map`. Returns the CUDA error code.
+int ivf_scan_encode_queries(const void* queries, int nq, int d, int qg,
+                            void* map) {
+  CUtensorMap m;
+  const int err = hopper_host::encode_2d(
+      &m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, queries, d, nq, kQCols, qg,
+      128);
+  if (err == 0) memcpy(map, &m, sizeof(CUtensorMap));
+  return err;
+}
+
+// c_map (ivf_scan_encode) over corpus
+// [n_blocks * block_n, d]; q_map (ivf_scan_encode_queries with qg rows a
+// box: 8 on the probed route, else 8, 16 or 32) over queries [nq, d] bf16;
+// ids [n_blocks * block_n] int32; table [per_query ? nq : 1, table_cols]
+// int32 block indices, of which the first ws_cols <= table_cols a row are
+// scanned; n_valid: null, or a device int32 that limits every table row to
+// its first n_valid entries; n_ctas scan CTAs a query group, sel_ctas
+// selection CTAs a query; the workspace, for one chunk of c = min(nq,
+// ivf_scan_chunk()) queries: cand_s [c, ws_cols * block_n] f32, cand_i
+// [per_query ? c : 1, ws_cols * block_n] int32, hist and counts
+// (ivf_scan_clear_words a query), surv [c, surv_stride >= min(k, ws_cols *
+// block_n)] u64 -> out_s [nq, k] f32, out_i [nq, k] int32, any k >= 1.
+// Returns the CUDA error code of the launches.
+int ivf_scan_bf16(const void* c_map, const void* q_map, const int* ids,
+                  const int* table, int table_cols, int ws_cols,
+                  int per_query, const int* n_valid, int nq, int qg,
+                  int n_blocks, int d, int block_n, int k, int n_ctas,
+                  int sel_ctas, float* cand_s, int* cand_i, uint32_t* hist,
+                  uint32_t* counts, uint64_t* surv, int64_t surv_stride,
+                  float* out_s, int* out_i, void* stream) {
+  return launch<__nv_bfloat16>(c_map, q_map, nullptr, ids, table,
+                               table_cols, ws_cols, per_query, n_valid, nq,
+                               qg, n_blocks, d, block_n, k, n_ctas, sel_ctas,
+                               cand_s, cand_i, hist, counts, surv,
+                               surv_stride, out_s, out_i, stream);
+}
+
+// The same over an int8 corpus (d a multiple of 16) with f32 row scales
+// [n_blocks * block_n].
+int ivf_scan_int8(const void* c_map, const void* q_map, const float* scales,
                   const int* ids, const int* table, int table_cols,
-                  int per_query, const int* n_valid, int nq, int n_blocks,
-                  int d, int block_n, int k, int n_ctas, float* part_s,
-                  int* part_i, float* alt_s, int* alt_i, float* out_s,
-                  int* out_i, void* stream) {
-  return launch(queries, static_cast<const int8_t*>(corpus), scales, ids,
-                table, table_cols, per_query, n_valid, nq, n_blocks, d,
-                block_n, k, n_ctas, part_s, part_i, alt_s, alt_i, out_s, out_i,
-                stream);
+                  int ws_cols, int per_query, const int* n_valid, int nq,
+                  int qg, int n_blocks, int d, int block_n, int k, int n_ctas,
+                  int sel_ctas, float* cand_s, int* cand_i, uint32_t* hist,
+                  uint32_t* counts, uint64_t* surv, int64_t surv_stride,
+                  float* out_s, int* out_i, void* stream) {
+  return launch<int8_t>(c_map, q_map, scales, ids, table, table_cols,
+                        ws_cols, per_query, n_valid, nq, qg, n_blocks, d,
+                        block_n, k, n_ctas, sel_ctas, cand_s, cand_i, hist,
+                        counts, surv, surv_stride, out_s, out_i, stream);
 }
 
 }  // extern "C"

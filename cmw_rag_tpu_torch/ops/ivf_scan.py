@@ -23,13 +23,24 @@ descending, id ascending) order; slots with no valid row hold
   tile strictly beats that query's k-th score, so there a row that exactly
   ties the k-th score with a smaller id in a later block stays out.
 
-On CUDA tensors each wrapper launches ``csrc/ivf_scan.cu`` (one kernel
-template over a block table, bf16 and int8 instantiations; then a merge
-launch) and adds one to its ``launches`` count; on CPU tensors it runs its
-plain twin. Wrong device, dtype, shape or contiguity raises: there is no
-fallback. The twins (``*_plain``) gather the rows of the distinct listed
-blocks and select with ``ops/topk``'s plain scan. ``ivf_probed_scan_golden``
-copies the JAX golden ``ivf_probed_scan_xla`` (:622-645).
+On CUDA tensors each wrapper launches ``csrc/ivf_scan.cu`` (one scan
+template over a block table, bf16 and int8 instantiations, that writes
+every scanned row's score into a candidate workspace; then the exact
+selection of ``csrc/select_k.cuh``) and adds one to its ``launches``
+count; on CPU tensors it runs its plain twin. Wrong device, dtype, shape
+or contiguity raises (an int8 corpus needs D a multiple of 16, for its
+TMA boxes): there is no fallback. The kernel takes the batch in chunks of
+``QUERY_CHUNK`` queries, one scan and one selection each, so the
+candidate workspace (scores, ids, the selection's histograms, counters
+and survivors) holds one chunk; it is kept per (device, stream) and sized
+from the table's width (``launch_sizes``), never from the device's
+``n_unique``, so a call does not wait for the card. ``n_unique`` counts
+distinct blocks (``index/ivf.union_blocks`` gives them so), at most
+``n_blocks``: with it the workspace holds ``min(U, n_blocks)`` entries a
+query and entries past the ``n_blocks``-th are not scanned. The
+twins (``*_plain``) gather the rows of the distinct listed blocks and
+select with ``ops/topk``'s plain scan. ``ivf_probed_scan_golden`` copies
+the JAX golden ``ivf_probed_scan_xla`` (:622-645).
 """
 
 from __future__ import annotations
@@ -41,6 +52,7 @@ import torch
 
 from cmw_rag_tpu_torch.device import on_cpu
 from cmw_rag_tpu_torch.ops import cuda_build
+from cmw_rag_tpu_torch.ops.paged_attention import split_workspace
 from cmw_rag_tpu_torch.ops.topk import (NEG_INF, PLAIN_CHUNK_ROWS, _check,
                                         _plain_scan)
 
@@ -119,18 +131,112 @@ def ivf_probed_scan_golden(corpus, ids, queries, block_idx, k, block_n=1024,
 # ------------------------------------------------------------------ kernel
 
 
+#: rows of a scan tile (``csrc/ivf_scan.cu`` kRows)
+TILE_ROWS = 256
+#: candidates a selection CTA takes (the selection's CTAs a query are the
+#: candidates over this, at least 2, at most ``SELECT_MAX_CTAS`` and at
+#: most two a SM over the queries, so that one launch selects for all)
+SELECT_ROWS = 4096
+SELECT_MAX_CTAS = 32
+#: words of the selection's histograms and counters a query
+#: (``select_k.cuh``: 6 passes x 2048 bins, then 2 counters)
+SELECT_CLEAR_WORDS = 6 * 2048 + 2
+#: queries a scan + selection takes (``csrc/ivf_scan.cu`` kChunk): two
+#: groups of 32, which share the rows they read through L2
+QUERY_CHUNK = 64
+
+
+def launch_sizes(nq: int, table_cols: int, block_n: int, k: int,
+                 per_query: bool, sms: int,
+                 n_blocks: Optional[int] = None) -> dict:
+    """What a launch needs from the host, from the table's width alone
+    (never from the device's ``n_unique``; ``n_blocks`` given when it
+    bounds the entries scanned, as ``n_unique`` does): the entries a query
+    the workspace holds (``ws_cols``), the scan's query group (``qg``: 8,
+    16 or 32 queries; one a query on the probed route) and groups and CTAs
+    a group (one a SM in all, at most one a (entry, tile) item) of a chunk
+    of at most ``QUERY_CHUNK`` queries, the selection's CTAs a query, and
+    one chunk's workspace: ``floats`` (the candidates' scores [chunk,
+    width]) and ``words`` int32 (the candidates' ids [chunk or 1, width],
+    the selection's histograms and counters, then its survivors [chunk,
+    min(k, width)] u64 from the even word ``surv_at``)."""
+    ws_cols = table_cols if n_blocks is None else min(table_cols, n_blocks)
+    width = ws_cols * block_n
+    chunk = min(nq, QUERY_CHUNK)
+    qg = 8 if per_query or nq <= 8 else 16 if nq <= 16 else 32
+    groups = chunk if per_query else -(-chunk // qg)
+    items = ws_cols * -(-block_n // TILE_ROWS)
+    n_ctas = max(1, min(items, -(-sms // groups)))
+    sel_ctas = max(2, min(SELECT_MAX_CTAS, -(-width // SELECT_ROWS),
+                          2 * sms // chunk))
+    surv_stride = min(k, width)
+    ids_words = (chunk if per_query else 1) * width
+    clear_at = ids_words
+    surv_at = clear_at + chunk * SELECT_CLEAR_WORDS
+    surv_at += surv_at % 2
+    return {"ws_cols": ws_cols, "width": width, "chunk": chunk, "qg": qg,
+            "groups": groups, "n_ctas": n_ctas, "sel_ctas": sel_ctas,
+            "surv_stride": surv_stride, "floats": chunk * width,
+            "clear_at": clear_at,
+            "hist_words": chunk * (SELECT_CLEAR_WORDS - 2),
+            "surv_at": surv_at, "words": surv_at + 2 * chunk * surv_stride}
+
+
 def _lib() -> ctypes.CDLL:
     lib = cuda_build.library("ivf_scan")
     if not getattr(lib, "_typed", False):
-        p, i = ctypes.c_void_p, ctypes.c_int
-        tail = [p, i, i, p, i, i, i, i, i, i, p, p, p, p, p, p, p]
+        p, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+        tail = ([p, i, i, i, p, i, i, i, i, i, i, i, i, p, p, p, p, p, i64,
+                 p, p, p])
         lib.ivf_scan_bf16.argtypes = [p, p, p] + tail
         lib.ivf_scan_int8.argtypes = [p, p, p, p] + tail
-        for fn in ("ivf_scan_bf16", "ivf_scan_int8", "ivf_scan_tile_rows",
-                   "ivf_scan_max_ctas", "ivf_scan_max_shared_k"):
+        lib.ivf_scan_encode.argtypes = [p, i, i, i, p]
+        lib.ivf_scan_encode_queries.argtypes = [p, i, i, i, p]
+        for fn in ("ivf_scan_bf16", "ivf_scan_int8", "ivf_scan_encode",
+                   "ivf_scan_encode_queries",
+                   "ivf_scan_tile_rows", "ivf_scan_clear_words",
+                   "ivf_scan_chunk"):
             getattr(lib, fn).restype = ctypes.c_int
+        if (lib.ivf_scan_tile_rows(), lib.ivf_scan_clear_words(),
+                lib.ivf_scan_chunk()) != (TILE_ROWS, SELECT_CLEAR_WORDS,
+                                          QUERY_CHUNK):
+            raise RuntimeError("csrc/ivf_scan.cu and ops/ivf_scan.py "
+                               "disagree on the tile, the selection's "
+                               "workspace or the query chunk")
         lib._typed = True
     return lib
+
+
+_MAPS: dict = {}
+#: maps kept before the cache starts over (each query batch adds one)
+MAPS_KEPT = 1024
+_WORKSPACES: dict = {}
+
+
+def _tensor_map(t: torch.Tensor, qg: int = 0) -> int:
+    """Host address of the tensor map of the corpus (``qg`` 0: TMA boxes of
+    256 rows x 128 bytes) or of the queries (boxes of ``qg`` rows x 64
+    columns): encoded once a tensor, then cached (a map holds the address,
+    shape and strides only, so a tensor that takes a freed one's address
+    and shape has the same map; the launch copies it, so the cache may
+    start over between calls)."""
+    key = (t.data_ptr(), tuple(t.shape), t.dtype, qg)
+    buf = _MAPS.get(key)
+    if buf is None:
+        if len(_MAPS) >= MAPS_KEPT:
+            _MAPS.clear()
+        buf = ctypes.create_string_buffer(128)
+        if qg:
+            err = _lib().ivf_scan_encode_queries(t.data_ptr(), t.shape[0],
+                                                 t.shape[1], qg, buf)
+        else:
+            err = _lib().ivf_scan_encode(t.data_ptr(),
+                                         int(t.dtype == torch.int8),
+                                         t.shape[0], t.shape[1], buf)
+        if err != 0:
+            raise RuntimeError(f"ivf_scan tensor map failed: CUDA error {err}")
+        _MAPS[key] = buf
+    return ctypes.addressof(buf)
 
 
 def _launch(fn_name: str, corpus, scales, ids, queries, table, n_valid,
@@ -141,8 +247,9 @@ def _launch(fn_name: str, corpus, scales, ids, queries, table, n_valid,
     nq = queries.shape[0]
     if k < 1:
         raise ValueError(f"k={k} must be at least 1")
-    if d % 8:
-        raise ValueError(f"D={d} must be a multiple of 8")
+    step = 16 if scales is not None else 8
+    if d % step:
+        raise ValueError(f"D={d} must be a multiple of {step}")
     if block_n < 1 or n % block_n or n == 0:
         raise ValueError(f"N={n} must be a positive multiple of block_n={block_n}")
     if nq < 1 or table.shape[1] < 1:
@@ -159,28 +266,27 @@ def _launch(fn_name: str, corpus, scales, ids, queries, table, n_valid,
         _check("n_unique", n_valid, torch.int32, (1,))
     lib = _lib()
     dev = corpus.device
-    groups = nq if per_query else -(-nq // 32)
-    tiles = table.shape[1] * -(-block_n // lib.ivf_scan_tile_rows())
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    n_ctas = max(1, min(tiles, -(-2 * sms // groups), lib.ivf_scan_max_ctas()))
-    part_s = torch.empty((n_ctas, nq, k), dtype=torch.float32, device=dev)
-    part_i = torch.empty((n_ctas, nq, k), dtype=torch.int32, device=dev)
-    alt_s = alt_i = None
-    if k > lib.ivf_scan_max_shared_k():
-        alt_s, alt_i = torch.empty_like(part_s), torch.empty_like(part_i)
+    z = launch_sizes(nq, table.shape[1], block_n, k, per_query, sms,
+                     None if n_valid is None else n // block_n)
     out_s = torch.empty((nq, k), dtype=torch.float32, device=dev)
     out_i = torch.empty((nq, k), dtype=torch.int32, device=dev)
     extra = () if scales is None else (scales.data_ptr(),)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
+        floats, words = split_workspace(
+            _WORKSPACES, (dev.index, stream), z["floats"], z["words"],
+            lambda m, dtype: torch.zeros((m,), dtype=dtype, device=dev))
+        w = words.data_ptr()
         err = getattr(lib, fn_name)(
-            queries.data_ptr(), corpus.data_ptr(), *extra, ids.data_ptr(),
-            table.data_ptr(), table.shape[1], int(per_query),
-            None if n_valid is None else n_valid.data_ptr(), nq,
-            n // block_n, d, block_n, k, n_ctas, part_s.data_ptr(),
-            part_i.data_ptr(), None if alt_s is None else alt_s.data_ptr(),
-            None if alt_i is None else alt_i.data_ptr(), out_s.data_ptr(),
-            out_i.data_ptr(), stream)
+            _tensor_map(corpus), _tensor_map(queries, z["qg"]), *extra,
+            ids.data_ptr(),
+            table.data_ptr(), table.shape[1], z["ws_cols"], int(per_query),
+            None if n_valid is None else n_valid.data_ptr(), nq, z["qg"],
+            n // block_n, d, block_n, k, z["n_ctas"], z["sel_ctas"],
+            floats.data_ptr(), w, w + 4 * z["clear_at"],
+            w + 4 * (z["clear_at"] + z["hist_words"]), w + 4 * z["surv_at"],
+            z["surv_stride"], out_s.data_ptr(), out_i.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"{fn_name} launch failed: CUDA error {err}")
     return out_s, out_i
@@ -233,7 +339,8 @@ def ivf_union_scan(corpus: torch.Tensor, ids: torch.Tensor,
                    block_n: int = 1024,
                    n_unique: Optional[torch.Tensor] = None):
     """bf16 corpus [N, D], ids [N] int32, queries [Q, D] bf16, block_list
-    [U] int32 (entries past ``n_unique``, a [1] int32 tensor, are skipped)
+    [U] int32 (entries past ``n_unique``, a [1] int32 tensor that counts
+    distinct blocks, at most n_blocks, are skipped)
     → (scores [Q, k] f32, ids [Q, k] int32)."""
     extra = () if n_unique is None else (n_unique,)
     if on_cpu(corpus, ids, queries, block_list, *extra):

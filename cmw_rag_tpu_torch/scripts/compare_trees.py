@@ -1,13 +1,14 @@
 """Time two checkouts on one card in turns: ``chip_smoke.py``'s flash-kernel,
 long-context, training, int8 LLM (phase 9), w8a8 / int8-KV (phase 10),
-paged-kernel and local LLM (phase 8) phases of a base checkout (A) and of
+paged-kernel, local LLM (phase 8), IVF (phase 6) and segmented store
+(phase 7) phases of a base checkout (A) and of
 this one (B), each run in a process of its own started from its
 checkout's root, in the order A, B, B, A, so that a drift of the card over
 the call falls on both alike.
 
     python -m cmw_rag_tpu_torch.scripts.compare_trees BASE_ROOT \\
-        [--phases flash,long_context,training,int8_llm,w8a8_kv8,paged_kernel,local_llm]
-        [--steps int8-s16,int8-kv8] [--out FILE]
+        [--phases flash,long_context,training,int8_llm,w8a8_kv8,paged_kernel,local_llm,ivf,segmented]
+        [--steps int8-s16,int8-kv8] [--batch] [--out FILE]
 
 BASE_ROOT is another checkout of the repository (for example the parent
 commit, ``git archive <commit> chip_smoke.py cmw_rag_tpu_torch | tar -x -C
@@ -22,6 +23,9 @@ megakernel records and its profiled int8 decode step; phase 10's W8A8
 records (the whole call's device time, the kernels a call, the split),
 its profiled w8a8 decode step and its int8-KV megakernel records; phase
 8's paged kernel records, by phase, and its profiled native decode step;
+phase 6's IVF kernel records (with the union's scan and selection device
+times where the tree's phase gives them) and recall@10; phase 7's top-20
+overlap with an exact index, planted ranks and launches;
 the megakernels' records carry their device ms whole, with attention
 ablated (``noattn_ms``) and at each split, where the tree's phases time
 them in a process of their own, ``chip_smoke.timings_child``), then one
@@ -29,8 +33,15 @@ line with every run's summary; ``--out`` keeps the phases' whole reports, one
 JSON line a run. ``--steps`` also profiles one decode step of each named
 engine configuration (``STEPS``) in every run, through the tree's own
 ``scripts/local_llm.py --profile`` in a process of its own (4 active
-slots; the summary's ``steps``). The phases' own log lines go to stderr.
-Needs a card.
+slots; the summary's ``steps``). ``--batch`` also times, in every run,
+the IVF union scans of phase 6's index at batches past one query chunk
+(``BATCH_CASES``, nprobe 64) through this script's own harness over the
+tree's package (``_BATCH_CHILD``; a parent's chip_smoke.py has no such
+case): each call's device ms (CUDA events), its largest |score - plain
+twin's|, the share of ids equal to the twin's, the distinct blocks
+scanned, and the device memory a first call takes beyond what was
+allocated before it (the summary's ``ivf_batch``). The phases' own log
+lines go to stderr. Needs a card.
 """
 
 from __future__ import annotations
@@ -43,7 +54,10 @@ from pathlib import Path
 
 HERE = Path(__file__).resolve().parents[2]
 PHASES = ("flash", "long_context", "training", "int8_llm", "w8a8_kv8",
-          "paged_kernel", "local_llm")
+          "paged_kernel", "local_llm", "ivf", "segmented")
+#: the readings of phase 6's IVF kernel records (rows 9 to 13)
+IVF_READINGS = ("ms", "plain_ms", "library_ms", "bound_ms", "scan_ms",
+                "select_ms")
 #: the kernels of phases 9 and 10 that a comparison reads (rows 19, 23, 24
 #: and 25 of PERF.md)
 INT8_KERNELS = ("paged_decode_attention_dma_slot", "fused_mlp_int8",
@@ -57,6 +71,9 @@ W8A8_READINGS = ("ms", "call_ms", "plain_ms", "library_ms", "bound_ms",
 #: the readings of phase 8's paged kernel records (rows 15, 16 and 18)
 PAGED_READINGS = ("ms", "call_ms", "plain_ms", "library_ms", "bound_ms",
                   "split", "n_split", "ms_by_split", "kernels_per_call")
+
+#: the union scans' batches ``--batch`` times: (Q, k) at nprobe 64
+BATCH_CASES = ((128, 20), (256, 20), (256, 1000))
 
 #: decode-step configurations ``--steps`` profiles: the CLI's arguments
 STEPS = {"int8-s16": ("--weights", "int8", "--slots", "16"),
@@ -73,13 +90,65 @@ torch.backends.cudnn.allow_tf32 = False
 line = card()
 def plain(x):
     if isinstance(x, dict):
-        return {(k if isinstance(k, str) else "/".join(map(str, k))): plain(v)
-                for k, v in x.items()}
+        return {("/".join(map(str, k)) if isinstance(k, tuple) else str(k)):
+                plain(v) for k, v in x.items()}
     if isinstance(x, (list, tuple)):
         return [plain(v) for v in x]
     return x if isinstance(x, (int, float, str, bool, type(None))) else str(x)
 out = {name: plain(getattr(c, name + "_phase")(line)) for name in PHASES}
 print("COMPARE_RESULT " + json.dumps({"card": line, "phases": out}), flush=True)
+"""
+
+_BATCH_CHILD = """
+import json, sys, torch
+sys.path.insert(0, ".")
+from cmw_rag_tpu_torch.index.ivf import IVFIndex, union_blocks
+from cmw_rag_tpu_torch.ops import ivf_scan as V
+from cmw_rag_tpu_torch.scripts import ivf as I
+rows, ids, _, _ = I.clustered_corpus()
+gen = torch.Generator(device="cuda").manual_seed(77)
+qn = max(q for q, _ in CASES)
+at = torch.randint(0, I.N_ROWS, (qn,), generator=gen, device="cuda")
+qs = rows[at].float() + I.NOISE * torch.randn((qn, I.DIM), generator=gen,
+                                              device="cuda")
+qs = (qs / qs.norm(dim=1, keepdim=True)).to(torch.bfloat16)
+out = {}
+for quantize in (False, True):
+    idx = IVFIndex.build(rows, ids, block_n=I.BLOCK_N, quantize=quantize)
+    name = "ivf_union_scan" + ("_int8" if quantize else "")
+    extra = () if idx.scales is None else (idx.scales,)
+    fn = getattr(V, name)
+    for nq, k in CASES:
+        q = qs[:nq].contiguous()
+        table, nu = union_blocks(idx.probe(q.float(), I.NPROBE))
+        call = lambda: fn(idx.corpus, *extra, idx.ids, q, table, k,
+                          I.BLOCK_N, nu)
+        getattr(V, "_WORKSPACES", {}).clear()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        got = call()
+        torch.cuda.synchronize()
+        extra_mib = (torch.cuda.max_memory_allocated() - base) / 2 ** 20
+        want = V.ivf_union_plain(idx.corpus, idx.ids, q, table, k, I.BLOCK_N,
+                                 nu, scales=idx.scales)
+        for _ in range(3):
+            call()
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        a.record()
+        for _ in range(20):
+            call()
+        b.record()
+        torch.cuda.synchronize()
+        out[f"{name}/q{nq}k{k}"] = {
+            "ms": a.elapsed_time(b) / 20, "blocks": int(nu.item()),
+            "max_abs_err": float((got[0] - want[0]).abs().max()),
+            "ids_equal_share": float((got[1] == want[1]).float().mean()),
+            "extra_mib": extra_mib}
+    del idx
+    torch.cuda.empty_cache()
+print("BATCH_RESULT " + json.dumps(out), flush=True)
 """
 
 
@@ -96,6 +165,21 @@ def run_tree(root: Path, phases: list[str]) -> dict:
         if line.startswith("COMPARE_RESULT "):
             return json.loads(line[len("COMPARE_RESULT "):])
     raise RuntimeError(f"{root}: no result line")
+
+
+def run_batch(root: Path) -> dict:
+    """The union scans at ``BATCH_CASES`` over ``root``'s package, in a
+    process started from ``root``; → {"name/qQkK": readings}."""
+    code = f"CASES = {BATCH_CASES!r}\n" + _BATCH_CHILD
+    proc = subprocess.run([sys.executable, "-c", code], cwd=root,
+                          capture_output=True, text=True)
+    if proc.returncode != 0:
+        sys.stderr.write(proc.stdout[-2000:] + proc.stderr[-4000:])
+        raise RuntimeError(f"{root}: batch cases failed ({proc.returncode})")
+    for line in proc.stdout.splitlines():
+        if line.startswith("BATCH_RESULT "):
+            return json.loads(line[len("BATCH_RESULT "):])
+    raise RuntimeError(f"{root}: no batch result line")
 
 
 def run_step(root: Path, name: str) -> dict:
@@ -164,6 +248,15 @@ def summary(phases: dict) -> dict:
     if llm:
         prof = llm["engine"]["decode_profile"]
         out["native_step"] = {k: prof[k] for k in INT8_STEP}
+    ivf = phases.get("ivf")
+    if ivf:
+        out["ivf_kernels"] = {case: {k: r[k] for k in IVF_READINGS if k in r}
+                              for case, r in ivf["kernels"].items()}
+        out["ivf_recall_at_10"] = ivf["recall_at_10"]
+    seg = phases.get("segmented")
+    if seg:
+        out["segmented"] = {k: seg[k] for k in ("top20_overlap_with_flat",
+                                                "planted_ranks", "launches")}
     return out
 
 
@@ -174,6 +267,8 @@ def main(argv=None) -> int:
     ap.add_argument("--steps", default="",
                     help="decode-step configurations to profile: "
                     + ",".join(STEPS))
+    ap.add_argument("--batch", action="store_true",
+                    help="also time the IVF union scans at BATCH_CASES")
     ap.add_argument("--out", type=Path, default=None,
                     help="also write every run's result here as JSON lines")
     args = ap.parse_args(argv)
@@ -191,16 +286,21 @@ def main(argv=None) -> int:
         res = (run_tree(trees[tree], phases) if phases
                else {"card": None, "phases": {}})
         res["steps"] = {s: run_step(trees[tree], s) for s in steps}
+        if args.batch:
+            res["ivf_batch"] = run_batch(trees[tree])
         row = {"tree": tree, "run": i, "root": str(trees[tree]), **res}
         runs.append(row)
         print(json.dumps({"tree": tree, "run": i, "card": res["card"],
                           "summary": summary(res["phases"]),
-                          "steps": res["steps"]}), flush=True)
+                          "steps": res["steps"],
+                          "ivf_batch": res.get("ivf_batch")}), flush=True)
     if args.out:
         args.out.write_text("".join(json.dumps(r) + "\n" for r in runs))
     print(json.dumps({"summary": [{"tree": r["tree"], "run": r["run"],
                                    **summary(r["phases"]),
-                                   "steps": r["steps"]} for r in runs]}),
+                                   "steps": r["steps"],
+                                   "ivf_batch": r.get("ivf_batch")}
+                                  for r in runs]}),
           flush=True)
     return 0
 

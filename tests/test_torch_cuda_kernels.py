@@ -7,7 +7,9 @@ has no jax; there the JAX-importing ``tests/conftest.py`` is skipped:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda_kernels.py
 
 Tolerances: scan and IVF scan scores to 1e-4 and ids wherever neighbouring scores differ
-by more than that (float32 sums in another order); flash attention output,
+by more than that (float32 sums in another order; the IVF kernels also
+at D 5120, at exact ties across CTAs, bit for bit on a second launch and
+on two streams at once); flash attention output,
 against the twin run over the kernel's own tiles (so both round p against
 the same running maxima), to one bf16 step at its magnitude plus 2e-3 (both
 round the output to bf16, so values a hair apart may round one step apart),
@@ -23,7 +25,12 @@ attention as the paged kernel; the fused MLP (one kernel a call) and the
 decoder-layer megakernel to one bf16 step plus 1e-3 of the largest
 |output| (both round the normed input, y and h to bf16, and sums in
 another order can put one of those a step apart, which moves every
-product it feeds), the megakernel's
+product it feeds; the megakernel is held against the card reference of
+``tests/tensor_core_model.py``, the twin with its QKV product on a model
+of the tensor cores' truncating accumulation and its attention in the
+kernel's split order, itself held against the plain IEEE twin within one
+bf16 step of the attention output carried through wo and the MLP), the
+megakernel's
 written pool rows within the same of the twin's and every other row
 unchanged, bit for bit. The W8A8 matmul and the int8 x int8 scan equal
 their twins bit for bit (exact integer sums, the same scale order; the
@@ -65,6 +72,7 @@ from cmw_rag_tpu_torch.ops import int8_matmul as IM
 from cmw_rag_tpu_torch.ops import ivf_scan as V
 from cmw_rag_tpu_torch.ops import paged_attention as PA
 from cmw_rag_tpu_torch.ops import topk as T
+import tensor_core_model as TC
 
 pytestmark = pytest.mark.cuda
 
@@ -318,10 +326,11 @@ def _ivf_case(card, int8, block_n=192, n_blocks=16, d=64):
 
 @pytest.mark.parametrize("int8", [False, True])
 @pytest.mark.parametrize("union", [False, True])
-@pytest.mark.parametrize("k", [1, 20, 129, 1000, 5000])
+@pytest.mark.parametrize("k", [1, 20, 128, 129, 256, 1000, 5000])
 def test_ivf_kernels_match_plain_twins(card, int8, union, k):
     """Blocks of 192 rows (a ragged last tile), repeated blocks in a list,
-    padding past n_unique, any k up to past the rows scanned."""
+    padding past n_unique, any k up to past the rows scanned; a second
+    launch bit for bit the first."""
     block_n = 192
     c, sc, ids, q = _ivf_case(card, int8, block_n)
     if union:
@@ -351,6 +360,173 @@ def test_ivf_kernels_match_plain_twins(card, int8, union, k):
     empty = got[1] < 0
     assert torch.equal(empty, want[1] < 0)
     assert (got[0][empty] == T.NEG_INF).all()
+    again = fn(c, sc, ids, q, *args) if int8 else fn(c, ids, q, *args)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])
+
+
+def _ivf_call(int8, union):
+    fn = getattr(V, f"ivf_{'union' if union else 'probed'}_scan"
+                 + ("_int8" if int8 else ""))
+    return lambda c, sc, ids, q, *a: (fn(c, sc, ids, q, *a) if int8
+                                      else fn(c, ids, q, *a))
+
+
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("nq", [1, 8, 32])
+def test_ivf_kernels_at_d5120(card, int8, nq):
+    """D 5120 (the segmented store's): 8 queries keep the query block in
+    shared memory, 32 stream it through the ring beside the rows; probed
+    and union, k 20 and 300, bit for bit on a second launch."""
+    c, sc, ids, q = _ivf_case(card, int8, block_n=256, n_blocks=12, d=5120)
+    q = torch.from_numpy(_unit(nq, 5120, 12)).to(card).bfloat16()
+    union = nq > 1
+    call = _ivf_call(int8, union)
+    if union:
+        table = torch.tensor([3, 0, 7, 11, 5, 0, 0], dtype=torch.int32,
+                             device=card)
+        nu = torch.tensor([5], dtype=torch.int32, device=card)
+    else:
+        table = torch.tensor([[3, 0, 7, 11]], dtype=torch.int32, device=card)
+    for k in (20, 300):
+        args = (table, k, 256, nu) if union else (table, k, 256)
+        got = call(c, sc, ids, q, *args)
+        again = call(c, sc, ids, q, *args)
+        want = (V.ivf_union_plain(c, ids, q, *args, scales=sc) if union
+                else V.ivf_probed_plain(c, ids, q, *args, scales=sc))
+        torch.cuda.synchronize()
+        _same_ranking(got, want)
+        assert torch.equal(got[0], again[0]) and torch.equal(got[1],
+                                                             again[1])
+
+
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("k", [7, 129, 700])
+def test_ivf_union_ties_at_the_kth_score_across_ctas(card, int8, k):
+    """Every row of 16 blocks is the same vector, so all scores tie
+    exactly and the ids decide: the rows of the tie lie in the tiles of
+    many scan CTAs and in every selection CTA's slice. The kernel keeps
+    the k smallest live ids, in ascending order."""
+    c, sc, ids, q = _ivf_case(card, int8, block_n=256, n_blocks=16)
+    c[:] = c[0]
+    if int8:
+        sc[:] = sc[0]
+    table = torch.arange(16, dtype=torch.int32, device=card)
+    nu = torch.tensor([16], dtype=torch.int32, device=card)
+    got = _ivf_call(int8, True)(c, sc, ids, q, table, k, 256, nu)
+    want = V.ivf_union_plain(c, ids, q, table, k, 256, nu, scales=sc)
+    torch.cuda.synchronize()
+    live = torch.sort(ids[ids >= 0]).values[:k]
+    assert torch.equal(got[1], live[None, :].expand(q.shape[0], -1))
+    assert torch.equal(got[1], want[1])
+    assert (got[0] == got[0][:, :1]).all()
+
+
+def test_ivf_kernels_on_two_streams_at_once(card):
+    """Two streams launching union and probed scans at once, each with a
+    selection workspace of its own, give what the default stream gives."""
+    c, _, ids, q = _ivf_case(card, False, block_n=192)
+    table = torch.tensor([1, 2, 5, 9, 12, 2, 15, 0], dtype=torch.int32,
+                         device=card)
+    nu = torch.tensor([7], dtype=torch.int32, device=card)
+    probes = torch.tensor([[2, 5, 5, 7]] * 6, dtype=torch.int32, device=card)
+    want = [V.ivf_union_scan(c, ids, q, table, 300, 192, nu),
+            V.ivf_probed_scan(c, ids, q, probes, 20, 192)]
+    torch.cuda.synchronize()
+    streams = [torch.cuda.Stream(card), torch.cuda.Stream(card)]
+    got = []
+    for _ in range(3):
+        for st in streams:
+            with torch.cuda.stream(st):
+                got.append((V.ivf_union_scan(c, ids, q, table, 300, 192, nu),
+                            V.ivf_probed_scan(c, ids, q, probes, 20, 192)))
+    torch.cuda.synchronize()
+    for pair in got:
+        for g, w in zip(pair, want):
+            assert torch.equal(g[0], w[0]) and torch.equal(g[1], w[1])
+
+
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("union", [False, True])
+def test_ivf_kernels_over_query_chunks(card, int8, union):
+    """200 queries, nprobe 16 over 40 blocks: the kernel takes the batch in
+    chunks of 64 (the last of 8) through one workspace; the union table
+    (``union_blocks``) is padded to 3,200 entries, of which the workspace
+    holds 40 a query. Each query's ranking is its twin's, bit for bit on a
+    second launch, and the workspace stays one chunk's."""
+    from cmw_rag_tpu_torch.index.ivf import union_blocks
+
+    nq, nprobe, block_n, n_blocks = 200, 16, 128, 40
+    c, sc, ids, _ = _ivf_case(card, int8, block_n, n_blocks)
+    q = torch.from_numpy(_unit(nq, 64, 13)).to(card).bfloat16()
+    gen = torch.Generator().manual_seed(14)
+    probes = torch.stack([torch.randperm(n_blocks, generator=gen)[:nprobe]
+                          for _ in range(nq)]).to(card, torch.int32)
+    call = _ivf_call(int8, union)
+    for k in (20, 300):
+        if union:
+            table, nu = union_blocks(probes)
+            args = (table, k, block_n, nu)
+            want = V.ivf_union_plain(c, ids, q, *args, scales=sc)
+        else:
+            args = (probes, k, block_n)
+            want = V.ivf_probed_plain(c, ids, q, *args, scales=sc)
+        got = call(c, sc, ids, q, *args)
+        again = call(c, sc, ids, q, *args)
+        torch.cuda.synchronize()
+        _same_ranking(got, want)
+        assert torch.equal(got[0], again[0]) and torch.equal(got[1],
+                                                             again[1])
+    z = V.launch_sizes(nq, args[0].shape[-1], block_n, 300, not union,
+                       torch.cuda.get_device_properties(card)
+                       .multi_processor_count,
+                       n_blocks if union else None)
+    assert z["chunk"] == 64
+    assert z["ws_cols"] == (n_blocks if union else nprobe)
+
+
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("union", [False, True])
+def test_ivf_kernels_at_blocks_of_200_rows(card, int8, union):
+    """Blocks of 200 rows (a ragged last tile, candidates not in 32-row
+    runs), a repeated block: the rankings are the twins' at k 20 and
+    300."""
+    block_n = 200
+    c, sc, ids, q = _ivf_case(card, int8, block_n)
+    call = _ivf_call(int8, union)
+    for k in (20, 300):
+        if union:
+            table = torch.tensor([1, 2, 5, 9, 12, 2, 0], dtype=torch.int32,
+                                 device=card)
+            args = (table, k, block_n,
+                    torch.tensor([6], dtype=torch.int32, device=card))
+            want = V.ivf_union_plain(c, ids, q, *args, scales=sc)
+        else:
+            table = torch.tensor([[2, 5, 5, 7]] * 6, dtype=torch.int32,
+                                 device=card)
+            args = (table, k, block_n)
+            want = V.ivf_probed_plain(c, ids, q, *args, scales=sc)
+        got = call(c, sc, ids, q, *args)
+        torch.cuda.synchronize()
+        _same_ranking(got, want)
+
+
+def test_ivf_scan_builds_without_spills(card):
+    """ptxas (``scripts/kernel_resources.py``) reports no spill stores or
+    loads and no stack for any instance of the scan (bf16 and int8 rows,
+    one to four n8 query tiles) or for the selection."""
+    from pathlib import Path
+
+    from cmw_rag_tpu_torch.scripts import kernel_resources as KR
+
+    _, kernels = KR.compile_source(Path(__file__).resolve().parents[1],
+                                   "ivf_scan")
+    scan = [k for k in kernels if "ivf_scan_kernel" in k["kernel"]]
+    select = [k for k in kernels if "select_kernel" in k["kernel"]]
+    assert len(scan) == 6 and len(select) == 1, [k["kernel"] for k in kernels]
+    for k in scan + select:
+        assert (k["spill_stores"], k["spill_loads"], k["stack"]) \
+            == (0, 0, 0), k
 
 
 def test_ivf_wrappers_refuse_what_the_kernel_does_not_take(card):
@@ -1365,6 +1541,34 @@ def _mega_twin(args, pools, lens_t, kw, kv8, ablate=""):
                                        ablate=ablate, **kw)[0]
 
 
+def _mega_reference(card, args, pools, ieee_pools, lens_t, kw, kv8,
+                    ablate=""):
+    """The megakernel card tests' reference: the twin with the QKV product
+    on the tensor cores' model and the head norms and RoPE in the kernel's
+    order (``tensor_core_model``), over ``pools`` (written in place), held
+    against the plain IEEE twin over copies of ``ieee_pools``: their
+    attention outputs within ``ATTENTION_STEPS`` bf16 step at each head's
+    largest |value| (``head_steps_apart``), their outputs within that gap
+    carried through wo and the MLP (``carried_step_bound``). → (reference
+    output, IEEE twin's output)."""
+    x, wqkv_q, down_q = args[0], args[4], args[13]
+    hkv, dh = pools[0].shape[3], pools[0].shape[4]
+    hq = wqkv_q.shape[1] // dh - 2 * hkv
+    ks = TC.qkv_splits(card, x.shape[0], x.shape[1], hq, hkv, dh,
+                       down_q.shape[0], kv8)
+    want, a_ref = TC.run_twin(_mega_twin, args, pools, lens_t, kw, kv8,
+                              ablate, ks=ks)
+    ieee, a_ieee = TC.run_twin(_mega_twin, args,
+                               [t.clone() for t in ieee_pools], lens_t, kw,
+                               kv8, ablate)
+    steps = TC.head_steps_apart(a_ref, a_ieee)
+    assert steps <= TC.ATTENTION_STEPS, steps
+    bound = TC.carried_step_bound(args, a_ref, a_ieee)
+    apart = (want.float() - ieee.float()).abs()
+    assert (apart <= bound).all(), float((apart - bound).max())
+    return want, ieee
+
+
 @pytest.mark.parametrize("dh", [64, 128])
 @pytest.mark.parametrize("kv8,s,route", MEGA_ROWS)
 def test_megakernels_at_every_row_tile_route_and_head_dim(card, attn_split,
@@ -1382,7 +1586,8 @@ def test_megakernels_at_every_row_tile_route_and_head_dim(card, attn_split,
     twin_pools = [t.clone() for t in pools]
     n0 = (DL.decoder_layer_int8_kv8 if kv8 else DL.decoder_layer_int8).launches
     got = _mega_call(args, pools, lens_t, kw, kv8)
-    want = _mega_twin(args, twin_pools, lens_t, kw, kv8)
+    want, ieee = _mega_reference(card, args, twin_pools, before, lens_t, kw,
+                                 kv8)
     torch.cuda.synchronize()
     assert (DL.decoder_layer_int8_kv8 if kv8 else
             DL.decoder_layer_int8).launches == n0 + 1
@@ -1426,8 +1631,8 @@ def test_megakernels_noattn_at_both_head_dims(card, s, dh, kv8):
                                             seed=s + dh)
     got = _mega_call(args, [t.clone() for t in pools], lens_t, kw, kv8,
                      ablate="noattn")
-    want = _mega_twin(args, [t.clone() for t in pools], lens_t, kw, kv8,
-                      ablate="noattn")
+    want, _ = _mega_reference(card, args, [t.clone() for t in pools], pools,
+                              lens_t, kw, kv8, ablate="noattn")
     torch.cuda.synchronize()
     _close(got, want, 1e-3)
 

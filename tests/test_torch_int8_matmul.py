@@ -179,3 +179,12 @@ def test_every_new_source_is_built():
         assert cuda_build.source(stem).is_file()
         assert [p.name for p in cuda_build.headers(cuda_build.source(stem))] \
             == want
+
+
+def test_ivf_scan_is_built_with_its_headers():
+    """The IVF scan is hashed with the Hopper pieces it takes its TMA ring
+    from (``hopper.cuh``) and the exact selection it launches after the
+    scan (``select_k.cuh``): an edit of either rebuilds it."""
+    assert "ivf_scan" in cuda_build.SOURCES
+    assert [p.name for p in cuda_build.headers(cuda_build.source("ivf_scan"))
+            ] == ["hopper.cuh", "select_k.cuh"]
