@@ -10,9 +10,11 @@ Phases, each printed with its seconds beside the card's name and power limit:
    ``build/cmw_rag_tpu_torch/``, one nvcc per source, all started together.
 2. kernels - hold each kernel against its plain PyTorch twin on the card.
    Scan top-k (bf16 and int8) at N = 1,000,000 rows x D = 5120: k = 20 for
-   Q = 8 (the query batch of the fused path) and Q = 32 (8 queries x 4
-   segments), k = 129 and k = 1000 for Q = 8, and k = N on the first 4,096
-   rows. 1% of rows are tombstones and duplicate rows plant exact ties.
+   Q = 8 (the query batch of the fused path), Q = 32 (8 queries x 4
+   segments) and Q = 128 (one chunk, two groups of 64), k = 129 and k = 1000
+   for Q = 8, and k = N on the first 4,096 rows; each call's scan and
+   selection device times apart (one profiler window, in a process of its
+   own) and its workspace's MiB. 1% of rows are tombstones and duplicate rows plant exact ties.
    Scores must agree to 1e-4 absolute, ids wherever neighbouring scores
    differ by more than 1e-4, exact ties must come out in ascending id order.
    Flash attention forward, causal, bf16, with ragged key masks, at the
@@ -388,6 +390,14 @@ def bf16_step(x):
     return torch.where(x == 0, torch.zeros_like(x), step)
 
 
+#: phase 2's flat scan records: (case, Q, k, rows) over the 1M x 5120
+#: corpus (rows None: all; ``kN``: its first 4,096 rows, k = N); Q 32 is 8
+#: queries x 4 segments, Q 128 one chunk of two groups of 64
+SCAN_CASES = (("main", 8, TOP_K, None), ("q32", 32, TOP_K, None),
+              ("q128", 128, TOP_K, None), ("k129", 8, 129, None),
+              ("k1000", 8, 1000, None), ("kN", 8, 4096, 4096))
+SCAN_QUERIES = max(q for _, q, _, _ in SCAN_CASES)
+
 #: phase 6's kernel records: (case, route, Q, k) at nprobe 64
 IVF_CASES = (("q1", "probed", 1, TOP_K), ("q8", "probed", 8, TOP_K),
              ("q8", "union", 8, TOP_K), ("q32", "union", 32, TOP_K),
@@ -435,7 +445,7 @@ OFF_PATH_KERNELS = {
     "topk_scan_int8mxu": ("cmw_rag_tpu/ops/topk.py:290",
                           "cmw_rag_tpu_torch/csrc/topk_scan.cu"),
     "topk_scan_stream": ("cmw_rag_tpu/ops/topk.py:418",
-                         "cmw_rag_tpu_torch/csrc/topk_scan.cu"),
+                         "cmw_rag_tpu_torch/csrc/ivf_scan.cu"),
     "ivf_probed_scan_dma": ("cmw_rag_tpu/ops/ivf_scan.py:231",
                             "cmw_rag_tpu_torch/csrc/ivf_scan.cu")}
 
@@ -579,16 +589,17 @@ def check_against_plain(name, got, want, ids, tie_groups):
     return err
 
 
-def scan_phase(card_line: str) -> dict:
-    """Hold both scan kernels against their plain twins; time all four."""
+def scan_inputs() -> tuple:
+    """Phase 2's corpus over the card, from a seed: → (bf16 rows [N, D],
+    ids [N] with 1% tombstones, the 8 planted tie groups as (query, ids),
+    queries [SCAN_QUERIES, D] whose first 8 equal the groups' rows, int8
+    rows, their scales)."""
     import torch
-    from cmw_rag_tpu_torch.ops import topk as T
     from cmw_rag_tpu_torch.scripts.shipping import (DIM, N_ROWS,
                                                     fill_unit_rows,
                                                     quantize_slices)
 
     gen = torch.Generator(device="cuda").manual_seed(1234)
-    t0 = time.time()
     corpus = fill_unit_rows(N_ROWS, DIM, gen)
     ids = torch.arange(N_ROWS, dtype=torch.int32, device="cuda")
     ids[torch.rand((N_ROWS,), generator=gen, device="cuda") < 0.01] = -1
@@ -605,42 +616,114 @@ def scan_phase(card_line: str) -> dict:
                                        device="cuda")
         groups.append((j, sorted([src] + copies[1:])))
     q_all = fill_unit_rows(32, DIM, gen)
+    q_all = torch.cat([q_all, fill_unit_rows(SCAN_QUERIES - 32, DIM, gen)])
     q_all[:8] = corpus[srcs]
     corpus8, scales = quantize_slices(corpus)
+    return corpus, ids, groups, q_all, corpus8, scales
+
+
+def scan_calls(corpus, ids, q_all, corpus8, scales):
+    """#1's and #2's call at each of ``SCAN_CASES``: → {"name/case":
+    (call, Q, k, rows)}."""
+    from cmw_rag_tpu_torch.ops import topk as T
+    from cmw_rag_tpu_torch.scripts.shipping import N_ROWS
+
+    calls = {}
+    for case, nq, k, n in SCAN_CASES:
+        n = n or N_ROWS
+        q = q_all[:nq].contiguous()
+        calls[f"topk_scan_bf16/{case}"] = (functools.partial(
+            T.topk_scan_bf16, corpus[:n], ids[:n], q, k), nq, k, n)
+        calls[f"topk_scan_int8/{case}"] = (functools.partial(
+            T.topk_scan_int8, corpus8[:n], scales[:n], ids[:n], q, k), nq,
+            k, n)
+    return calls
+
+
+def scan_timings() -> dict:
+    """Device ms of #1's and #2's scan and selection apart at each of
+    ``SCAN_CASES`` (``scan_select_ms``, one a chunk of queries), over
+    phase 2's corpus made again, for ``timings_child``: → {"name/case":
+    {"ms", "scan_ms", "select_ms"}}."""
+    import torch
+    from cmw_rag_tpu_torch.ops import ivf_scan as V
+
+    corpus, ids, _, q_all, corpus8, scales = scan_inputs()
+    calls = scan_calls(corpus, ids, q_all, corpus8, scales)
+    stream = torch.cuda.current_stream().cuda_stream
+    chunks = {key: -(-nq // V.flat_launch_sizes(corpus.device, stream, nq, n,
+                                                k)["chunk"])
+              for key, (_, nq, k, n) in calls.items()}
+    times = scan_select_ms({key: c[0] for key, c in calls.items()},
+                           chunks=chunks)
+    return {key: {"ms": t["scan_ms"] + t["select_ms"], **t}
+            for key, t in times.items()}
+
+
+def scan_phase(card_line: str) -> dict:
+    """Hold both scan kernels against their plain twins and time all four
+    (``scan_records``), then #1's and #2's scan and selection launches
+    apart in a process of their own (``scan_timings``: late in one long
+    process the profiler drops kernel records, so phase 2 opens none)."""
+    import gc
+
+    import torch
+
+    report = scan_records(card_line)
+    gc.collect()
+    torch.cuda.empty_cache()
+    for key, t in timings_child(card_line, "scan_timings").items():
+        report[tuple(key.split("/"))].update(
+            {x: t[x] for x in ("scan_ms", "select_ms")})
+    return report
+
+
+def scan_records(card_line: str) -> dict:
+    """Phase 2's records of the four scans against their twins."""
+    import torch
+    from cmw_rag_tpu_torch.ops import ivf_scan as V
+    from cmw_rag_tpu_torch.ops import topk as T
+    from cmw_rag_tpu_torch.scripts.shipping import DIM, N_ROWS
+
+    t0 = time.time()
+    corpus, ids, groups, q_all, corpus8, scales = scan_inputs()
     torch.cuda.synchronize()
     log("kernels-setup", time.time() - t0, card_line, rows=N_ROWS, dim=DIM)
 
-    n_small = 4096
-    cases = [("main", 8, TOP_K, N_ROWS), ("q32", 32, TOP_K, N_ROWS),
-             ("k129", 8, 129, N_ROWS), ("k1000", 8, 1000, N_ROWS),
-             ("kN", 8, n_small, n_small)]
+    calls = scan_calls(corpus, ids, q_all, corpus8, scales)
+    stream = torch.cuda.current_stream().cuda_stream
     report = {}
     for name, route in (("topk_scan_bf16", "cmw_rag_tpu/ops/topk.py:164"),
                         ("topk_scan_int8", "cmw_rag_tpu/ops/topk.py:210")):
         int8 = name.endswith("int8")
-        for case, nq, k, n in cases:
+        for case, nq, k, n in SCAN_CASES:
             t0 = time.time()
+            n = n or N_ROWS
             q = q_all[:nq].contiguous()
             c, c8, sc, cid = corpus[:n], corpus8[:n], scales[:n], ids[:n]
+            kern = calls[f"{name}/{case}"][0]
             if int8:
-                kern = lambda: T.topk_scan_int8(c8, sc, cid, q, k)  # noqa: E731
                 plain = lambda: T.topk_plain_int8(c8, sc, cid, q, k)  # noqa: E731
                 lib = lambda: library_scan(c8, sc, cid, q, k)  # noqa: E731
                 nbytes = n * DIM + 4 * n + 4 * n
             else:
-                kern = lambda: T.topk_scan_bf16(c, cid, q, k)  # noqa: E731
                 plain = lambda: T.topk_plain(c, cid, q, k)  # noqa: E731
                 lib = lambda: library_scan(c, None, cid, q, k)  # noqa: E731
                 nbytes = 2 * n * DIM + 4 * n
             nbytes += 2 * nq * DIM + 8 * nq * k
+            # the workspace this call makes: the tensors the stream holds
+            # after it, made anew
+            V._WORKSPACES.pop((corpus.device.index, stream), None)
             got = kern()
+            held = V.workspace_bytes(corpus.device, stream)
             want = plain()
             torch.cuda.synchronize()
             ties = [g for g in groups if g[0] < nq] if n == N_ROWS else []
             err = check_against_plain(f"{name} {case}", got, want, cid, ties)
             entry = {"ms": cuda_ms(kern, 20), "plain_ms": cuda_ms(plain, 3),
                      "library_ms": cuda_ms(lib, 3), "max_abs_err": err,
-                     **bound(nbytes, 2.0 * nq * n * DIM)}
+                     **bound(nbytes, 2.0 * nq * n * DIM),
+                     "workspace_mib": held / 2**20}
             log(f"kernel-{name}-{case}", time.time() - t0, card_line, Q=nq,
                 N=n, D=DIM, k=k, **fmt(entry))
             report[(name, case)] = dict(entry, replaces=route,
@@ -677,8 +760,6 @@ def scan_phase(card_line: str) -> dict:
             N=N_ROWS, D=DIM, k=k, **fmt(entry))
         report[(name, "main")] = dict(entry, shape={"Q": nq, "N": N_ROWS,
                                                     "D": DIM, "k": k})
-    del corpus, corpus8, scales, ids
-    torch.cuda.empty_cache()
     return report
 
 
@@ -1022,17 +1103,21 @@ def library_ivf(corpus, scales, ids, queries, table, k, block_n):
     return ts, i.gather(1, ti)
 
 
-def scan_select_ms(kerns: dict, iters: int = 10, tries: int = 3) -> dict:
-    """Device ms of each IVF call's two launches apart, the scan
-    (``ivf_scan_kernel``) and the selection (``select_kernel``), for every
-    call of ``kerns`` (key -> call) from one complete ``torch.profiler``
-    window over all of them, ``iters`` calls each in turn (one window for
-    all, not one a call: many profiler sessions in one process lose later
-    windows' records); a window short of any record is taken again,
-    ``tries`` in all. → {key: {"scan_ms", "select_ms"}}."""
+def scan_select_ms(kerns: dict, iters: int = 10, tries: int = 3,
+                   chunks: dict | None = None) -> dict:
+    """Device ms of each IVF or flat scan call's launches apart, the scan
+    (``ivf_scan_kernel``) and the selection (``select_kernel``), one of
+    each a chunk of queries (``chunks``: key -> chunks a call, 1 where not
+    given), for every call of ``kerns`` (key -> call) from one complete
+    ``torch.profiler`` window over all of them, ``iters`` calls each in
+    turn (one window for all, not one a call: many profiler sessions in
+    one process lose later windows' records); a window short of any
+    record is taken again, ``tries`` in all. → {key: {"scan_ms",
+    "select_ms"}}, each summed over a call's chunks."""
     from cmw_rag_tpu_torch.scripts.profile_query import kernel_window
 
     keys = list(kerns)
+    per = {key: (chunks or {}).get(key, 1) for key in keys}
 
     def run():
         for key in keys:
@@ -1048,20 +1133,21 @@ def scan_select_ms(kerns: dict, iters: int = 10, tries: int = 3) -> dict:
         ours = sorted((e for e in events if "ivf_scan_kernel" in e.name
                        or "select_kernel" in e.name),
                       key=lambda e: e.time_range.start)
-        if len(ours) != 2 * iters * len(keys):
+        if len(ours) != 2 * iters * sum(per.values()):
             continue
-        out = {}
-        for j, key in enumerate(keys):
-            chunk = ours[2 * iters * j: 2 * iters * (j + 1)]
-            scan = [e for e in chunk if "ivf_scan_kernel" in e.name]
-            select = [e for e in chunk if "select_kernel" in e.name]
-            if len(scan) != iters or len(select) != iters:
+        out, at = {}, 0
+        for key in keys:
+            mine = ours[at: at + 2 * iters * per[key]]
+            at += len(mine)
+            scan = [e for e in mine if "ivf_scan_kernel" in e.name]
+            select = [e for e in mine if "select_kernel" in e.name]
+            if len(scan) != iters * per[key] or len(select) != len(scan):
                 break
             out[key] = {"scan_ms": ms(scan), "select_ms": ms(select)}
         else:
             return out
     raise RuntimeError(f"{tries} profiler windows of {iters} calls of "
-                       f"{len(keys)} IVF cases were all incomplete")
+                       f"{len(keys)} scan cases were all incomplete")
 
 
 def ivf_recall(idx, q, truth, own_truth, card_line: str, label: str) -> dict:
@@ -3679,20 +3765,20 @@ def main() -> int:
     for name in ("topk_scan_bf16", "topk_scan_int8"):
         main_shape = scans[(name, "main")]
         row = {"name": name, "route": "cuda",
-               "source": "cmw_rag_tpu_torch/csrc/topk_scan.cu",
+               "source": "cmw_rag_tpu_torch/csrc/ivf_scan.cu",
                "replaces": main_shape["replaces"],
                "launches": sum(p[name] for p in by_path.values()),
                "launches_by_path": {p: c[name] for p, c in by_path.items()},
-               "max_abs_err": max(scans[(name, c)]["max_abs_err"]
-                                  for c in ("main", "q32", "k129", "k1000",
-                                            "kN"))}
-        row.update({k: main_shape[k] for k in ("ms", "plain_ms", "bound_ms",
-                                               "bound_by", "library_ms",
-                                               "shape")})
-        for case in ("q32", "k129", "k1000", "kN"):
-            row[case] = {k: scans[(name, case)][k]
-                         for k in ("ms", "plain_ms", "library_ms", "bound_ms",
-                                   "bound_by", "max_abs_err", "shape")}
+               "max_abs_err": max(scans[(name, c[0])]["max_abs_err"]
+                                  for c in SCAN_CASES)}
+        row.update({k: main_shape[k] for k in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "scan_ms",
+            "select_ms", "workspace_mib", "shape")})
+        for case, *_ in SCAN_CASES[1:]:
+            row[case] = {k: scans[(name, case)][k] for k in (
+                "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+                "max_abs_err", "scan_ms", "select_ms", "workspace_mib",
+                "shape")}
         rows.append(row)
     fa = flash["rerank"]
     rows.append({

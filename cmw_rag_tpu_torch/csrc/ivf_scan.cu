@@ -1,15 +1,21 @@
 // Exact top-k over a table of IVF blocks, bf16 or int8 corpus, for Hopper
-// (sm_90a).
+// (sm_90a); and the exact flat scan, over the corpus as one block.
 //
 // Replaces the TPU kernels of cmw_rag_tpu/ops/ivf_scan.py:
 //   :95  ivf_probed_scan       (_ivf_kernel :29)
 //   :567 ivf_probed_scan_int8  (_ivf_int8_kernel :507)
 //   :340 ivf_union_scan        (_ivf_union_kernel :282)
 //   :452 ivf_union_scan_int8   (_ivf_union_int8_kernel :394)
-// All four compute one function, so they are one kernel template over a
+// and of cmw_rag_tpu/ops/topk.py:
+//   :164 topk_pallas           (_fused_topk_kernel :97, merge :68)
+//   :210 topk_pallas_int8      (_fused_topk_int8_kernel :131)
+// All six compute one function, so they are one kernel template over a
 // block table: the union kernels give one row of block indices that every
 // query scans (its first n_valid entries); the probed kernels give one row
-// per query.
+// per query; the flat scans (ivf_scan_flat_*) give a one-entry table whose
+// one block is the whole corpus [n, d], n any size (its last tile ragged),
+// and write no ids: the selection reads the corpus's ids [n] in place,
+// since a row's place in the workspace is its row.
 //
 // Function: the corpus is n_blocks blocks of block_n rows. For each query,
 // scores = <query, row> accumulated in fp32 over the rows of the blocks in
@@ -46,7 +52,17 @@
 //     queries: one to four n8 tiles) stays in shared memory for the whole
 //     CTA where it fits, loaded once by TMA in 64-column chunks; where it
 //     does not (32 queries at D 5120), each stage carries its columns'
-//     query chunks beside the rows. Eight consumer warps own 32 rows each
+//     query chunks beside the rows. The flat scan past 32 queries takes
+//     groups of kWideGroup = 64 queries (eight n8 tiles) in chunks of
+//     kWideChunk = 128, the chunk's two groups on the same tiles, where
+//     groups of 32 in chunks of 64 read the rows about three times for
+//     128 queries. Its 64 accumulators a thread fit the 168 registers of
+//     288 threads with the k16 steps rolled and B taken one n8 tile at a
+//     time (a group of 128 spills); its CTAs are bound by the products,
+//     not the rows: neither clusters of four narrow CTAs sharing each stage
+//     by TMA multicast nor pacing a chunk's two CTAs of one tile walk to
+//     each other's stages was faster (PERF.md §6, rows 1-2).
+//     Eight consumer warps own 32 rows each
 //     and compute the [256 rows x group] scores with mma.sync m16n8k16
 //     (bf16 in, fp32 sums), fragments by ldmatrix from the swizzled
 //     stages; int8 rows are widened to bf16 in registers (the 4 bytes a
@@ -97,11 +113,20 @@ constexpr int kQCols = 64;                   // bf16 query columns a chunk
 constexpr int kInitBar = 1;                  // named barrier: ring ready
 constexpr int kMaxSmem = 232448 - 1024;      // dynamic, beside the static
 constexpr int kChunk = 64;                   // queries a scan + selection
+constexpr int kWideGroup = 64;               // the flat scan's group past
+constexpr int kWideChunk = 128;              // 32 queries, and its chunk
 
 __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
   asm volatile(
       "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(hopper::smem_u32(p)));
+}
+
+__device__ __forceinline__ void ldsm_x2(uint32_t (&r)[2], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0,%1}, [%2];\n"
+      : "=r"(r[0]), "=r"(r[1])
       : "r"(hopper::smem_u32(p)));
 }
 
@@ -156,7 +181,8 @@ struct ScanArgs {
   int n_blocks, d, block_n;
   int stream_q;           // the query chunks ride in the ring's stages
   float* cand_s;          // [nq, table_cols * block_n]
-  int* cand_i;            // [per_query ? nq : 1, table_cols * block_n]
+  int* cand_i;            // [per_query ? nq : 1, table_cols * block_n], or
+                          // null: no ids written (the flat scan)
   uint32_t* hist;         // the selection's, cleared here
   uint32_t* counts;
 };
@@ -247,7 +273,7 @@ ivf_scan_kernel(const __grid_constant__ CUtensorMap c_map,
   if (!a.stream_q) mbar_wait(&qbar, 0);
   const int g = lane >> 2, t = lane & 3;
   const int rw0 = warp * 32;
-  const bool write_ids = a.per_query || group == 0;
+  const bool write_ids = a.cand_i != nullptr && (a.per_query || group == 0);
   float* out_s = a.cand_s + static_cast<int64_t>(q0) * width;
   int* out_i = a.cand_i + (a.per_query ? static_cast<int64_t>(group) * width : 0);
   int use = 0;
@@ -276,7 +302,61 @@ ivf_scan_kernel(const __grid_constant__ CUtensorMap c_map,
       const unsigned char* cs = ring + slot * stage_bytes;
       const unsigned char* qs =
           a.stream_q ? cs + kStage : q_sh + st * QC * kQChunk;
-      if constexpr (sizeof(T) == 2) {
+      if constexpr (NT > 4) {
+        // a wide group: the same products, each accumulator's k16 steps in
+        // the same order, with the steps rolled and one n8 tile's B live at
+        // a time, so that its accumulators fit the register cap
+        if constexpr (sizeof(T) == 2) {
+#pragma unroll 1
+          for (int kk = 0; kk < 4; ++kk) {
+            uint32_t av[2][4];
+#pragma unroll
+            for (int mt = 0; mt < 2; ++mt)
+              ldsm_x4(av[mt], cs + swz(rw0 + mt * 16 + (lane & 15),
+                                       2 * kk + (lane >> 4)));
+#pragma unroll
+            for (int nt = 0; nt < NT; ++nt) {
+              uint32_t b[2];   // ldsm_x4 here spills 4 loads
+              ldsm_x2(b, qs + swz(nt * 8 + (lane & 7),
+                                  2 * kk + ((lane >> 3) & 1)));
+#pragma unroll
+              for (int mt = 0; mt < 2; ++mt)
+                mma_bf16(acc[mt][nt], av[mt][0], av[mt][1], av[mt][2],
+                         av[mt][3], b[0], b[1]);
+            }
+          }
+        } else {
+#pragma unroll 1
+          for (int j = 0; j < 4; ++j) {
+            uint32_t ra[2][4];   // 32 bytes of each of a thread's rows
+#pragma unroll
+            for (int mt = 0; mt < 2; ++mt)
+              ldsm_x4(ra[mt], cs + swz(rw0 + mt * 16 + (lane & 15),
+                                       2 * j + (lane >> 4)));
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const int col = 32 * j + 16 * h + 4 * t;    // stage column
+              const unsigned char* qc = qs + (col / kQCols) * kQChunk;
+              const int cc = col % kQCols;
+              uint32_t w[2][4];   // rows g, g + 8: k 4t.. as bf16 pairs
+#pragma unroll
+              for (int mt = 0; mt < 2; ++mt) {
+                widen(ra[mt][2 * h], w[mt][0], w[mt][2]);
+                widen(ra[mt][2 * h + 1], w[mt][1], w[mt][3]);
+              }
+#pragma unroll
+              for (int nt = 0; nt < NT; ++nt) {
+                const uint2 b = *reinterpret_cast<const uint2*>(
+                    qc + swz(nt * 8 + g, cc >> 3) + 2 * (cc & 7));
+#pragma unroll
+                for (int mt = 0; mt < 2; ++mt)
+                  mma_bf16(acc[mt][nt], w[mt][0], w[mt][1], w[mt][2],
+                           w[mt][3], b.x, b.y);
+              }
+            }
+          }
+        }
+      } else if constexpr (sizeof(T) == 2) {
         // four k16 steps: A by ldmatrix from the rows, B from the queries
 #pragma unroll
         for (int k2 = 0; k2 < 2; ++k2) {
@@ -405,18 +485,23 @@ cudaError_t launch_scan(const CUtensorMap& c_map, const CUtensorMap& q_map,
 template <typename T>
 int launch(const void* c_map_host, const void* q_map_host, const float* scales,
            const int* ids, const int* table, int table_cols, int ws_cols,
-           int per_query, const int* n_valid, int nq, int qg, int n_blocks,
-           int d, int block_n, int k, int n_ctas, int sel_ctas, float* cand_s,
-           int* cand_i, uint32_t* hist, uint32_t* counts, uint64_t* surv,
-           int64_t surv_stride, float* out_s, int* out_i, void* stream) {
+           int per_query, const int* n_valid, int nq, int qg, int chunk,
+           int n_blocks, int d, int block_n, int k, int n_ctas, int sel_ctas,
+           float* cand_s, int* cand_i, uint32_t* hist, uint32_t* counts,
+           uint64_t* surv, int64_t surv_stride, float* out_s, int* out_i,
+           void* stream) {
   // qg: the query group's rows, which the query map's boxes were encoded
-  // with (8 on the probed route, 8, 16 or 32 on the union route)
+  // with (8 on the probed route, 8, 16 or 32 on the union route, also
+  // kWideGroup on the flat scan's); chunk: the queries a scan + selection
+  // takes, which the workspace holds (kChunk on the IVF routes, up to
+  // kWideChunk on the flat scan's)
   if (nq < 1 || n_blocks < 1 || block_n < 1 || table_cols < 1 ||
       ws_cols < 1 || ws_cols > table_cols ||
       (per_query && ws_cols != table_cols) || d < 8 ||
       d % (16 / sizeof(T)) != 0 || k < 1 ||
-      n_ctas < 1 || sel_ctas < 1 ||
-      (qg != 8 && qg != 16 && qg != 32) || (per_query && qg != 8) ||
+      n_ctas < 1 || sel_ctas < 1 || chunk < 1 || chunk > kWideChunk ||
+      (qg != 8 && qg != 16 && qg != 32 && qg != kWideGroup) ||
+      (per_query && qg != 8) ||
       static_cast<int64_t>(n_blocks) * block_n > INT32_MAX)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -424,8 +509,8 @@ int launch(const void* c_map_host, const void* q_map_host, const float* scales,
   memcpy(&c_map, c_map_host, sizeof(CUtensorMap));
   memcpy(&q_map, q_map_host, sizeof(CUtensorMap));
   const int64_t width = static_cast<int64_t>(ws_cols) * block_n;
-  for (int q0 = 0; q0 < nq; q0 += kChunk) {
-    const int cn = nq - q0 < kChunk ? nq - q0 : kChunk;
+  for (int q0 = 0; q0 < nq; q0 += chunk) {
+    const int cn = nq - q0 < chunk ? nq - q0 : chunk;
     const int* rows = table + (per_query ? static_cast<int64_t>(q0) * table_cols : 0);
     // a union table's one row is scanned over its first ws_cols entries;
     // a probed table's rows (stride table_cols) over all of theirs
@@ -435,9 +520,14 @@ int launch(const void* c_map_host, const void* q_map_host, const float* scales,
     cudaError_t err =
         qg == 8  ? launch_scan<T, 1>(c_map, q_map, a, n_ctas, groups, st)
       : qg == 16 ? launch_scan<T, 2>(c_map, q_map, a, n_ctas, groups, st)
-                 : launch_scan<T, 4>(c_map, q_map, a, n_ctas, groups, st);
+      : qg == 32 ? launch_scan<T, 4>(c_map, q_map, a, n_ctas, groups, st)
+                 : launch_scan<T, kWideGroup / 8>(c_map, q_map, a, n_ctas,
+                                                  groups, st);
     if (err != cudaSuccess) return static_cast<int>(err);
-    select_k::Args s{cand_s, width, cand_i, per_query ? width : 0, width,
+    // without ids in the workspace (the flat scan) a candidate's place is
+    // its row, and the selection reads the corpus's ids there
+    select_k::Args s{cand_s, width, cand_i != nullptr ? cand_i : ids,
+                     per_query ? width : 0, width,
                      n_valid, block_n, k, hist, counts, surv, surv_stride,
                      out_s + static_cast<int64_t>(q0) * k,
                      out_i + static_cast<int64_t>(q0) * k, 0};
@@ -447,6 +537,27 @@ int launch(const void* c_map_host, const void* q_map_host, const float* scales,
   return static_cast<int>(cudaSuccess);
 }
 
+// The flat scan's table: one entry, block 0 (the whole corpus).
+__device__ int flat_table[1] = {0};
+
+template <typename T>
+int launch_flat(const void* c_map, const void* q_map, const float* scales,
+                const int* ids, int nq, int qg, int chunk, long long n, int d,
+                int k, int n_ctas, int sel_ctas, float* cand_s,
+                uint32_t* hist, uint32_t* counts, uint64_t* surv,
+                int64_t surv_stride, float* out_s, int* out_i, void* stream) {
+  if (n < 1 || n > INT32_MAX - kRows)
+    return static_cast<int>(cudaErrorInvalidValue);
+  int* table = nullptr;
+  const cudaError_t err =
+      cudaGetSymbolAddress(reinterpret_cast<void**>(&table), flat_table);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return launch<T>(c_map, q_map, scales, ids, table, 1, 1, 0, nullptr, nq, qg,
+                   chunk, 1, d, static_cast<int>(n), k, n_ctas, sel_ctas,
+                   cand_s, nullptr, hist, counts, surv, surv_stride, out_s,
+                   out_i, stream);
+}
+
 }  // namespace
 
 extern "C" {
@@ -454,8 +565,13 @@ extern "C" {
 // Rows of a scan tile; the selection's histogram and counter words a query.
 int ivf_scan_tile_rows() { return kRows; }
 int ivf_scan_clear_words() { return static_cast<int>(select_k::clear_words()); }
-// Queries a scan + selection takes (the workspace holds one such chunk).
+// Queries a scan + selection takes (the workspace holds one such chunk;
+// the flat scan past 32 queries: groups of ivf_scan_wide_group() in chunks
+// of at most ivf_scan_wide_chunk(), the chunk chosen by the host so that
+// its chunk x n scores fit the card's memory).
 int ivf_scan_chunk() { return kChunk; }
+int ivf_scan_wide_group() { return kWideGroup; }
+int ivf_scan_wide_chunk() { return kWideChunk; }
 
 // The corpus's tensor map (boxes of 256 rows x 128 bytes, 128-byte
 // swizzle) for corpus [n, d] (bf16, or int8 when `int8`), into the
@@ -506,7 +622,7 @@ int ivf_scan_bf16(const void* c_map, const void* q_map, const int* ids,
                   float* out_s, int* out_i, void* stream) {
   return launch<__nv_bfloat16>(c_map, q_map, nullptr, ids, table,
                                table_cols, ws_cols, per_query, n_valid, nq,
-                               qg, n_blocks, d, block_n, k, n_ctas, sel_ctas,
+                               qg, kChunk, n_blocks, d, block_n, k, n_ctas, sel_ctas,
                                cand_s, cand_i, hist, counts, surv,
                                surv_stride, out_s, out_i, stream);
 }
@@ -521,9 +637,43 @@ int ivf_scan_int8(const void* c_map, const void* q_map, const float* scales,
                   uint32_t* counts, uint64_t* surv, int64_t surv_stride,
                   float* out_s, int* out_i, void* stream) {
   return launch<int8_t>(c_map, q_map, scales, ids, table, table_cols,
-                        ws_cols, per_query, n_valid, nq, qg, n_blocks, d,
-                        block_n, k, n_ctas, sel_ctas, cand_s, cand_i, hist,
-                        counts, surv, surv_stride, out_s, out_i, stream);
+                        ws_cols, per_query, n_valid, nq, qg, kChunk,
+                        n_blocks, d, block_n, k, n_ctas, sel_ctas, cand_s,
+                        cand_i, hist, counts, surv, surv_stride, out_s, out_i,
+                        stream);
+}
+
+// The flat scan: c_map (ivf_scan_encode) over corpus [n, d] bf16, q_map
+// (ivf_scan_encode_queries with qg = 8, 16 or 32 rows a box, and
+// ivf_scan_wide_group() past 32 queries) over queries [nq, d] bf16, ids
+// [n] int32; chunk (1 to ivf_scan_wide_chunk()) the queries a scan +
+// selection takes; n_ctas scan CTAs a query group, sel_ctas selection CTAs
+// a query; the workspace, for one chunk of c = min(nq, chunk) queries:
+// cand_s [c, n] f32,
+// hist and counts (ivf_scan_clear_words a query), surv [c, surv_stride >=
+// min(k, n)] u64 -> out_s [nq, k] f32, out_i [nq, k] int32, any k >= 1.
+// Returns the CUDA error code of the launches.
+int ivf_scan_flat_bf16(const void* c_map, const void* q_map, const int* ids,
+                       int nq, int qg, int chunk, long long n, int d, int k,
+                       int n_ctas, int sel_ctas, float* cand_s,
+                       uint32_t* hist, uint32_t* counts, uint64_t* surv,
+                       int64_t surv_stride, float* out_s, int* out_i,
+                       void* stream) {
+  return launch_flat<__nv_bfloat16>(c_map, q_map, nullptr, ids, nq, qg, chunk,
+                                    n, d, k, n_ctas, sel_ctas, cand_s, hist, counts,
+                                    surv, surv_stride, out_s, out_i, stream);
+}
+
+// The same over an int8 corpus (d a multiple of 16) with f32 row scales [n].
+int ivf_scan_flat_int8(const void* c_map, const void* q_map,
+                       const float* scales, const int* ids, int nq, int qg,
+                       int chunk, long long n, int d, int k, int n_ctas,
+                       int sel_ctas, float* cand_s, uint32_t* hist,
+                       uint32_t* counts, uint64_t* surv, int64_t surv_stride,
+                       float* out_s, int* out_i, void* stream) {
+  return launch_flat<int8_t>(c_map, q_map, scales, ids, nq, qg, chunk, n, d, k,
+                             n_ctas, sel_ctas, cand_s, hist, counts, surv,
+                             surv_stride, out_s, out_i, stream);
 }
 
 }  // extern "C"

@@ -211,7 +211,10 @@ class FlatIndex:
         """Exact cosine top-k: queries [Q, D] → (scores [Q, k] float32,
         ids [Q, k] int32), ordered by (score desc, id asc); -1 (and the
         scan's empty score) where fewer than k rows are live, score -inf
-        past ``capacity``. Reads one snapshot; never takes the lock."""
+        past ``capacity``. Reads one snapshot; never takes the lock. On
+        the card, searches from several threads on one stream launch their
+        scans in turn, since they share the stream's scan workspace
+        (``ops/ivf_scan.flat_scan``)."""
         snap = self._snap
         queries = np.atleast_2d(np.asarray(queries, np.float32))
         qn = queries.shape[0]

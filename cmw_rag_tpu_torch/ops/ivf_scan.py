@@ -41,11 +41,22 @@ query and entries past the ``n_blocks``-th are not scanned. The
 twins (``*_plain``) gather the rows of the distinct listed blocks and
 select with ``ops/topk``'s plain scan. ``ivf_probed_scan_golden`` copies
 the JAX golden ``ivf_probed_scan_xla`` (:622-645).
+
+``flat_scan`` runs the same kernel as the exact flat scan that
+``ops/topk.topk_scan_bf16`` and ``topk_scan_int8`` launch: the corpus is
+one block of all its N rows (any N), listed once; the scan writes no ids
+and the selection reads the corpus's own in place (``flat_sizes``; its
+chunk of queries shrinks where chunk x N scores would take more than
+``FLAT_WORKSPACE_SHARE`` of the memory free, ``flat_launch_sizes``).
+The scans of one (device, stream) share its workspace; calls from several
+host threads on one stream run in turn (``_stream``).
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import threading
 from typing import Optional
 
 import torch
@@ -144,33 +155,46 @@ SELECT_CLEAR_WORDS = 6 * 2048 + 2
 #: queries a scan + selection takes (``csrc/ivf_scan.cu`` kChunk): two
 #: groups of 32, which share the rows they read through L2
 QUERY_CHUNK = 64
+#: the flat scan's query group past 32 queries (``kWideGroup``) and its
+#: chunk (``kWideChunk``): two groups of 64 reading the same tiles
+WIDE_GROUP = 64
+WIDE_CHUNK = 128
 
 
 def launch_sizes(nq: int, table_cols: int, block_n: int, k: int,
                  per_query: bool, sms: int,
-                 n_blocks: Optional[int] = None) -> dict:
+                 n_blocks: Optional[int] = None,
+                 write_ids: bool = True, wide: bool = False,
+                 max_chunk: Optional[int] = None) -> dict:
     """What a launch needs from the host, from the table's width alone
     (never from the device's ``n_unique``; ``n_blocks`` given when it
     bounds the entries scanned, as ``n_unique`` does): the entries a query
     the workspace holds (``ws_cols``), the scan's query group (``qg``: 8,
-    16 or 32 queries; one a query on the probed route) and groups and CTAs
-    a group (one a SM in all, at most one a (entry, tile) item) of a chunk
-    of at most ``QUERY_CHUNK`` queries, the selection's CTAs a query, and
-    one chunk's workspace: ``floats`` (the candidates' scores [chunk,
-    width]) and ``words`` int32 (the candidates' ids [chunk or 1, width],
-    the selection's histograms and counters, then its survivors [chunk,
-    min(k, width)] u64 from the even word ``surv_at``)."""
+    16 or 32 queries; one a query on the probed route; with ``wide``, past
+    32 queries ``WIDE_GROUP``) and groups and CTAs a group (one a SM in
+    all, at most one a (entry, tile) item) of a chunk of at most
+    ``QUERY_CHUNK`` queries (``WIDE_CHUNK`` with wide groups; at most
+    ``max_chunk``, and then a group no wider than it needs), the
+    selection's CTAs a query, and one chunk's workspace: ``floats`` (the
+    candidates' scores [chunk, width]) and ``words`` int32 (the
+    candidates' ids [chunk or 1, width] unless ``write_ids`` is False, the
+    selection's histograms and counters, then its survivors [chunk, min(k,
+    width)] u64 from the even word ``surv_at``)."""
     ws_cols = table_cols if n_blocks is None else min(table_cols, n_blocks)
     width = ws_cols * block_n
-    chunk = min(nq, QUERY_CHUNK)
-    qg = 8 if per_query or nq <= 8 else 16 if nq <= 16 else 32
+    qg = (8 if per_query or nq <= 8 else 16 if nq <= 16 else 32
+          if nq <= 32 or not wide else WIDE_GROUP)
+    chunk = min(nq, WIDE_CHUNK if qg == WIDE_GROUP else QUERY_CHUNK,
+                max_chunk or nq)
+    while qg > 8 and qg >= 2 * chunk:
+        qg //= 2
     groups = chunk if per_query else -(-chunk // qg)
     items = ws_cols * -(-block_n // TILE_ROWS)
     n_ctas = max(1, min(items, -(-sms // groups)))
     sel_ctas = max(2, min(SELECT_MAX_CTAS, -(-width // SELECT_ROWS),
                           2 * sms // chunk))
     surv_stride = min(k, width)
-    ids_words = (chunk if per_query else 1) * width
+    ids_words = (chunk if per_query else 1) * width if write_ids else 0
     clear_at = ids_words
     surv_at = clear_at + chunk * SELECT_CLEAR_WORDS
     surv_at += surv_at % 2
@@ -182,6 +206,28 @@ def launch_sizes(nq: int, table_cols: int, block_n: int, k: int,
             "surv_at": surv_at, "words": surv_at + 2 * chunk * surv_stride}
 
 
+#: the share of the device memory free to it that a flat scan's workspace
+#: may take (``flat_sizes``' budget)
+FLAT_WORKSPACE_SHARE = 0.25
+
+
+def flat_sizes(nq: int, n: int, k: int, sms: int,
+               budget: Optional[int] = None) -> dict:
+    """``launch_sizes`` of the flat scan over N = ``n`` rows: a one-entry
+    table whose block is the whole corpus, no ids in the workspace (the
+    selection reads the corpus's own), and past 32 queries groups of
+    ``WIDE_GROUP`` in chunks of ``WIDE_CHUNK``. A chunk's scores take chunk
+    x N floats, whatever the batch; with a ``budget`` (bytes) the chunk is
+    the largest power of two, down to one query, whose workspace fits it
+    (each chunk below the batch is one more pass over the corpus)."""
+    z = launch_sizes(nq, 1, n, k, False, sms, write_ids=False, wide=True)
+    while (budget is not None and z["chunk"] > 1
+           and 4 * (z["floats"] + z["words"]) > budget):
+        z = launch_sizes(nq, 1, n, k, False, sms, write_ids=False, wide=True,
+                         max_chunk=1 << (z["chunk"] - 1).bit_length() - 1)
+    return z
+
+
 def _lib() -> ctypes.CDLL:
     lib = cuda_build.library("ivf_scan")
     if not getattr(lib, "_typed", False):
@@ -190,19 +236,27 @@ def _lib() -> ctypes.CDLL:
                  p, p, p])
         lib.ivf_scan_bf16.argtypes = [p, p, p] + tail
         lib.ivf_scan_int8.argtypes = [p, p, p, p] + tail
+        flat = [i, i, i, ctypes.c_longlong, i, i, i, i, p, p, p, p, i64, p, p,
+                p]
+        lib.ivf_scan_flat_bf16.argtypes = [p, p, p] + flat
+        lib.ivf_scan_flat_int8.argtypes = [p, p, p, p] + flat
         lib.ivf_scan_encode.argtypes = [p, i, i, i, p]
         lib.ivf_scan_encode_queries.argtypes = [p, i, i, i, p]
-        for fn in ("ivf_scan_bf16", "ivf_scan_int8", "ivf_scan_encode",
+        for fn in ("ivf_scan_bf16", "ivf_scan_int8", "ivf_scan_flat_bf16",
+                   "ivf_scan_flat_int8", "ivf_scan_encode",
                    "ivf_scan_encode_queries",
                    "ivf_scan_tile_rows", "ivf_scan_clear_words",
-                   "ivf_scan_chunk"):
+                   "ivf_scan_chunk", "ivf_scan_wide_group",
+                   "ivf_scan_wide_chunk"):
             getattr(lib, fn).restype = ctypes.c_int
         if (lib.ivf_scan_tile_rows(), lib.ivf_scan_clear_words(),
-                lib.ivf_scan_chunk()) != (TILE_ROWS, SELECT_CLEAR_WORDS,
-                                          QUERY_CHUNK):
+                lib.ivf_scan_chunk(), lib.ivf_scan_wide_group(),
+                lib.ivf_scan_wide_chunk()) != (
+                    TILE_ROWS, SELECT_CLEAR_WORDS, QUERY_CHUNK, WIDE_GROUP,
+                    WIDE_CHUNK):
             raise RuntimeError("csrc/ivf_scan.cu and ops/ivf_scan.py "
                                "disagree on the tile, the selection's "
-                               "workspace or the query chunk")
+                               "workspace or the query chunks")
         lib._typed = True
     return lib
 
@@ -211,6 +265,7 @@ _MAPS: dict = {}
 #: maps kept before the cache starts over (each query batch adds one)
 MAPS_KEPT = 1024
 _WORKSPACES: dict = {}
+_LOCKS: dict = {}
 
 
 def _tensor_map(t: torch.Tensor, qg: int = 0) -> int:
@@ -272,21 +327,115 @@ def _launch(fn_name: str, corpus, scales, ids, queries, table, n_valid,
     out_s = torch.empty((nq, k), dtype=torch.float32, device=dev)
     out_i = torch.empty((nq, k), dtype=torch.int32, device=dev)
     extra = () if scales is None else (scales.data_ptr(),)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        floats, words = split_workspace(
-            _WORKSPACES, (dev.index, stream), z["floats"], z["words"],
-            lambda m, dtype: torch.zeros((m,), dtype=dtype, device=dev))
-        w = words.data_ptr()
+    with torch.cuda.device(dev), _stream(dev) as stream:
+        ws = _workspace(dev, stream, z)
         err = getattr(lib, fn_name)(
             _tensor_map(corpus), _tensor_map(queries, z["qg"]), *extra,
             ids.data_ptr(),
             table.data_ptr(), table.shape[1], z["ws_cols"], int(per_query),
             None if n_valid is None else n_valid.data_ptr(), nq, z["qg"],
             n // block_n, d, block_n, k, z["n_ctas"], z["sel_ctas"],
-            floats.data_ptr(), w, w + 4 * z["clear_at"],
-            w + 4 * (z["clear_at"] + z["hist_words"]), w + 4 * z["surv_at"],
+            ws["cand_s"], ws["cand_i"], ws["hist"], ws["counts"], ws["surv"],
             z["surv_stride"], out_s.data_ptr(), out_i.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"{fn_name} launch failed: CUDA error {err}")
+    return out_s, out_i
+
+
+@contextlib.contextmanager
+def _stream(dev: torch.device):
+    """The current stream of ``dev``, held against the other host threads
+    that launch the scans on it: they share its workspace, and one call's
+    scan and selection launches must not fall between another's."""
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with _LOCKS.setdefault((dev.index, stream), threading.Lock()):
+        yield stream
+
+
+def _workspace(dev: torch.device, stream: int, z: dict) -> dict:
+    """The addresses, in the workspace of ``stream`` (kept per (device,
+    stream) and grown as a call needs, shared by the IVF and flat scans),
+    of the candidates' scores and ids, the selection's histograms and
+    counters, and its survivors, laid out as ``z`` (``launch_sizes``)
+    says."""
+    floats, words = split_workspace(
+        _WORKSPACES, (dev.index, stream), z["floats"], z["words"],
+        lambda m, dtype: torch.zeros((m,), dtype=dtype, device=dev))
+    w = words.data_ptr()
+    return {"cand_s": floats.data_ptr(), "cand_i": w,
+            "hist": w + 4 * z["clear_at"],
+            "counts": w + 4 * (z["clear_at"] + z["hist_words"]),
+            "surv": w + 4 * z["surv_at"]}
+
+
+def workspace_bytes(dev: torch.device, stream: int) -> int:
+    """Bytes the scans' workspace of ``stream`` on ``dev`` holds."""
+    return sum(t.numel() * t.element_size()
+               for t in _WORKSPACES.get((dev.index, stream), ()))
+
+
+def flat_launch_sizes(dev: torch.device, stream: int, nq: int, n: int,
+                      k: int) -> dict:
+    """``flat_sizes`` as a flat scan on ``stream`` takes them now: the
+    chunk of ``WIDE_CHUNK`` or ``QUERY_CHUNK`` where the workspace already
+    holds it, else the one that fits the workspace held and
+    ``FLAT_WORKSPACE_SHARE`` of the memory free to it (free on the card or
+    cached unused by PyTorch)."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    z = flat_sizes(nq, n, k, sms)
+    floats, words = _WORKSPACES.get((dev.index, stream), (None, None))
+    if (floats is not None and floats.numel() >= z["floats"]
+            and words.numel() >= z["words"]):
+        return z
+    free = (torch.cuda.mem_get_info(dev)[0] + torch.cuda.memory_reserved(dev)
+            - torch.cuda.memory_allocated(dev))
+    return flat_sizes(nq, n, k, sms, workspace_bytes(dev, stream)
+                      + int(FLAT_WORKSPACE_SHARE * free))
+
+
+#: the most rows a flat scan takes (its row coordinates are int32, and a
+#: tile may run 255 rows past the last)
+FLAT_MAX_ROWS = 2 ** 31 - 1 - TILE_ROWS
+
+
+def flat_scan(corpus: torch.Tensor, scales: Optional[torch.Tensor],
+              ids: torch.Tensor, queries: torch.Tensor, k: int):
+    """The exact flat scan on the card: bf16 corpus [N, D] (or int8 with
+    f32 row ``scales`` [N]), ids [N] int32, queries [Q, D] bf16 →
+    (scores [Q, k] f32, ids [Q, k] int32). Checks as the IVF wrappers do
+    (an int8 corpus needs D a multiple of 16, for its TMA boxes)."""
+    if corpus.dim() != 2 or queries.dim() != 2:
+        raise ValueError("corpus and queries must be 2-D")
+    n, d = corpus.shape
+    nq = queries.shape[0]
+    if k < 1:
+        raise ValueError(f"k={k} must be at least 1")
+    step = 16 if scales is not None else 8
+    if d % step:
+        raise ValueError(f"D={d} must be a multiple of {step}")
+    if not 1 <= n <= FLAT_MAX_ROWS or nq < 1:
+        raise ValueError(f"N={n} rows or Q={nq} queries out of range")
+    _check("corpus", corpus, torch.int8 if scales is not None
+           else torch.bfloat16, (n, d))
+    if scales is not None:
+        _check("scales", scales, torch.float32, (n,))
+    _check("ids", ids, torch.int32, (n,))
+    _check("queries", queries, torch.bfloat16, (nq, d))
+    lib = _lib()
+    dev = corpus.device
+    out_s = torch.empty((nq, k), dtype=torch.float32, device=dev)
+    out_i = torch.empty((nq, k), dtype=torch.int32, device=dev)
+    fn_name = "ivf_scan_flat_bf16" if scales is None else "ivf_scan_flat_int8"
+    extra = () if scales is None else (scales.data_ptr(),)
+    with torch.cuda.device(dev), _stream(dev) as stream:
+        z = flat_launch_sizes(dev, stream, nq, n, k)
+        ws = _workspace(dev, stream, z)
+        err = getattr(lib, fn_name)(
+            _tensor_map(corpus), _tensor_map(queries, z["qg"]), *extra,
+            ids.data_ptr(), nq, z["qg"], z["chunk"], n, d, k, z["n_ctas"],
+            z["sel_ctas"], ws["cand_s"], ws["hist"], ws["counts"],
+            ws["surv"], z["surv_stride"], out_s.data_ptr(), out_i.data_ptr(),
+            stream)
     if err != 0:
         raise RuntimeError(f"{fn_name} launch failed: CUDA error {err}")
     return out_s, out_i

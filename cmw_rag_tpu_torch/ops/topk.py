@@ -10,13 +10,17 @@ ordered by (score descending, id ascending); slots with no valid row hold
 the tail is empty slots.
 
 - ``topk_scan_bf16`` / ``topk_scan_int8`` are the wrappers the pipeline
-  calls. On CUDA tensors they launch ``csrc/topk_scan.cu`` (replacing
-  ``topk_pallas`` :164 and ``topk_pallas_int8`` :210) and add one to their
-  ``launches`` count per call (each call launches ``scan_kernel``, then
-  ``merge_kernel``; for k > 128 the running lists live in a second
-  [n_blocks, Q, k] buffer in device memory); on CPU tensors they run the
-  plain twin. Wrong device, dtype, shape or contiguity raises: there is no
-  fallback.
+  calls. On CUDA tensors they launch the persistent scan and exact
+  selection of ``csrc/ivf_scan.cu`` over the corpus as one block
+  (``ops/ivf_scan.flat_scan``; replacing ``topk_pallas`` :164 and
+  ``topk_pallas_int8`` :210) and add one to their ``launches`` count per
+  call (each chunk of queries, 64 or past 32 queries 128, launches
+  ``ivf_scan_kernel``, which writes every row's score to a per-stream
+  workspace of chunk x N floats, then ``select_k::select_kernel``, whose
+  serial work does not grow with k); on CPU tensors they run the plain
+  twin. Wrong device, dtype, shape
+  or contiguity raises (D a multiple of 8, of 16 for an int8 corpus, for
+  the TMA boxes): there is no fallback.
 - ``topk_plain`` / ``topk_plain_int8`` are the plain twins: float32 scores
   over chunks of rows (never a float32 copy of the whole corpus), then a
   stable sort that keeps ties in id order.
@@ -24,10 +28,12 @@ the tail is empty slots.
   ``_fused_topk_int8mxu_kernel`` :255): the queries are quantized per row
   (``quantize_rows_int8``, torch ops in the wrapper as in the JAX
   package), the product is int8 x int8 with an exact int32 sum, and the
-  score is ``(float(acc) · q_scale) · scale``. It launches the int8-query
-  instantiation of the same kernel; its twin ``topk_plain_int8mxu`` takes
-  the sums in float64, which holds them exactly, so the two agree bit for
-  bit. No caller outside the tests, as in the JAX package.
+  score is ``(float(acc) · q_scale) · scale``. It launches
+  ``csrc/topk_scan.cu`` (``scan_kernel`` with running lists folded per
+  tile, then ``merge_kernel``, k rounds over the blocks' sorted lists);
+  its twin ``topk_plain_int8mxu`` takes the sums in float64, which holds
+  them exactly, so the two agree bit for bit. No caller outside the
+  tests, as in the JAX package.
 - ``topk_scan_stream`` is ``topk_pallas_stream`` (:418), the TPU's
   streaming schedule of ``topk_pallas``: an alias of ``topk_scan_bf16``
   with its own ``launches`` count (``tile_n`` is TPU schedule).
@@ -127,12 +133,9 @@ def _lib() -> ctypes.CDLL:
     lib = cuda_build.library("topk_scan")
     if not getattr(lib, "_typed", False):
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        tail = [i, ll, i, i, i, p, p, p, p, p, p, p]
-        lib.topk_scan_bf16.argtypes = [p, p, p] + tail
-        lib.topk_scan_int8.argtypes = [p, p, p, p] + tail
-        lib.topk_scan_int8q.argtypes = [p, p, p, p, p] + tail
-        for fn in ("topk_scan_bf16", "topk_scan_int8", "topk_scan_int8q",
-                   "topk_scan_tile_rows",
+        lib.topk_scan_int8q.argtypes = [p, p, p, p, p, i, ll, i, i, i, p, p,
+                                        p, p, p, p, p]
+        for fn in ("topk_scan_int8q", "topk_scan_tile_rows",
                    "topk_scan_max_blocks", "topk_scan_max_shared_k"):
             getattr(lib, fn).restype = ctypes.c_int
         lib._typed = True
@@ -150,19 +153,26 @@ def _check(name: str, t: torch.Tensor, dtype: torch.dtype, shape) -> None:
         raise ValueError(f"{name} must be 16-byte aligned")
 
 
-def _launch(fn_name: str, corpus, extra, ids, queries, k: int,
-            query_dtype: torch.dtype = torch.bfloat16):
-    if corpus.dim() != 2 or queries.dim() != 2:
+def _flat_scan(corpus, scales, ids, queries, k: int):
+    # imported here: ops/ivf_scan imports this module's twins
+    from cmw_rag_tpu_torch.ops import ivf_scan
+
+    return ivf_scan.flat_scan(corpus, scales, ids, queries, k)
+
+
+def _launch_int8q(corpus, scales, ids, q8, q_scale, k: int):
+    if corpus.dim() != 2 or q8.dim() != 2:
         raise ValueError("corpus and queries must be 2-D")
     n, d = corpus.shape
-    nq = queries.shape[0]
+    nq = q8.shape[0]
     if k < 1:
         raise ValueError(f"k={k} must be at least 1")
     if d % 8:
         raise ValueError(f"D={d} must be a multiple of 8")
     if n < 1 or nq < 1:
         raise ValueError("empty corpus or query batch")
-    _check("queries", queries, query_dtype, (nq, d))
+    _check("queries", q8, torch.int8, (nq, d))
+    _check("query scales", q_scale, torch.float32, (nq,))
     _check("ids", ids, torch.int32, (n,))
     lib = _lib()
     dev = corpus.device
@@ -178,15 +188,15 @@ def _launch(fn_name: str, corpus, extra, ids, queries, k: int,
     out_i = torch.empty((nq, k), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = getattr(lib, fn_name)(
-            queries.data_ptr(), corpus.data_ptr(),
-            *[t.data_ptr() for t in extra], ids.data_ptr(), nq, n, d, k,
-            n_blocks, part_s.data_ptr(), part_i.data_ptr(),
+        err = lib.topk_scan_int8q(
+            q8.data_ptr(), corpus.data_ptr(), q_scale.data_ptr(),
+            scales.data_ptr(), ids.data_ptr(), nq, n, d, k, n_blocks,
+            part_s.data_ptr(), part_i.data_ptr(),
             None if alt_s is None else alt_s.data_ptr(),
             None if alt_i is None else alt_i.data_ptr(), out_s.data_ptr(),
             out_i.data_ptr(), stream)
     if err != 0:
-        raise RuntimeError(f"{fn_name} launch failed: CUDA error {err}")
+        raise RuntimeError(f"topk_scan_int8q launch failed: CUDA error {err}")
     return out_s, out_i
 
 
@@ -196,8 +206,7 @@ def topk_scan_bf16(corpus: torch.Tensor, ids: torch.Tensor,
     (scores [Q, k] f32, ids [Q, k] int32)."""
     if on_cpu(corpus, ids, queries):
         return topk_plain(corpus, ids, queries, k)
-    _check("corpus", corpus, torch.bfloat16, corpus.shape)
-    out = _launch("topk_scan_bf16", corpus, (), ids, queries, k)
+    out = _flat_scan(corpus, None, ids, queries, k)
     topk_scan_bf16.launches += 1
     return out
 
@@ -208,9 +217,7 @@ def topk_scan_int8(corpus: torch.Tensor, scales: torch.Tensor,
     [Q, D] bf16 → (scores [Q, k] f32, ids [Q, k] int32)."""
     if on_cpu(corpus, scales, ids, queries):
         return topk_plain_int8(corpus, scales, ids, queries, k)
-    _check("corpus", corpus, torch.int8, corpus.shape)
-    _check("scales", scales, torch.float32, (corpus.shape[0],))
-    out = _launch("topk_scan_int8", corpus, (scales,), ids, queries, k)
+    out = _flat_scan(corpus, scales, ids, queries, k)
     topk_scan_int8.launches += 1
     return out
 
@@ -226,8 +233,8 @@ def topk_scan_int8mxu(corpus: torch.Tensor, scales: torch.Tensor,
     _check("corpus", corpus, torch.int8, corpus.shape)
     _check("scales", scales, torch.float32, (corpus.shape[0],))
     q8, qs = quantize_rows_int8(queries)
-    out = _launch("topk_scan_int8q", corpus, (qs.contiguous(), scales), ids,
-                  q8.contiguous(), k, query_dtype=torch.int8)
+    out = _launch_int8q(corpus, scales, ids, q8.contiguous(), qs.contiguous(),
+                        k)
     topk_scan_int8mxu.launches += 1
     return out
 
@@ -237,8 +244,7 @@ def topk_scan_stream(corpus: torch.Tensor, ids: torch.Tensor,
     """Alias of ``topk_scan_bf16`` (the TPU's streaming schedule)."""
     if on_cpu(corpus, ids, queries):
         return topk_plain(corpus, ids, queries, k)
-    _check("corpus", corpus, torch.bfloat16, corpus.shape)
-    out = _launch("topk_scan_bf16", corpus, (), ids, queries, k)
+    out = _flat_scan(corpus, None, ids, queries, k)
     topk_scan_stream.launches += 1
     return out
 

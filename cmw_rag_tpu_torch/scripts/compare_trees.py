@@ -1,4 +1,5 @@
-"""Time two checkouts on one card in turns: ``chip_smoke.py``'s flash-kernel,
+"""Time two checkouts on one card in turns: ``chip_smoke.py``'s flat scan
+(phase 2), shipping pipeline (phase 3), flash-kernel,
 long-context, training, int8 LLM (phase 9), w8a8 / int8-KV (phase 10),
 paged-kernel, local LLM (phase 8), IVF (phase 6) and segmented store
 (phase 7) phases of a base checkout (A) and of
@@ -7,8 +8,10 @@ checkout's root, in the order A, B, B, A, so that a drift of the card over
 the call falls on both alike.
 
     python -m cmw_rag_tpu_torch.scripts.compare_trees BASE_ROOT \\
-        [--phases flash,long_context,training,int8_llm,w8a8_kv8,paged_kernel,local_llm,ivf,segmented]
-        [--steps int8-s16,int8-kv8] [--batch] [--out FILE]
+        [--phases scan,pipeline,flash,long_context,training,int8_llm,
+                  w8a8_kv8,paged_kernel,local_llm,ivf,segmented]
+        [--steps int8-s16,int8-kv8] [--batch] [--bits] [--flat-batch]
+        [--out FILE]
 
 BASE_ROOT is another checkout of the repository (for example the parent
 commit, ``git archive <commit> chip_smoke.py cmw_rag_tpu_torch | tar -x -C
@@ -16,7 +19,10 @@ build/base``); each checkout builds its own kernels into its own
 ``build/``. A phase that fails in either checkout fails the run (its gates
 are the phase's own). Prints, per run, a line ``{"tree": "A" or "B",
 "run": i, "card": ..., "summary": {...}}`` with the readings a comparison
-reads (the flash kernel's ms per shape, the long-context stages' ms per
+reads (phase 2's scan records, with each call's scan and selection
+device times and workspace where the tree's phase gives them, and the
+shipping pipeline's queries/s, bf16 and int8; the flash kernel's ms per
+shape, the long-context stages' ms per
 query, the backward kernels' ms per shape, the training step's host and
 busy ms and its first-step gates; phase 9's slot attention, fused MLP and
 megakernel records and its profiled int8 decode step; phase 10's W8A8
@@ -40,8 +46,19 @@ tree's package (``_BATCH_CHILD``; a parent's chip_smoke.py has no such
 case): each call's device ms (CUDA events), its largest |score - plain
 twin's|, the share of ids equal to the twin's, the distinct blocks
 scanned, and the device memory a first call takes beyond what was
-allocated before it (the summary's ``ivf_batch``). The phases' own log
-lines go to stderr. Needs a card.
+allocated before it (the summary's ``ivf_batch``). ``--bits`` also
+hashes, in every run, the IVF kernels' outputs (probed and union, bf16
+and int8, ``BITS_CASES``) over a seeded blocked corpus of phase 6's shape
+(rows cut into blocks in order, tables drawn from a seed, no k-means,
+whose atomics may cluster differently run to run) through the tree's own
+package (``_BITS_CHILD``): equal hashes mean equal bits (the summary's
+``ivf_bits``). ``--flat-batch`` also times, in every run, the flat scans
+(bf16 and int8) at batches phase 2 lacks (``FLAT_CASES``) over a 1M x
+5120 corpus through the tree's own package (``_FLAT_CHILD``: CUDA
+events over 10 calls after 2; the summary's ``flat_batch``). Each of the
+three runs in a process of its own from the tree's root (``run_extra``).
+The phases' own log lines go to stderr.
+Needs a card.
 """
 
 from __future__ import annotations
@@ -53,8 +70,12 @@ import sys
 from pathlib import Path
 
 HERE = Path(__file__).resolve().parents[2]
-PHASES = ("flash", "long_context", "training", "int8_llm", "w8a8_kv8",
-          "paged_kernel", "local_llm", "ivf", "segmented")
+PHASES = ("scan", "pipeline", "flash", "long_context", "training",
+          "int8_llm", "w8a8_kv8", "paged_kernel", "local_llm", "ivf",
+          "segmented")
+#: the readings of phase 2's scan records (rows 1 to 4)
+SCAN_READINGS = ("ms", "plain_ms", "library_ms", "bound_ms", "scan_ms",
+                 "select_ms", "workspace_mib")
 #: the readings of phase 6's IVF kernel records (rows 9 to 13)
 IVF_READINGS = ("ms", "plain_ms", "library_ms", "bound_ms", "scan_ms",
                 "select_ms")
@@ -74,6 +95,14 @@ PAGED_READINGS = ("ms", "call_ms", "plain_ms", "library_ms", "bound_ms",
 
 #: the union scans' batches ``--batch`` times: (Q, k) at nprobe 64
 BATCH_CASES = ((128, 20), (256, 20), (256, 1000))
+
+#: the IVF kernels' cases ``--bits`` hashes: (route, Q, k)
+BITS_CASES = (("probed", 1, 20), ("probed", 8, 1000), ("union", 8, 20),
+              ("union", 32, 129), ("union", 100, 1000))
+
+#: the flat scans' batches ``--flat-batch`` times past phase 2's Q 8, 32
+#: and 128: (Q, k) over 1M x 5120
+FLAT_CASES = ((64, 20), (256, 20))
 
 #: decode-step configurations ``--steps`` profiles: the CLI's arguments
 STEPS = {"int8-s16": ("--weights", "int8", "--slots", "16"),
@@ -148,8 +177,95 @@ for quantize in (False, True):
             "extra_mib": extra_mib}
     del idx
     torch.cuda.empty_cache()
-print("BATCH_RESULT " + json.dumps(out), flush=True)
+print("EXTRA_RESULT " + json.dumps(out), flush=True)
 """
+
+
+_BITS_CHILD = """
+import hashlib, json, sys, torch
+sys.path.insert(0, ".")
+from cmw_rag_tpu_torch.ops import ivf_scan as V
+from cmw_rag_tpu_torch.ops.topk import quantize_rows_int8
+from cmw_rag_tpu_torch.scripts import ivf as I
+rows, ids, q, _ = I.clustered_corpus()
+n = rows.shape[0] // I.BLOCK_N * I.BLOCK_N
+rows, ids = rows[:n].contiguous(), ids[:n].contiguous()
+n_blocks = n // I.BLOCK_N
+gen = torch.Generator(device="cuda").manual_seed(5)
+c8, sc = quantize_rows_int8(rows)
+out = {}
+for route, nq, k in CASES:
+    qq = q[:nq].contiguous()
+    probes = torch.randint(0, n_blocks, (nq, I.NPROBE), generator=gen,
+                           device="cuda", dtype=torch.int32)
+    for int8 in (False, True):
+        extra = (c8, sc) if int8 else (rows,)
+        name = f"ivf_{route}_scan" + ("_int8" if int8 else "")
+        if route == "union":
+            blocks = torch.unique(probes.reshape(-1)).to(torch.int32)
+            nu = torch.tensor([blocks.numel()], dtype=torch.int32,
+                              device="cuda")
+            got = getattr(V, name)(*extra, ids, qq, blocks, k, I.BLOCK_N, nu)
+        else:
+            got = getattr(V, name)(*extra, ids, qq, probes, k, I.BLOCK_N)
+        h = hashlib.sha256()
+        for t in got:
+            h.update(t.cpu().numpy().tobytes())
+        out[f"{name}/q{nq}k{k}"] = h.hexdigest()[:16]
+print("EXTRA_RESULT " + json.dumps(out), flush=True)
+"""
+
+
+_FLAT_CHILD = """
+import json, sys, torch
+sys.path.insert(0, ".")
+from cmw_rag_tpu_torch.ops import topk as T
+from cmw_rag_tpu_torch.scripts.shipping import (DIM, N_ROWS, fill_unit_rows,
+                                                quantize_slices)
+gen = torch.Generator(device="cuda").manual_seed(11)
+corpus = fill_unit_rows(N_ROWS, DIM, gen)
+ids = torch.arange(N_ROWS, dtype=torch.int32, device="cuda")
+q = fill_unit_rows(max(nq for nq, _ in CASES), DIM, gen)
+c8, sc = quantize_slices(corpus)
+out = {}
+for nq, k in CASES:
+    qq = q[:nq].contiguous()
+    for name, call in (
+            ("topk_scan_bf16", lambda: T.topk_scan_bf16(corpus, ids, qq, k)),
+            ("topk_scan_int8", lambda: T.topk_scan_int8(c8, sc, ids, qq, k))):
+        for _ in range(2):
+            call()
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        a.record()
+        for _ in range(10):
+            call()
+        b.record()
+        torch.cuda.synchronize()
+        out[f"{name}/q{nq}k{k}"] = {"ms": a.elapsed_time(b) / 10}
+print("EXTRA_RESULT " + json.dumps(out), flush=True)
+"""
+
+
+#: what ``--batch``, ``--bits`` and ``--flat-batch`` add to a run: its key
+#: in the summary → (the cases, the child program that takes them)
+EXTRAS = {"ivf_batch": (BATCH_CASES, _BATCH_CHILD),
+          "ivf_bits": (BITS_CASES, _BITS_CHILD),
+          "flat_batch": (FLAT_CASES, _FLAT_CHILD)}
+
+
+def run_extra(root: Path, name: str) -> dict:
+    """The child program of ``EXTRAS[name]`` over its cases and ``root``'s
+    package, in a process started from ``root``; → its result."""
+    cases, child = EXTRAS[name]
+    proc = subprocess.run([sys.executable, "-c", f"CASES = {cases!r}\n"
+                           + child], cwd=root, capture_output=True, text=True)
+    if proc.returncode != 0:
+        sys.stderr.write(proc.stdout[-2000:] + proc.stderr[-4000:])
+        raise RuntimeError(f"{root}: {name} failed ({proc.returncode})")
+    for line in proc.stdout.splitlines():
+        if line.startswith("EXTRA_RESULT "):
+            return json.loads(line[len("EXTRA_RESULT "):])
+    raise RuntimeError(f"{root}: no {name} result line")
 
 
 def run_tree(root: Path, phases: list[str]) -> dict:
@@ -165,21 +281,6 @@ def run_tree(root: Path, phases: list[str]) -> dict:
         if line.startswith("COMPARE_RESULT "):
             return json.loads(line[len("COMPARE_RESULT "):])
     raise RuntimeError(f"{root}: no result line")
-
-
-def run_batch(root: Path) -> dict:
-    """The union scans at ``BATCH_CASES`` over ``root``'s package, in a
-    process started from ``root``; → {"name/qQkK": readings}."""
-    code = f"CASES = {BATCH_CASES!r}\n" + _BATCH_CHILD
-    proc = subprocess.run([sys.executable, "-c", code], cwd=root,
-                          capture_output=True, text=True)
-    if proc.returncode != 0:
-        sys.stderr.write(proc.stdout[-2000:] + proc.stderr[-4000:])
-        raise RuntimeError(f"{root}: batch cases failed ({proc.returncode})")
-    for line in proc.stdout.splitlines():
-        if line.startswith("BATCH_RESULT "):
-            return json.loads(line[len("BATCH_RESULT "):])
-    raise RuntimeError(f"{root}: no batch result line")
 
 
 def run_step(root: Path, name: str) -> dict:
@@ -200,6 +301,14 @@ def run_step(root: Path, name: str) -> dict:
 def summary(phases: dict) -> dict:
     """The readings a comparison of two trees reads, from one run."""
     out = {}
+    scan = phases.get("scan")
+    if scan:
+        out["scan_kernels"] = {case: {k: r[k] for k in SCAN_READINGS
+                                      if k in r}
+                               for case, r in scan.items()}
+    pipe = phases.get("pipeline")
+    if pipe:
+        out["pipeline_qps"] = pipe["qps"]
     flash = phases.get("flash")
     if flash:
         out["flash_ms"] = {case: r["ms"] for case, r in flash.items()}
@@ -269,6 +378,10 @@ def main(argv=None) -> int:
                     + ",".join(STEPS))
     ap.add_argument("--batch", action="store_true",
                     help="also time the IVF union scans at BATCH_CASES")
+    ap.add_argument("--bits", action="store_true",
+                    help="also hash the IVF kernels' outputs at BITS_CASES")
+    ap.add_argument("--flat-batch", action="store_true",
+                    help="also time the flat scans at FLAT_CASES")
     ap.add_argument("--out", type=Path, default=None,
                     help="also write every run's result here as JSON lines")
     args = ap.parse_args(argv)
@@ -281,25 +394,28 @@ def main(argv=None) -> int:
         if s not in STEPS:
             ap.error(f"unknown step {s}")
     trees = {"A": args.base.resolve(), "B": HERE}
+    extras = [name for name, on in (("ivf_batch", args.batch),
+                                    ("ivf_bits", args.bits),
+                                    ("flat_batch", args.flat_batch)) if on]
     runs = []
     for i, tree in enumerate("ABBA"):
         res = (run_tree(trees[tree], phases) if phases
                else {"card": None, "phases": {}})
         res["steps"] = {s: run_step(trees[tree], s) for s in steps}
-        if args.batch:
-            res["ivf_batch"] = run_batch(trees[tree])
+        res.update({name: run_extra(trees[tree], name) for name in extras})
         row = {"tree": tree, "run": i, "root": str(trees[tree]), **res}
         runs.append(row)
         print(json.dumps({"tree": tree, "run": i, "card": res["card"],
                           "summary": summary(res["phases"]),
                           "steps": res["steps"],
-                          "ivf_batch": res.get("ivf_batch")}), flush=True)
+                          **{name: res.get(name) for name in EXTRAS}}),
+              flush=True)
     if args.out:
         args.out.write_text("".join(json.dumps(r) + "\n" for r in runs))
     print(json.dumps({"summary": [{"tree": r["tree"], "run": r["run"],
                                    **summary(r["phases"]),
                                    "steps": r["steps"],
-                                   "ivf_batch": r.get("ivf_batch")}
+                                   **{name: r.get(name) for name in EXTRAS}}
                                   for r in runs]}),
           flush=True)
     return 0

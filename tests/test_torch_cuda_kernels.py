@@ -102,27 +102,159 @@ def _same_ranking(got, want):
 
 @pytest.mark.parametrize("int8", [False, True])
 @pytest.mark.parametrize("k", [1, 20, 129, 1000, 3000, 5000])
-def test_scan_kernels_match_plain_twins(card, int8, k):
-    """Any k, up to and past N = 3000 rows (10% tombstones)."""
-    c = torch.from_numpy(_unit(3000, 64, 1)).to(card).bfloat16()
-    q = torch.from_numpy(_unit(5, 64, 2)).to(card).bfloat16()
-    ids = torch.arange(3000, dtype=torch.int32, device=card)
-    ids[torch.from_numpy(np.random.default_rng(3).choice(3000, 300, False))
+@pytest.mark.parametrize("nq,n,d", [(5, 3000, 64), (33, 3000, 64),
+                                    (100, 3000, 64), (200, 3000, 64),
+                                    (32, 3000, 5120), (130, 3000, 5120),
+                                    (8, 2817, 5120)])
+def test_scan_kernels_match_plain_twins(card, int8, k, nq, n, d):
+    """Any k, up to and past N rows (10% tombstones; N off the 256-row
+    tile); 33, 100, 130 and 200 queries take groups of 64 in chunks of
+    128 (130 and 200 two chunks); at D 5120 32 and 130 queries ride in the
+    ring's stages, 8 stay resident.
+    Rows 17, 1234 and 2500 are one vector and query 0 is it: the tie comes
+    out in id order. A second launch gives the same bits."""
+    c = torch.from_numpy(_unit(n, d, 1)).to(card).bfloat16()
+    c[[17, 2500]] = c[1234].clone()
+    q = torch.from_numpy(_unit(nq, d, 2)).to(card).bfloat16()
+    q[0] = c[1234]
+    ids = torch.arange(n, dtype=torch.int32, device=card)
+    ids[torch.from_numpy(np.random.default_rng(3).choice(n, n // 10, False))
         .to(card)] = -1
+    ids[[17, 1234, 2500]] = torch.tensor([17, 1234, 2500], dtype=torch.int32,
+                                         device=card)
     before = (T.topk_scan_bf16.launches, T.topk_scan_int8.launches)
     if int8:
         c8, sc = T.quantize_rows_int8(c)
-        got = T.topk_scan_int8(c8, sc, ids, q, k)
+        call = lambda: T.topk_scan_int8(c8, sc, ids, q, k)  # noqa: E731
         want = T.topk_plain_int8(c8, sc, ids, q, k)
     else:
-        got = T.topk_scan_bf16(c, ids, q, k)
+        call = lambda: T.topk_scan_bf16(c, ids, q, k)  # noqa: E731
         want = T.topk_plain(c, ids, q, k)
+    got = call()
     torch.cuda.synchronize()
-    assert got[1].shape == (5, k)
-    _same_ranking(got, want)
-    assert (got[1][:, 2700:] == -1).all()
     after = (T.topk_scan_bf16.launches, T.topk_scan_int8.launches)
     assert after[int(int8)] == before[int(int8)] + 1
+    assert got[1].shape == (nq, k)
+    _same_ranking(got, want)
+    live = int((ids >= 0).sum())
+    assert (got[1][:, live:] == -1).all()
+    assert (got[0][:, live:] == T.NEG_INF).all()
+    assert got[1][0, :min(k, 3)].tolist() == [17, 1234, 2500][:k]
+    again = call()
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])
+
+
+def test_flat_scan_on_two_streams_and_shifting_batches(card):
+    """Calls of 100, 8, 200 and 40 queries (wide and narrow groups, one and
+    two chunks) over corpora of two sizes, in turn on two streams, each
+    with its own workspace, give what the default stream gives, bit for
+    bit."""
+    corpora = [torch.from_numpy(_unit(n, 64, 30 + n)).to(card).bfloat16()
+               for n in (3000, 70_000)]
+    q = torch.from_numpy(_unit(200, 64, 31)).to(card).bfloat16()
+    calls = [(c, q[:nq].contiguous(), k) for c in corpora
+             for nq, k in ((100, 20), (8, 300), (200, 5), (40, 129))]
+
+    def run(c, qq, k):
+        return T.topk_scan_bf16(c, torch.arange(c.shape[0], dtype=torch.int32,
+                                                device=card), qq, k)
+
+    want = [run(*x) for x in calls]
+    torch.cuda.synchronize()
+    streams = [torch.cuda.Stream(card), torch.cuda.Stream(card)]
+    got = []
+    for rep in range(2):
+        for i, x in enumerate(calls):
+            with torch.cuda.stream(streams[(i + rep) % 2]):
+                got.append((i, run(*x)))
+    torch.cuda.synchronize()
+    for i, g in got:
+        assert torch.equal(g[0], want[i][0]) and torch.equal(g[1], want[i][1])
+
+
+@pytest.mark.parametrize("int8", [False, True])
+def test_flat_scan_in_budgeted_chunks_is_bit_for_bit(card, monkeypatch, int8):
+    """Where the memory budget cuts the chunk (1 to 64 queries, the group
+    narrowed with it), 100 queries over a ragged corpus give what the full
+    chunk gives, bit for bit, launching one scan and one selection a
+    chunk."""
+    from cmw_rag_tpu_torch.ops import ivf_scan as V
+
+    n, d, nq, k = 5000, 128, 100, 129
+    c = torch.from_numpy(_unit(n, d, 41)).to(card).bfloat16()
+    q = torch.from_numpy(_unit(nq, d, 42)).to(card).bfloat16()
+    ids = torch.arange(n, dtype=torch.int32, device=card)
+    ids[::7] = -1
+    c8, sc = T.quantize_rows_int8(c)
+
+    def run():
+        if int8:
+            return T.topk_scan_int8(c8, sc, ids, q, k)
+        return T.topk_scan_bf16(c, ids, q, k)
+
+    want = run()
+    sizes = V.flat_launch_sizes
+    for chunk in (1, 8, 16, 32, 64):
+        z = V.flat_sizes(nq, n, k, 132)
+        budget = 4 * (z["floats"] + z["words"]) * chunk // z["chunk"] + 4
+        monkeypatch.setattr(V, "flat_launch_sizes", lambda dev, st, nq_, n_,
+                            k_, b=budget: V.flat_sizes(
+                                nq_, n_, k_, torch.cuda.get_device_properties(
+                                    dev).multi_processor_count, b))
+        assert V.flat_launch_sizes(c.device, 0, nq, n, k)["chunk"] == chunk
+        got = run()
+        torch.cuda.synchronize()
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    monkeypatch.setattr(V, "flat_launch_sizes", sizes)
+
+
+def test_flat_scan_from_two_threads_on_one_stream(card):
+    """Two host threads searching on the default stream at once, each over
+    its own corpus with the stream's one workspace, each get what a call
+    alone gives (their scan and selection launches never interleave)."""
+    import threading
+
+    corpora = [torch.from_numpy(_unit(40_000, 64, 50 + i)).to(card).bfloat16()
+               for i in range(2)]
+    ids = torch.arange(40_000, dtype=torch.int32, device=card)
+    q = torch.from_numpy(_unit(64, 64, 52)).to(card).bfloat16()
+    want = [T.topk_scan_bf16(c, ids, q, 50) for c in corpora]
+    torch.cuda.synchronize()
+    got = [[], []]
+
+    def search(i):
+        for _ in range(30):
+            got[i].append(T.topk_scan_bf16(corpora[i], ids, q, 50))
+
+    ts = [threading.Thread(target=search, args=(i,)) for i in range(2)]
+    for t in ts:
+        t.start()
+    for t in ts:
+        t.join()
+    torch.cuda.synchronize()
+    for i in range(2):
+        for g in got[i]:
+            assert torch.equal(g[0], want[i][0]) and torch.equal(g[1],
+                                                                 want[i][1])
+
+
+def test_flat_scan_refuses_what_the_kernel_does_not_take(card):
+    """An int8 corpus needs D a multiple of 16 (its TMA boxes), a bf16 one
+    a multiple of 8; dtypes and shapes as the wrappers state."""
+    c = torch.from_numpy(_unit(300, 72, 1)).to(card).bfloat16()
+    q = torch.from_numpy(_unit(4, 72, 2)).to(card).bfloat16()
+    ids = torch.arange(300, dtype=torch.int32, device=card)
+    T.topk_scan_bf16(c, ids, q, 5)
+    c8, sc = T.quantize_rows_int8(c)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        T.topk_scan_int8(c8, sc, ids, q, 5)
+    with pytest.raises(TypeError):
+        T.topk_scan_bf16(c.float(), ids, q, 5)
+    with pytest.raises(ValueError, match="shape"):
+        T.topk_scan_bf16(c, ids[:100], q, 5)
+    with pytest.raises(ValueError, match="at least 1"):
+        T.topk_scan_bf16(c, ids, q, 0)
 
 
 def _flash_masks(b, L, card):
@@ -514,7 +646,8 @@ def test_ivf_kernels_at_blocks_of_200_rows(card, int8, union):
 def test_ivf_scan_builds_without_spills(card):
     """ptxas (``scripts/kernel_resources.py``) reports no spill stores or
     loads and no stack for any instance of the scan (bf16 and int8 rows,
-    one to four n8 query tiles) or for the selection."""
+    one to four n8 query tiles, and eight, the flat scan's group past 32
+    queries) or for the selection."""
     from pathlib import Path
 
     from cmw_rag_tpu_torch.scripts import kernel_resources as KR
@@ -523,7 +656,7 @@ def test_ivf_scan_builds_without_spills(card):
                                    "ivf_scan")
     scan = [k for k in kernels if "ivf_scan_kernel" in k["kernel"]]
     select = [k for k in kernels if "select_kernel" in k["kernel"]]
-    assert len(scan) == 6 and len(select) == 1, [k["kernel"] for k in kernels]
+    assert len(scan) == 8 and len(select) == 1, [k["kernel"] for k in kernels]
     for k in scan + select:
         assert (k["spill_stores"], k["spill_loads"], k["stack"]) \
             == (0, 0, 0), k
