@@ -151,10 +151,13 @@ Phases, each printed with its seconds beside the card's name and power limit:
 9. local-llm-int8 - the same engine with int8 weights (the reference's
    ``local_llm_weights = "int8"``). The four int8-path kernels against their
    plain twins over 28 layers' weights read in turn: ``int8_matmul`` at
-   (4, 1024, 4096) and (16, 1024, 4096) bf16 and the head (4, 1024,
-   151,680) float32, within one bf16 step plus ``INT8_MM_TOL`` of the
-   largest output; slot-major attention at 4 slots with caps 2 and 6 and
-   at 16 slots, as the paged kernel; the fused MLP at 4 and 16 slots and
+   (4, 1024, 4096) and (16, 1024, 4096) bf16 and the head (4 and 16,
+   1024, 151,680) float32, within one bf16 step plus ``INT8_MM_TOL`` of
+   the largest output, bit for bit on a second call, one kernel a call (a
+   complete profiler window of 56 calls, its device time the whole
+   call's; these records in a process of their own); slot-major
+   attention at 4 slots with caps 2 and 6 and at 16 slots, as the paged
+   kernel; the fused MLP at 4 and 16 slots and
    the decoder-layer megakernel at 4 slots on its slot-major route and on
    its paged route (one slot of 2,047 positions), within one bf16 step plus
    ``INT8_LAYER_TOL`` of the largest output, the megakernel's written pool
@@ -297,8 +300,9 @@ LLM_GAP = 2 * LLM_DRIFT
 # stay under this; their ids may still swap only under LLM_GAP
 W8A8_FLOOR_MAX = LLM_GAP
 # int8_matmul against its twin: one bf16 step where the output is bf16, plus
-# this share of the largest |output| (float32 sums of at most 3,072 exact
-# products in another order)
+# this share of the largest |output| (the tensor cores' truncating sums of
+# at most 3,072 exact products, in another order: a few 1e-7 of it on the
+# model of tests/tensor_core_model.py)
 INT8_MM_TOL = 1e-5
 # the fused MLP and the megakernel against their twins (outputs and the
 # megakernel's written K/V rows): one bf16 step plus this share of the
@@ -2430,6 +2434,79 @@ def split_bounds_phase(layers, card_line: str) -> dict:
     return out
 
 
+#: phase 9's int8_matmul records: (case, rows, output columns, x's dtype)
+#: at qwen3guard-0.6b's width (K 1024): the fused QKV on the unfused routes
+#: and the LM head on every int8 step, at 4 and 16 slots
+INT8_MM_CASES = (("qkv-s4", 4, 4096, "bfloat16"),
+                 ("qkv-s16", 16, 4096, "bfloat16"),
+                 ("head-s4", 4, 151680, "float32"),
+                 ("head-s16", 16, 151680, "float32"))
+
+
+def int8_matmul_records(card_line: str) -> dict:
+    """``int8_matmul`` against its twin at ``INT8_MM_CASES`` (the QKV over
+    28 layers' weights read in turn), within one bf16 step plus
+    ``INT8_MM_TOL`` of the largest output, and bit for bit on a second
+    call; each call one kernel launch (a complete profiler window of 56
+    calls holds 56 ``int8_matmul_kernel`` kernels and nothing else), the
+    whole call's device time read off that window, its twin, the library
+    yardstick (``library_mm``), the bound and the host plan (splits, ring,
+    grid). → {case: record}."""
+    import torch
+    from cmw_rag_tpu_torch.device import sm_count
+    from cmw_rag_tpu_torch.ops import int8_matmul as IM
+    from cmw_rag_tpu_torch.ops import weight_phases as WP
+
+    n_layers, d = 28, 1024
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    t0 = time.time()
+    layers = int8_layers(n_layers, gen)
+    head_q, head_s = IM.quantize_weight(
+        torch.randn((d, 151680), generator=gen, device="cuda") * 0.02)
+    log("int8-matmul-setup", time.time() - t0, card_line, layers=n_layers)
+    report = {}
+    for case, m, n, dtype in INT8_MM_CASES:
+        t1 = time.time()
+        xdt = getattr(torch, dtype)
+        x = torch.randn((m, d), generator=gen, device="cuda").to(xdt)
+        ws = ([(head_q, head_s)] if case.startswith("head") else
+              [(lay["wqkv_q"], lay["wqkv_s"]) for lay in layers])
+        got, want = IM.int8_matmul(x, *ws[0]), IM.int8_matmul_plain(x, *ws[0])
+        again = IM.int8_matmul(x, *ws[0])
+        torch.cuda.synchronize()
+        entry = held(got, want, INT8_MM_TOL, f"int8_matmul {case}")
+        if not torch.equal(got, again):
+            raise AssertionError(f"int8_matmul {case}: two calls differ")
+        kern = cycling(lambda i: IM.int8_matmul(x, *ws[i]), len(ws))
+        ms, seen, dropped = device_profile(kern, 56, "int8_matmul_kernel")
+        others = sorted({e for e in seen if "int8_matmul_kernel" not in e})
+        if len(seen) != 56 or others:
+            raise AssertionError(f"int8_matmul {case}: {len(seen) / 56} "
+                                 f"kernels a call, others {others}")
+        plan = WP.matmul_plan(m, d, n, IM._grid(x.device, WP.layer_tile(m),
+                                                xdt == torch.float32),
+                              sm_count(x.device))
+        xb = x.element_size()
+        entry.update({
+            "bit_equal_launches": True, "kernels_per_call": len(seen) / 56,
+            "dropped_windows": dropped, "ms": ms,
+            "split": plan.products[1].ks, "ring": plan.ring,
+            "grid_blocks": plan.grid,
+            "plain_ms": device_ms(cycling(
+                lambda i: IM.int8_matmul_plain(x, *ws[i]), len(ws)), 5),
+            "library_ms": device_ms(cycling(
+                lambda i: library_mm(x, *ws[i]), len(ws)), 5),
+            "call_ms": cuda_ms(kern, 56),
+            **bound(d * n + 4 * n + m * d * xb + m * n * xb,
+                    2.0 * m * d * n)})
+        entry["bound_share"] = entry["bound_ms"] / ms
+        log(f"kernel-int8_matmul-{case}", time.time() - t1, card_line,
+            **fmt(entry))
+        report[case] = dict(entry, shape={"M": m, "K": d, "N": n,
+                                          "x": str(xdt)})
+    return report
+
+
 def int8_kernel_phase(card_line: str) -> dict:
     """Hold the four int8-path kernels against their plain twins at the
     main path's shapes (qwen3guard-0.6b, 28 layers' weights read in turn so
@@ -2439,7 +2516,6 @@ def int8_kernel_phase(card_line: str) -> dict:
     import torch
     from cmw_rag_tpu_torch.ops import decoder_layer as DL
     from cmw_rag_tpu_torch.ops import fused_mlp as FM
-    from cmw_rag_tpu_torch.ops import int8_matmul as IM
     from cmw_rag_tpu_torch.ops import paged_attention as PA
 
     n_layers, d, hq, hkv, dh, f, page, maxp = 28, 1024, 16, 8, 128, 3072, 64, 32
@@ -2447,8 +2523,6 @@ def int8_kernel_phase(card_line: str) -> dict:
     gen = torch.Generator(device="cuda").manual_seed(9)
     t0 = time.time()
     layers = int8_layers(n_layers, gen)
-    head_q, head_s = IM.quantize_weight(
-        torch.randn((d, 151680), generator=gen, device="cuda") * 0.02)
     log("int8-setup", time.time() - t0, card_line, layers=n_layers)
     w_bytes = d * a3 + a * d + d * 2 * f + f * d
     report = {}
@@ -2466,24 +2540,11 @@ def int8_kernel_phase(card_line: str) -> dict:
             **fmt(entry))
         report[(name, case)] = dict(entry, shape=shape)
 
-    # int8_matmul: the fused QKV at 4 and 16 slots, the head at 4 slots
-    for case, m, n, xdt in (("qkv-s4", 4, a3, torch.bfloat16),
-                            ("head-s4", 4, 151680, torch.float32),
-                            ("qkv-s16", 16, a3, torch.bfloat16)):
-        x = torch.randn((m, d), generator=gen, device="cuda").to(xdt)
-        if case.startswith("head"):
-            ws = [(head_q, head_s)]
-        else:
-            ws = [(lay["wqkv_q"], lay["wqkv_s"]) for lay in layers]
-        kern = cycling(lambda i: IM.int8_matmul(x, *ws[i]), len(ws))
-        plain = cycling(lambda i: IM.int8_matmul_plain(x, *ws[i]), len(ws))
-        lib = cycling(lambda i: library_mm(x, *ws[i]), len(ws))
-        got, want = IM.int8_matmul(x, *ws[0]), IM.int8_matmul_plain(x, *ws[0])
-        torch.cuda.synchronize()
-        xb = x.element_size()
-        record("int8_matmul", case, kern, plain, lib, got, want, INT8_MM_TOL,
-               d * n + 4 * n + m * d * xb + m * n * xb, 2.0 * m * d * n,
-               {"M": m, "K": d, "N": n, "x": str(xdt)})
+    # int8_matmul: the fused QKV and the head at 4 and 16 slots, in a
+    # process of its own (``int8_matmul_records``)
+    for case, entry in timings_child(card_line, "int8_matmul_records",
+                                     card_line).items():
+        report[("int8_matmul", case)] = entry
 
     # slot attention: 4 slots at caps 2 and 6, 16 slots at cap 6, one idle
     for case, s, lens in (("s4-cap2", 4, [1, 64, 128]),
@@ -2625,7 +2686,7 @@ def int8_kernel_phase(card_line: str) -> dict:
         del c, kp, vp, k0, v0, k_got, v_got
         torch.cuda.empty_cache()
     report["split_bounds"] = split_bounds_phase(layers, card_line)
-    del layers, head_q, head_s
+    del layers
     torch.cuda.empty_cache()
     return report
 
@@ -2917,34 +2978,9 @@ def w8a8_matmul_records(card_line: str) -> dict:
     return report
 
 
-def w8a8_matmul_child(card_line: str) -> dict:
-    """``w8a8_matmul_records`` in a process of its own, started from this
-    file's directory, its log lines passed on: late in one long process
-    the profiler drops kernel records (after sessions that also traced the
-    host, PERF.md §7), and these windows must be complete."""
-    import subprocess
-
-    code = ("import json, sys\nsys.path.insert(0, '.')\n"
-            "import chip_smoke as c\n"
-            f"r = c.w8a8_matmul_records({card_line!r})\n"
-            "print('W8A8_RECORDS ' + json.dumps(r), flush=True)\n")
-    proc = subprocess.run([sys.executable, "-c", code],
-                          cwd=Path(__file__).resolve().parent,
-                          capture_output=True, text=True)
-    result = None
-    for line in proc.stdout.splitlines():
-        if line.startswith("W8A8_RECORDS "):
-            result = json.loads(line[len("W8A8_RECORDS "):])
-        else:
-            print(line, flush=True)
-    if proc.returncode != 0 or result is None:
-        sys.stderr.write(proc.stderr[-4000:])
-        raise AssertionError(f"the W8A8 records failed ({proc.returncode})")
-    return result
-
-
 def w8a8_kv8_kernel_phase(card_line: str) -> dict:
-    """Hold the W8A8 matmul (``w8a8_matmul_child``), the int8-KV megakernel
+    """Hold the W8A8 matmul (``w8a8_matmul_records``, in a process of its
+    own), the int8-KV megakernel
     and the batched attention alias against their twins at the main path's
     shapes (28 layers' weights read in turn); time each, its twin and a
     yardstick."""
@@ -2971,8 +3007,9 @@ def w8a8_kv8_kernel_phase(card_line: str) -> dict:
             **fmt(entry))
         report[(name, case)] = dict(entry, shape=shape)
 
-    # W8A8: in a process of its own (``w8a8_matmul_child``)
-    for case, entry in w8a8_matmul_child(card_line).items():
+    # W8A8: in a process of its own (``w8a8_matmul_records``)
+    for case, entry in timings_child(card_line, "w8a8_matmul_records",
+                                     card_line).items():
         report[("int8_matmul_w8a8", case)] = entry
 
     # the int8-KV megakernel at 4 slots, one idle slot; its device times
@@ -3850,7 +3887,7 @@ def main() -> int:
         if name in PAGED_ALIASES:
             row["also_replaces"] = PAGED_ALIASES[name]
         rows.append(row)
-    int8_cases = {"int8_matmul": ("qkv-s4", "head-s4", "qkv-s16"),
+    int8_cases = {"int8_matmul": tuple(c for c, _, _, _ in INT8_MM_CASES),
                   "paged_decode_attention_dma_slot": ("s4-cap6", "s4-cap2",
                                                       "s16-cap6"),
                   "fused_mlp_int8": ("s4", "s16", "s32"),
@@ -3873,7 +3910,8 @@ def main() -> int:
         split_keys = ("split", "n_split", "items", "live_items",
                       "grid_blocks", "ms_by_split", "bit_equal_launches",
                       "noattn_ms", "row_tile", "ring", "splits", "merges",
-                      "block_stages", "grid_waits")
+                      "block_stages", "grid_waits", "call_ms", "bound_share",
+                      "kernels_per_call")
         row.update({k: main_case[k] for k in split_keys if k in main_case})
         for case in cases[1:]:
             entry = int8["kernels"][(name, case)]

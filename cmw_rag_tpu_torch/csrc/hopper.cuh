@@ -23,6 +23,14 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
+// `raw` (dynamic shared memory) advanced to the next multiple of 1024 bytes
+// (the 128-byte swizzle's period) by pointer arithmetic, so that the
+// compiler still knows the result for shared memory and its loads stay
+// LDS (through an integer cast they become generic 64-bit loads).
+__device__ __forceinline__ unsigned char* align1024(unsigned char* raw) {
+  return raw + ((1024u - (smem_u32(raw) & 1023u)) & 1023u);
+}
+
 // ------------------------------------------------------------ mbarriers
 
 __device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {

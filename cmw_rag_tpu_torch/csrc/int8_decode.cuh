@@ -1,26 +1,9 @@
 // Device code shared by the int8-weight decode kernels for Hopper (sm_90a):
-// csrc/int8_matmul.cu and csrc/slot_attention.cu include it, and the fused
+// csrc/slot_attention.cu includes it, and csrc/int8_matmul.cu, the fused
 // MLP and the decoder-layer megakernels through csrc/weight_phases.cuh; the
-// build hashes it with each (ops/cuda_build.py).
-//
-// Two building blocks:
-//
-// int8_tile - one block computes a [MT rows, kBN columns] tile of
-//   act [M, K] @ w_int8 [K, N] over a contiguous range of the contraction,
-//   float32 sums, before the column scale. Weight rows stream through a
-//   kStages-deep cp.async ring in shared memory (kBK rows x kBN bytes a
-//   stage, 16-byte copies, coalesced along N); activations come from a
-//   caller-supplied loader that returns each element already rounded to bf16
-//   (the TPU kernels' MXU operand), so norms, casts and the SiLU product are
-//   computed as they are loaded and need no buffer of their own. 256 threads:
-//   16 across the columns (4 each) times 16 row subsets; the subsets' sums
-//   meet in shared memory at the end, in a fixed order, so results repeat
-//   bit for bit. Decode products have M <= 32 rows and are bound by the
-//   weight bytes (an int8 weight is used M times, far under the ~295
-//   operations a byte where the card turns compute-bound), so the tile's
-//   aim is bytes in flight: 12 KB a block in the ring, several blocks a SM.
-//   int8 -> float conversion and float32 FMAs on the CUDA cores; wgmma and
-//   TMA are later work.
+// build hashes it with each (ops/cuda_build.py). It holds the block shape
+// of 256 threads, the float <-> bf16 helpers, the warp reductions and one
+// building block (the int8 weight products are weight_phases.cuh's):
 //
 // attend_split - decode attention for one (slot, KV head) cut over
 //   positions (flash-decoding): a work item is split j of the slot's
@@ -64,17 +47,9 @@ namespace i8d {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kBN = 64;                       // tile columns
-constexpr int kColGroups = kBN / 4;           // threads across the columns
-constexpr int kKSub = kThreads / kColGroups;  // row subsets
-constexpr int kBK = 64;                       // weight rows a stage
-constexpr int kStages = 4;
-constexpr int kWBytes = kStages * kBK * kBN;  // 16 KB weight ring
 constexpr int kMaxRep = 8;                    // query heads a KV head
 constexpr int kMaxSplit = 128;                // positions of a split, at most
 constexpr int kMaxRows = 256;                 // activation rows (norm scratch)
-
-static_assert(kKSub * 4 * kBN * 4 == kWBytes, "reduction reuses the ring");
 
 __device__ __forceinline__ float bf16r(float v) {
   return __bfloat162float(__float2bfloat16(v));
@@ -89,19 +64,6 @@ __device__ __forceinline__ void from_f(float v, __nv_bfloat16* dst) {
   *dst = __float2bfloat16(v);
 }
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
-               "l"(gmem));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
@@ -113,110 +75,6 @@ __device__ __forceinline__ float warp_max(float v) {
   for (int o = 16; o > 0; o >>= 1)
     v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
   return v;
-}
-
-// Shared-memory bytes of int8_tile<MT>.
-__host__ __device__ constexpr int tile_smem(int mt) {
-  return kWBytes + kStages * kBK * mt * 4;
-}
-
-// Sums over k in [k0, k1) (a multiple of kBK) of act(m, k) * w[k, n] for
-// rows m0 <= m < min(m0 + MT, m_rows) and columns col0 <= n < col0 + kBN,
-// n < n_cols (n_cols a multiple of 16); calls epi(m, n, sum) for each.
-// load(m, k) returns the bf16-rounded activation. Uses tile_smem(MT) bytes
-// of smem; every thread of the block must call it.
-template <int MT, class Load, class Epi>
-__device__ void int8_tile(const int8_t* w, int n_cols, int col0, int k0,
-                          int k1, int m0, int m_rows, const Load& load,
-                          const Epi& epi, unsigned char* smem) {
-  static_assert(MT % 4 == 0, "MT is a multiple of 4");
-  int8_t* w_s = reinterpret_cast<int8_t*>(smem);
-  float* x_s = reinterpret_cast<float*>(smem + kWBytes);
-  const int tid = threadIdx.x;
-  const int colg = tid % kColGroups, sub = tid / kColGroups;
-  const int n_iter = (k1 - k0) / kBK;
-
-  auto issue = [&](int it) {
-    const int stage = it % kStages;
-    const int kb = k0 + it * kBK;
-    for (int c = tid; c < kBK * kBN / 16; c += kThreads) {
-      const int r = c / (kBN / 16), cc = (c % (kBN / 16)) * 16;
-      int8_t* dst = w_s + (stage * kBK + r) * kBN + cc;
-      if (col0 + cc < n_cols)
-        cp_async16(dst, w + static_cast<int64_t>(kb + r) * n_cols + col0 + cc);
-      else
-        *reinterpret_cast<uint4*>(dst) = make_uint4(0u, 0u, 0u, 0u);
-    }
-    for (int e = tid; e < kBK * MT; e += kThreads) {
-      const int r = e / MT, m = e % MT;
-      x_s[(stage * kBK + r) * MT + m] =
-          m0 + m < m_rows ? load(m0 + m, kb + r) : 0.f;
-    }
-  };
-
-  float acc[MT][4];
-#pragma unroll
-  for (int m = 0; m < MT; ++m)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[m][j] = 0.f;
-
-#pragma unroll
-  for (int st = 0; st < kStages - 1; ++st) {
-    if (st < n_iter) issue(st);
-    cp_async_commit();
-  }
-  for (int it = 0; it < n_iter; ++it) {
-    cp_async_wait<kStages - 2>();
-    __syncthreads();  // stage it landed; everyone finished stage it - 1
-    if (it + kStages - 1 < n_iter) issue(it + kStages - 1);
-    cp_async_commit();
-    const int stage = it % kStages;
-    const int8_t* ws = w_s + stage * kBK * kBN;
-    const float* xs = x_s + stage * kBK * MT;
-#pragma unroll
-    for (int r = sub; r < kBK; r += kKSub) {
-      const int wv = *reinterpret_cast<const int*>(ws + r * kBN + colg * 4);
-      float wf[4];
-      wf[0] = static_cast<float>(static_cast<int8_t>(wv));
-      wf[1] = static_cast<float>(static_cast<int8_t>(wv >> 8));
-      wf[2] = static_cast<float>(static_cast<int8_t>(wv >> 16));
-      wf[3] = static_cast<float>(static_cast<int8_t>(wv >> 24));
-#pragma unroll
-      for (int m = 0; m < MT; m += 4) {
-        const float4 xv = *reinterpret_cast<const float4*>(xs + r * MT + m);
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          acc[m][j] = fmaf(xv.x, wf[j], acc[m][j]);
-          acc[m + 1][j] = fmaf(xv.y, wf[j], acc[m + 1][j]);
-          acc[m + 2][j] = fmaf(xv.z, wf[j], acc[m + 2][j]);
-          acc[m + 3][j] = fmaf(xv.w, wf[j], acc[m + 3][j]);
-        }
-      }
-    }
-  }
-  cp_async_wait<0>();
-  __syncthreads();
-
-  // the 16 row subsets meet in the (now idle) weight ring, 4 rows at a time
-  float* red = reinterpret_cast<float*>(smem);
-#pragma unroll
-  for (int mc = 0; mc < MT; mc += 4) {
-#pragma unroll
-    for (int mm = 0; mm < 4; ++mm)
-      *reinterpret_cast<float4*>(red + (sub * 4 + mm) * kBN + colg * 4) =
-          make_float4(acc[mc + mm][0], acc[mc + mm][1], acc[mc + mm][2],
-                      acc[mc + mm][3]);
-    __syncthreads();
-    {
-      const int mm = tid / kBN, c = tid % kBN;
-      float sum = 0.f;
-#pragma unroll
-      for (int u = 0; u < kKSub; ++u) sum += red[(u * 4 + mm) * kBN + c];
-      const int m = m0 + mc + mm, n = col0 + c;
-      if (m < m_rows && n < n_cols) epi(m, n, sum);
-    }
-    __syncthreads();
-  }
 }
 
 // Splits of a context of len positions cut into runs of `split`: those
@@ -485,44 +343,6 @@ __device__ void attend_split(const TQ* q, int g, int rep, const TP* k_pool,
            out + (static_cast<int64_t>(g) * rep + r) * DH + d);
   }
   if (tid == 0) *meet.count = 0;  // every split of this launch has counted
-}
-
-// Work items of a split product: m tiles x column tiles x contraction splits.
-struct Split {
-  int m_tiles, col_tiles, ks, k_per;
-  __device__ int items() const { return m_tiles * col_tiles * ks; }
-};
-
-__device__ __forceinline__ Split make_split(int m, int mt, int n, int k,
-                                            int ks) {
-  return Split{(m + mt - 1) / mt, (n + kBN - 1) / kBN, ks, k / ks};
-}
-
-// Runs item `it` of a split product into partial [ks][m][n] (pre-scale
-// float32 sums) through int8_tile.
-template <int MT, class Load>
-__device__ void split_item(const Split& sp, int it, const int8_t* w, int n,
-                           int m, const Load& load, float* partial,
-                           unsigned char* smem) {
-  const int ks = it % sp.ks;
-  const int ct = (it / sp.ks) % sp.col_tiles;
-  const int mt = it / (sp.ks * sp.col_tiles);
-  float* dst = partial + static_cast<int64_t>(ks) * m * n;
-  int8_tile<MT>(w, n, ct * kBN, ks * sp.k_per, (ks + 1) * sp.k_per, mt * MT,
-                m, load,
-                [&](int mm, int nn, float v) {
-                  dst[static_cast<int64_t>(mm) * n + nn] = v;
-                },
-                smem);
-}
-
-// Sum over the ks splits of partial [ks][m][n] at (mm, nn), in split order.
-__device__ __forceinline__ float split_sum(const float* partial, int ks, int m,
-                                           int n, int mm, int nn) {
-  float sum = 0.f;
-  for (int i = 0; i < ks; ++i)
-    sum += __ldcg(partial + (static_cast<int64_t>(i) * m + mm) * n + nn);
-  return sum;
 }
 
 namespace cg = cooperative_groups;

@@ -10,91 +10,135 @@
 //
 // What bounds it: bytes. Decode has M <= 32 rows, so each weight byte is
 // used M times; the LM head alone is K x N = 1024 x 151,680 int8 = 155 MB,
-// 46 us at 3.35 TB/s.
+// 46 us at 3.35 TB/s; the fused QKV's 4 MB take 1.3 us, so there the time
+// goes to latency: the weights' first bytes and the merge of the splits.
 //
-// Design: one block of 256 threads per work item (a 32-row tile of x, 64
-// columns, a share of the contraction), the tile of csrc/int8_decode.cuh:
-// weights through a 4-deep cp.async ring in 64-row stages, coalesced 16-byte
-// copies along N, float32 FMAs on the CUDA cores. When N gives too few
-// column tiles to fill the card (the fused QKV: 64), the contraction is
-// split and each split writes float32 partial sums; a second kernel adds
-// them in split order (no atomics, so runs repeat bit for bit), scales and
-// casts. With enough tiles (the head: 2,370) the block scales and writes
-// directly.
+// Design: the weight phases of csrc/weight_phases.cuh with one product in
+// the list, in wo's slot (whose input is x as given, rounded to bf16):
+// - ONE launch a call, nothing before or after it, not cooperative (no
+//   grid-wide wait): a persistent grid of at most two blocks a SM (the host
+//   plan's, ops/weight_phases.py matmul_plan), each of eight consumer warps
+//   and a producer warp. Work items are (row tile of 8 or 16 rows,
+//   128-column tile, split of the contraction into parts of at most 1024
+//   rows); the splits about fill the SMs once; block b takes items b,
+//   b + grid, ...
+// - Weights arrive by TMA (a 2-D map a weight, boxes of 64 rows x 128
+//   columns, 128-byte swizzle, zero-filled past N; encoded once a weight
+//   and cached by the host) into a ring of 8 KB stages on mbarriers. The
+//   producer warp puts the block's first `ring` stages in flight at entry
+//   and, past them (the head: 80 stages a block, a ring of 10 at 8 rows),
+//   refills each stage once the eight consumer warps have arrived on its
+//   empty barrier: no block-wide barrier a stage.
+// - bf16(x) is formed once a (row tile, split) into shared memory, from
+//   bf16 or float32 x (rows past M: zeros).
+// - Products on the tensor cores: mma.sync m16n8k16 bf16 x bf16 -> f32, the
+//   weights as operand A (each column's pair of rows turned into bf16
+//   exactly in four instructions), the activations as operand B; the two
+//   halves of each 64-row stage meet in a fixed order.
+// - One split: the block writes sum * scale[n] in x's dtype. More: each
+//   split's float32 partial tile goes to the per-(device, stream)
+//   workspace shared with the weight phases' other kernels; the last split
+//   to arrive (an acquire-release counter a tile, set back to 0 by it)
+//   adds them in split order (runs repeat bit for bit), scales, casts and
+//   writes. Nothing is written past N.
+// Why two blocks a SM and these loops: at the head the TMA stream alone
+// and the consumers alone each took longer than the bound, and together
+// far longer than either (scripts/int8_mm_probe.py; PERF.md row 21); a
+// second block a SM, loads of the ring as shared-memory loads
+// (hopper::align1024), the four-instruction conversion and a ring slot
+// stepped without a division each took time off the whole. The
+// shared-memory attribute is set once a device. The tensor cores' sums
+// are not IEEE float32 sums (tests/tensor_core_model.py models them); at
+// these contractions they stay within a few 1e-7 of the largest |y| of
+// the plain twin's.
 
 #include <string.h>
 
 #include <atomic>
 
 #include "hopper.cuh"
-#include "int8_decode.cuh"
+#include "weight_phases.cuh"
 
 namespace {
 
 using namespace i8d;
 
-template <int MT, typename T>
-__global__ void __launch_bounds__(kThreads)
-int8_matmul_kernel(const T* __restrict__ x, const int8_t* __restrict__ w,
-                   const float* __restrict__ scale, int m, int k, int n,
-                   int ks, float* __restrict__ partial, T* __restrict__ out) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const Split sp = make_split(m, MT, n, k, ks);
-  auto load = [&](int mm, int kk) {
-    return bf16r(to_f(x[static_cast<int64_t>(mm) * k + kk]));
-  };
-  const int it = blockIdx.x;
-  if (ks > 1) {
-    split_item<MT>(sp, it, w, n, m, load, partial, smem);
-  } else {
-    const int ct = it % sp.col_tiles, mt = it / sp.col_tiles;
-    int8_tile<MT>(w, n, ct * kBN, 0, k, mt * MT, m, load,
-                  [&](int mm, int nn, float v) {
-                    from_f(v * scale[nn], out + static_cast<int64_t>(mm) * n + nn);
-                  },
-                  smem);
+// Two blocks a SM: their dynamic shared memory at most (each block's
+// static share and the 1 KB the card reserves a block beside it), and the
+// ring stages that leaves the row tile.
+constexpr int kSmemSM = 233472;  // a SM's shared memory (sm_90)
+constexpr int kMmSmem = kSmemSM / 2 - 1024 - kStaticSlack;
+__host__ __device__ constexpr int mm_max_ring(int mt) {
+  return (kMmSmem - fixed_smem(mt)) / kStage;
+}
+
+template <int F, typename T>
+__global__ void __launch_bounds__(kBlock, 2)
+int8_matmul_kernel(const __grid_constant__ WeightArgs p, T* __restrict__ y) {
+  constexpr int MT = 8 * F;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* ring = hopper::align1024(smem_raw);
+  __nv_bfloat16* act =
+      reinterpret_cast<__nv_bfloat16*>(ring + p.ring * kStage);
+  float* tb = reinterpret_cast<float*>(act + MT * kActRow);
+  __shared__ uint64_t full[kMaxRing], empty[kMaxRing];
+  __shared__ int flag;
+  __shared__ Product plan[4];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  if (warp == kWarps) {  // every stage of the block's items, in turn
+    produce(p, plan, ring, full, empty);
+    return;
   }
+  Walk walk;  // unused: the producer warp refills the ring
+  consume_start(p, plan, walk);
+  Block<F> blk{p, plan, ring, act, tb, full, nullptr, &flag, walk, 0, false,
+               tid, lane, warp, empty};
+  blk.mm_phase(y);
 }
 
-template <typename T>
-__global__ void combine_kernel(const float* __restrict__ partial,
-                               const float* __restrict__ scale, int m, int n,
-                               int ks, T* __restrict__ out) {
-  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i >= static_cast<int64_t>(m) * n) return;
-  const int mm = static_cast<int>(i / n), nn = static_cast<int>(i % n);
-  from_f(split_sum(partial, ks, m, n, mm, nn) * scale[nn], out + i);
+// Opts `kern` into `smem` bytes of dynamic shared memory on the current
+// device, once a device (the attribute is a device's; `done` is the
+// kernel's own set of devices).
+template <class K>
+cudaError_t allow_smem_once(K kern, int smem,
+                            std::atomic<unsigned long long>& done) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const unsigned long long bit = dev < 64 ? 1ull << dev : 0;
+  if (done.load() & bit) return cudaSuccess;
+  err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem);
+  if (err == cudaSuccess) done.fetch_or(bit);
+  return err;
 }
 
-template <int MT, typename T>
-int launch(const void* x, const int8_t* w, const float* scale, int m, int k,
-           int n, int ks, float* partial, void* out, cudaStream_t stream) {
-  const int smem = tile_smem(MT);
-  auto kern = int8_matmul_kernel<MT, T>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int items = ((m + MT - 1) / MT) * ((n + kBN - 1) / kBN) * ks;
-  kern<<<items, kThreads, smem, stream>>>(
-      static_cast<const T*>(x), w, scale, m, k, n, ks, partial,
-      static_cast<T*>(out));
-  err = cudaGetLastError();
-  if (err != cudaSuccess || ks == 1) return static_cast<int>(err);
-  const int64_t total = static_cast<int64_t>(m) * n;
-  combine_kernel<T><<<static_cast<unsigned>((total + 255) / 256), 256, 0,
-                      stream>>>(partial, scale, m, n, ks,
-                                static_cast<T*>(out));
+// The weight-only kernel's attribute, at the most shared memory the plan
+// may give its row tile.
+template <int F, typename T>
+cudaError_t allow_mm_smem() {
+  static std::atomic<unsigned long long> done{0};
+  return allow_smem_once(int8_matmul_kernel<F, T>,
+                         layer_smem(8 * F, mm_max_ring(8 * F)), done);
+}
+
+template <int F, typename T>
+int mm_launch(const WeightArgs& p, void* y, int grid, cudaStream_t stream) {
+  const cudaError_t opt_in = allow_mm_smem<F, T>();
+  if (opt_in != cudaSuccess) return static_cast<int>(opt_in);
+  if (p.ring > mm_max_ring(8 * F))
+    return static_cast<int>(cudaErrorInvalidValue);
+  int8_matmul_kernel<F, T><<<grid, kBlock, layer_smem(8 * F, p.ring),
+                             stream>>>(p, static_cast<T*>(y));
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-int by_tile(const void* x, const int8_t* w, const float* scale, int m, int k,
-            int n, int ks, float* partial, void* out, cudaStream_t stream) {
-  if (m <= 4) return launch<4, T>(x, w, scale, m, k, n, ks, partial, out, stream);
-  if (m <= 8) return launch<8, T>(x, w, scale, m, k, n, ks, partial, out, stream);
-  if (m <= 16)
-    return launch<16, T>(x, w, scale, m, k, n, ks, partial, out, stream);
-  return launch<32, T>(x, w, scale, m, k, n, ks, partial, out, stream);
+// Blocks of the weight-only kernel the card keeps resident at once (two a
+// SM at the plan's most shared memory).
+template <int F, typename T>
+int mm_blocks() {
+  return resident_blocks(int8_matmul_kernel<F, T>,
+                         layer_smem(8 * F, mm_max_ring(8 * F)));
 }
 
 // ------------------------------------------------------------------ W8A8
@@ -568,16 +612,7 @@ w8a8_mma_kernel(const T* __restrict__ x,
 template <int F, typename T>
 cudaError_t allow_smem() {
   static std::atomic<unsigned long long> done{0};
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  const unsigned long long bit = dev < 64 ? 1ull << dev : 0;
-  if (done.load() & bit) return cudaSuccess;
-  err = cudaFuncSetAttribute(w8a8_mma_kernel<F, T>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             smem_bytes<F>());
-  if (err == cudaSuccess) done.fetch_or(bit);
-  return err;
+  return allow_smem_once(w8a8_mma_kernel<F, T>, smem_bytes<F>(), done);
 }
 
 template <int F, typename T>
@@ -642,36 +677,74 @@ struct Resident {
 
 extern "C" {
 
-// x [M, K] bf16 (x_f32 = 0) or float32 (x_f32 = 1); w [K, N] int8; scale [N]
-// float32; out [M, N] in x's dtype. K a multiple of 64 and of 64 * k_split,
-// N a multiple of 16. With k_split > 1, partial holds k_split * M * N floats.
-// Returns the CUDA error code of the launches.
-int int8_matmul(const void* x, int x_f32, const int8_t* w, const float* scale,
-                int m, int k, int n, int k_split, float* partial, void* out,
-                void* stream) {
-  if (m < 1 || k < kBK || k % (kBK * k_split) != 0 || n < 16 || n % 16 != 0 ||
-      k_split < 1 || (k_split > 1 && partial == nullptr))
-    return static_cast<int>(cudaErrorInvalidValue);
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (x_f32)
-    return by_tile<float>(x, w, scale, m, k, n, k_split, partial, out, st);
-  return by_tile<__nv_bfloat16>(x, w, scale, m, k, n, k_split, partial, out,
-                                st);
+// The tensor map of w [k, n] int8 (n a multiple of 16, 16-byte aligned)
+// for either kernel of this file: boxes of 64 rows x 128 columns, 128-byte
+// swizzle (encode_weight of csrc/weight_phases.cuh), into the
+// sizeof(CUtensorMap) = 128 bytes at `map`. Returns the CUDA error code.
+int int8_matmul_encode(const void* w, int k, int n, void* map) {
+  return encode_weight(w, k, n, map);
 }
 
-// The tensor map of w [k, n] int8 (n a multiple of 16, 16-byte aligned)
-// for int8_matmul_w8a8: boxes of 64 rows x 128 columns, 128-byte swizzle,
-// into the sizeof(CUtensorMap) = 128 bytes at `map`. Returns the CUDA
-// error code.
-int w8a8_encode(const void* w, int k, int n, void* map) {
-  if (map == nullptr || k < w8::kRows || n < 16 || n % 16 != 0)
+// Blocks of the weight-only kernel for the row tile mt (8 or 16 rows) and
+// bf16 x (x_f32 = 0) or float32 x (x_f32 = 1) that the current device keeps
+// resident at once (two a SM), its shared-memory attribute set: the grid
+// of ops/weight_phases.py matmul_plan. Negative: a CUDA error code.
+int int8_matmul_blocks(int mt, int x_f32) {
+  if (mt != 8 && mt != 16) return -static_cast<int>(cudaErrorInvalidValue);
+  if (mt == 8)
+    return x_f32 ? mm_blocks<1, float>() : mm_blocks<1, __nv_bfloat16>();
+  return x_f32 ? mm_blocks<2, float>() : mm_blocks<2, __nv_bfloat16>();
+}
+
+// y = (bf16(x) @ w) * scale in one launch: x [M, K] bf16 (x_f32 = 0) or
+// float32 (x_f32 = 1); w [K, N] int8 through w_map (int8_matmul_encode);
+// scale [N] float32; y [M, N] in x's dtype; x and y 16-byte aligned. M >=
+// 1, K a multiple of 64, N of 16. The plan (ops/weight_phases.py
+// matmul_plan): k_split parts of whole 64-row stages, at most 16 stages
+// each; `ring` stages of 8 KB (2 to mm_max_ring of the row tile); `grid`
+// blocks
+// walk the items (row tile of 8 rows for M <= 8, else of 16; 128-column
+// tile; split). With k_split > 1, part holds row tiles x column tiles x
+// k_split x (8 or 16) x 128 floats and counts (row tiles x column tiles)
+// int32 zeros, which the launch leaves zero. Returns the CUDA error code of
+// the launch.
+int int8_matmul(const void* x, int x_f32, const void* w_map,
+                const float* scale, int m, int k, int n, int k_split,
+                int ring, int grid, float* part, int* counts, void* y,
+                void* stream) {
+  if (m < 1 || k < kRows || k % kRows != 0 || n < 16 || n % 16 != 0 ||
+      ring < 2 || grid < 1 || w_map == nullptr || y == nullptr ||
+      (k_split > 1 && (part == nullptr || counts == nullptr)) ||
+      reinterpret_cast<uintptr_t>(x) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(y) % 16 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  CUtensorMap mp;
-  const int err = hopper_host::encode_2d(
-      &mp, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, w, static_cast<uint64_t>(n),
-      static_cast<uint64_t>(k), w8::kCols, w8::kRows, 128);
-  if (err == 0) memcpy(map, &mp, sizeof(CUtensorMap));
-  return err;
+  // columns, boxes a stage, splits, contraction rows, box 1's offset: the
+  // product in wo's slot, the others empty
+  const int spec[4][5] = {{0, 1, 1, kRows, 0},
+                          {n, 1, k_split, k, 0},
+                          {0, 1, 1, kRows, 0},
+                          {0, 1, 1, kRows, 0}};
+  unsigned char four[4 * sizeof(CUtensorMap)] = {};
+  memcpy(four + sizeof(CUtensorMap), w_map, sizeof(CUtensorMap));
+  WeightArgs p;
+  memset(&p, 0, sizeof(p));
+  p.s = m;
+  if (set_products(p, spec, four, ring) < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  p.a = k;
+  if (x_f32)
+    p.wo_in = static_cast<const float*>(x);
+  else
+    p.wo_in16 = static_cast<const __nv_bfloat16*>(x);
+  p.wo_s = scale;
+  p.part = part;
+  p.tile_count = counts;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (frags_of(m) == 1)
+    return x_f32 ? mm_launch<1, float>(p, y, grid, st)
+                 : mm_launch<1, __nv_bfloat16>(p, y, grid, st);
+  return x_f32 ? mm_launch<2, float>(p, y, grid, st)
+               : mm_launch<2, __nv_bfloat16>(p, y, grid, st);
 }
 
 // Blocks of the W8A8 kernel for m activation rows (bf16 x, or float32
@@ -687,7 +760,7 @@ int w8a8_resident(int m, int x_f32, int* blocks) {
 
 // y = W8A8(x, w) in one launch: x [M, K] bf16 (x_f32 = 0) or float32
 // (x_f32 = 1), quantized per row inside the kernel; w [K, N] int8 through
-// w_map (w8a8_encode); w_scale [N] float32; out [M, N] in x's dtype; all
+// w_map (int8_matmul_encode); w_scale [N] float32; out [M, N] in x's dtype; all
 // 16-byte aligned. K a multiple of 64, N of 16. The contraction is cut into
 // k_split parts of whole 64-row stages (1 <= k_split <= K / 64); `grid`
 // blocks walk the items (m tile, 128-column tile, split). With k_split > 1,

@@ -1,9 +1,11 @@
 // The int8 weight phases of a decode layer for Hopper (sm_90a), shared by
 // the decoder-layer megakernels (csrc/decoder_layer.cuh: QKV, wo, gate/up,
-// down) and the fused MLP (csrc/fused_mlp.cu: wo, gate/up, down, the
-// megakernel's back half). The build hashes this header with each source
-// that includes it (ops/cuda_build.py); the host plan is
-// ops/weight_phases.py.
+// down), the fused MLP (csrc/fused_mlp.cu: wo, gate/up, down, the
+// megakernel's back half) and the weight-only int8 matmul
+// (csrc/int8_matmul.cu: one product in wo's slot, mm_phase, no grid-wide
+// wait and no cooperative launch). The build hashes this header with each
+// source that includes it (ops/cuda_build.py); the host plans are
+// ops/weight_phases.py layer_plan, mlp_plan and matmul_plan.
 //
 // What bounds them: bytes. At qwen3guard-0.6b's width the layer's int8
 // weights are 15.7 MB (the MLP's three 11 MB), each used S times. At
@@ -33,16 +35,19 @@
 //   named barrier of their own; block-wide barriers (the grid's) wait, once
 //   the producer has exited, on the consumers alone. With more stages than
 //   the ring holds it runs ahead: consumer thread 0 refills a stage as
-//   soon as the block is done with it, across the grid waits too.
+//   soon as the block is done with it, across the grid waits too. (The
+//   matmul, with no grid wait, keeps its producer warp, which refills each
+//   stage once the consumer warps have arrived on its empty barrier.)
 // - Products on the tensor cores: mma.sync m16n8k16 bf16 x bf16 -> f32,
 //   the weights as operand A (16 output columns x 16 contraction rows),
 //   the bf16 activations, held in shared memory, as operand B (8 rows a
 //   fragment; 8 or 16 rows a row tile). A thread reads four bytes (four
 //   columns) from each of the contraction rows 2t, 2t + 1, 2t + 8 and
 //   2t + 9 of a 16-row step (with the swizzle, a warp's loads hit 32
-//   distinct banks), transposes them with byte permutes and turns each
-//   byte into bf16 exactly (|w| <= 127): 128 + its low 7 bits built as a
-//   bf16's bits, 128 or 256 (its sign) subtracted. Warp w takes 32 columns
+//   distinct banks) and turns each column's pair of rows into a bf16
+//   pair exactly (|w| <= 127) in four instructions (pair_bf16): a byte
+//   permute, 128 + the low 7 bits and 128 or 256 (the sign) built as
+//   bf16 bits by two LOPs, one subtraction. Warp w takes 32 columns
 //   (w % 4) and half of each 64-row stage (w / 4); the halves are added in
 //   a fixed order at the item's end.
 // - Each activation is formed once a consumer, in bulk, into shared memory
@@ -243,33 +248,24 @@ __device__ __forceinline__ void csync() {
   hopper::named_bar_sync(kConsBar, kThreads);
 }
 
-// Rows r0..r3 of four adjacent columns (one word a row) -> one word a
-// column, its rows low byte first.
-__device__ __forceinline__ void transpose4(const uint32_t* w, uint32_t* col) {
-  const uint32_t lo01 = __byte_perm(w[0], w[1], 0x5140);
-  const uint32_t hi01 = __byte_perm(w[0], w[1], 0x7362);
-  const uint32_t lo23 = __byte_perm(w[2], w[3], 0x5140);
-  const uint32_t hi23 = __byte_perm(w[2], w[3], 0x7362);
-  col[0] = __byte_perm(lo01, lo23, 0x5410);
-  col[1] = __byte_perm(lo01, lo23, 0x7632);
-  col[2] = __byte_perm(hi01, hi23, 0x5410);
-  col[3] = __byte_perm(hi01, hi23, 0x7632);
-}
-
-// Four int8 values (lowest byte first) as two bf16 pairs, exactly: lo =
-// (b0, b1), hi = (b2, b3), the lower value in the lower half. A lane 0x43mm
-// (mm the byte's low 7 bits) is 128 + mm; less 128 (the byte's sign bit
-// clear) or 256 (set), 0x4300 or 0x4380, it is the byte's value (|w| <=
-// 128, so both bf16 values and the difference are exact).
-__device__ __forceinline__ void i8x4_bf16(uint32_t w, uint32_t& lo,
-                                          uint32_t& hi) {
-  const uint32_t m = w & 0x7F7F7F7Fu, sgn = w & 0x80808080u;
-  const uint32_t vlo = __byte_perm(m, 0x43434343u, 0x5140);
-  const uint32_t vhi = __byte_perm(m, 0x43434343u, 0x7362);
-  const uint32_t slo = __byte_perm(sgn, 0x43434343u, 0x5140);
-  const uint32_t shi = __byte_perm(sgn, 0x43434343u, 0x7362);
-  asm("sub.rn.bf16x2 %0, %1, %2;\n" : "=r"(lo) : "r"(vlo), "r"(slo));
-  asm("sub.rn.bf16x2 %0, %1, %2;\n" : "=r"(hi) : "r"(vhi), "r"(shi));
+// Column c of rows r and r + 1 (a word each: four adjacent columns, low
+// byte first) as a bf16 pair, exactly, row r in the low half: one byte
+// permute puts each row's byte in a half (twice), two LOPs build 0x43 and
+// the byte's low 7 bits (128 + them) and 0x43 and its sign bit (128 or
+// 256), and one subtraction leaves the byte's value (|w| <= 128, so both
+// bf16 values and the difference are exact).
+__device__ __forceinline__ uint32_t pair_bf16(uint32_t r0, uint32_t r1,
+                                              int c) {
+  const uint32_t p = __byte_perm(r0, r1, c * 0x1111 + 0x4400);
+  // (p & mask) | 0x43004300 in one LOP3 each (written as C, the masks
+  // become immediates and each takes two)
+  uint32_t v, s, out;
+  asm("lop3.b32 %0, %1, %2, %3, 0xEA;\n"
+      : "=r"(v) : "r"(p), "r"(0x007F007Fu), "r"(0x43004300u));
+  asm("lop3.b32 %0, %1, %2, %3, 0xEA;\n"
+      : "=r"(s) : "r"(p), "r"(0x00800080u), "r"(0x43004300u));
+  asm("sub.rn.bf16x2 %0, %1, %2;\n" : "=r"(out) : "r"(v), "r"(s));
+  return out;
 }
 
 // d += A[16, 16] B[16, 8], bf16 x bf16 -> f32 (mma.sync m16n8k16; lane l,
@@ -311,8 +307,13 @@ __device__ __forceinline__ void unpack8(const uint4& u, float (&v)[8]) {
 // every product in flight (the memory system takes them as fast as it
 // streams: microseconds of issue, off the consumers' path). The warp then
 // exits, so that the block-wide barriers wait on the consumers only.
+// With `empty` (a launch with no grid-wide wait, csrc/int8_matmul.cu) the
+// warp stays: lane 0 puts each later stage into its slot once the eight
+// consumer warps have freed it (empty[slot] counts their arrivals), so that
+// no consumer waits on a block-wide barrier a stage.
 __device__ __forceinline__ void produce(const WeightArgs& p, Product* plan,
-                                        unsigned char* ring, uint64_t* full) {
+                                        unsigned char* ring, uint64_t* full,
+                                        uint64_t* empty = nullptr) {
   static_assert(sizeof(Product) * 4 == 32 * sizeof(int), "a lane an int");
   const int lane = threadIdx.x & 31;
   reinterpret_cast<int*>(plan)[lane] =
@@ -320,6 +321,8 @@ __device__ __forceinline__ void produce(const WeightArgs& p, Product* plan,
   __syncwarp();
   if (lane == 0) {
     for (int i = 0; i < p.ring; ++i) hopper::mbar_init(&full[i], 1);
+    if (empty != nullptr)
+      for (int i = 0; i < p.ring; ++i) hopper::mbar_init(&empty[i], kWarps);
     hopper::fence_barrier_init();
     for (int i = 0; i < 4; ++i)
       if (p.prod[i].items > 0) hopper::prefetch_tensor_map(&p.maps[i]);
@@ -330,6 +333,17 @@ __device__ __forceinline__ void produce(const WeightArgs& p, Product* plan,
     Walk w;
     w.start(p, plan);
     for (int i = 0; i < p.ring && w.more(p); ++i) w.issue(p, ring, full);
+    if (empty == nullptr) return;
+    // use u >= ring refills slot u % ring once the consumers have freed
+    // its use u - ring: empty phase u / ring - 1
+    for (int slot = 0, phase = 0; w.more(p);) {
+      hopper::mbar_wait(&empty[slot], static_cast<uint32_t>(phase));
+      w.issue(p, ring, full);
+      if (++slot == p.ring) {
+        slot = 0;
+        phase ^= 1;
+      }
+    }
   }
 }
 
@@ -372,6 +386,9 @@ struct Block {
   int use;       // stages used so far (the same in every thread)
   bool refill;   // the block has more stages than the ring holds
   int tid, lane, warp;
+  // the ring's empty barriers where the producer warp refills it (then
+  // consumer thread 0 does not), else null
+  uint64_t* empty = nullptr;
 
   // The item's products, partial over its stages, into tb [MT][nb * 128]
   // (before the scale). The activations must be in act.
@@ -399,24 +416,29 @@ struct Block {
 #pragma unroll
           for (int e = 0; e < 4; ++e) acc[b][f][h][e] = 0.f;
 
+    // the ring slot and its phase, stepped a box at a time (not divided
+    // out of `use` each stage)
+    int slot = use % p.ring;
+    uint32_t phase = static_cast<uint32_t>(use / p.ring) & 1u;
     for (int s = t.s0; s < t.s1; ++s) {
       const int kact = (s - t.s0) * kRows;
+      int used[NB];
 #pragma unroll
       for (int b = 0; b < NB; ++b) {
-        const int u = use + b;
-        const int slot = u % p.ring;
-        hopper::mbar_wait(&full[slot], static_cast<uint32_t>(u / p.ring) & 1u);
+        hopper::mbar_wait(&full[slot], phase);
         const unsigned char* st = ring + slot * kStage;
 #pragma unroll
         for (int j = 0; j < 2; ++j) {  // this warp's two 16-row steps
           const int kb = 32 * kh + 16 * j;
-          uint32_t w[4], col[4], lo[4], hi[4];
+          uint32_t w[4], lo[4], hi[4];
 #pragma unroll
           for (int i = 0; i < 4; ++i)
             w[i] = *reinterpret_cast<const uint32_t*>(st + kb * kCols + off[i]);
-          transpose4(w, col);
 #pragma unroll
-          for (int c = 0; c < 4; ++c) i8x4_bf16(col[c], lo[c], hi[c]);
+          for (int c = 0; c < 4; ++c) {  // column c's rows (2t, 2t + 1), (+ 8)
+            lo[c] = pair_bf16(w[0], w[1], c);
+            hi[c] = pair_bf16(w[2], w[3], c);
+          }
           // A tile h: its rows g8, g8 + 8 are columns 4 g8 + 2h, + 1
           const uint32_t a0[4] = {lo[0], lo[1], hi[0], hi[1]};
           const uint32_t a1[4] = {lo[2], lo[3], hi[2], hi[3]};
@@ -430,9 +452,18 @@ struct Block {
             mma_bf16(acc[b][f][1], a1, b0, b1);
           }
         }
+        used[b] = slot;
+        if (++slot == p.ring) {
+          slot = 0;
+          phase ^= 1u;
+        }
       }
       use += NB;
-      if (refill) {  // the stages just used are free: refill them
+      if (empty != nullptr) {  // the producer warp refills the stages
+        __syncwarp();
+        if (lane == 0)
+          for (int b = 0; b < NB; ++b) hopper::mbar_arrive(&empty[used[b]]);
+      } else if (refill) {  // the stages just used are free: refill them
         csync();
         if (tid == 0)
           for (int b = 0; b < NB && walk.more(p); ++b)
@@ -788,6 +819,41 @@ struct Block {
             if (si < p.s && col < p.d)
               p.out[static_cast<int64_t>(si) * p.d + col] =
                   __float2bfloat16(a + tb[r * kTW + c] * b);
+          });
+    }
+  }
+
+  // A lone product in wo's slot (csrc/int8_matmul.cu): y = (bf16(x) @ w) *
+  // scale in T, y [S, N] (wo's input is x as given, bf16 or float32; wo_s
+  // the column scales). The activations are formed once a (row tile,
+  // split): with one split, once a block at up to 16 rows.
+  template <typename T>
+  __device__ __forceinline__ void mm_phase(T* y) {
+    const Product& q = plan[kWo];
+    int have = -1;  // the (row tile, split) whose activations are in act
+    for (int g = first_item(q); g < q.base + q.items; g += gridDim.x) {
+      const Item t = item_at(plan, g);
+      if (t.mt * q.ks + t.ki != have) {
+        csync();  // act is free
+        form(kWo, t.mt * MT, t.s0 * kRows, (t.s1 - t.s0) * kRows, Chunk{},
+             false);
+        csync();
+        have = t.mt * q.ks + t.ki;
+      }
+      mma_item<1>(t);
+      if (!arrive(q, t)) continue;
+      // this thread's elements of the tile: their column scales
+      epilogue(
+          q, t,
+          [&](int k, float& ea, float& eb) {
+            const int col = t.ct * kCols + (tid + k * kThreads) % kCols;
+            ea = col < q.n ? p.wo_s[col] : 0.f;
+            eb = 0.f;
+          },
+          [&](int r, int c, int si, int col, float a, float) {
+            if (si < p.s && col < q.n)
+              from_f(tb[r * kTW + c] * a,
+                     y + static_cast<int64_t>(si) * q.n + col);
           });
     }
   }

@@ -14,11 +14,21 @@ float32 accumulator once per output element.
   bf16 before the product (bf16 x int8 products are exact in float32), the
   sum is float32, times ``scale``, cast to x's dtype.
 - ``int8_matmul`` is the wrapper the engine's kernel route calls. On CUDA
-  tensors it launches ``csrc/int8_matmul.cu`` (x bf16 or float32 [M, K],
-  any M, K a multiple of 64, N a multiple of 16) and adds one to its
-  ``launches`` count; on CPU tensors it runs the plain twin. Wrong device,
-  dtype, shape or contiguity raises: there is no fallback. ``block_n`` is
-  the TPU kernel's column block and changes nothing here.
+  tensors it makes one launch of the ``int8_matmul`` kernel of
+  ``csrc/int8_matmul.cu`` (x bf16 or float32 [M, K], any M, K a multiple
+  of 64, N a multiple of 16) and adds one to its ``launches`` count; on
+  CPU tensors it runs the plain twin. Wrong device, dtype, shape or
+  contiguity raises: there is no fallback. The kernel is the weight phases
+  of ``csrc/weight_phases.cuh`` with one product: the host plan
+  ``weight_phases.matmul_plan`` (row tiles of 8 or 16 rows, 128-column
+  tiles, splits of the contraction), the weight's tensor map encoded once
+  (``weight_phases.weight_map``), the split partial tiles and counters in
+  the per-(device, stream) workspace it shares with the fused MLP and the
+  megakernels (``weight_phases.workspace``); a call runs nothing else on
+  the card but allocating the output. Its sums are the tensor cores'
+  (``tests/tensor_core_model.py``), within a few 1e-7 of the largest
+  |output| of the twin's at the engine's shapes. ``block_n`` is the TPU
+  kernel's column block and changes nothing here.
 
 W8A8 (:105-171, ``weights="w8a8"``): the activations are quantized too,
 per row and dynamically (``quantize_activations`` :105), and the product is
@@ -50,11 +60,10 @@ import torch
 
 from cmw_rag_tpu_torch.device import need, on_cpu, sm_count
 from cmw_rag_tpu_torch.ops import cuda_build
+from cmw_rag_tpu_torch.ops import weight_phases as WP
 from cmw_rag_tpu_torch.ops.paged_attention import split_workspace
 
-#: the CUDA tile: activation rows, weight columns and contraction rows
-M_TILE_MAX = 32
-N_TILE = 64
+#: contraction rows of a stage of either kernel: K is a multiple of it
 K_TILE = 64
 #: the W8A8 kernel's tile: 128 weight columns (one 128-byte TMA box row)
 #: and 64 weight rows a stage
@@ -86,45 +95,49 @@ def int8_matmul_plain(x: torch.Tensor, w_q: torch.Tensor,
     return ((xb @ w_q.float()) * scale[None, :]).to(x.dtype)
 
 
-def k_split(k: int, tiles: int, target: int) -> int:
-    """The largest split of the contraction into K_TILE-row multiples that
-    keeps ``tiles * split`` work items within ``target`` (at least 1)."""
-    steps = k // K_TILE
-    best = 1
-    for d in range(1, steps + 1):
-        if steps % d == 0 and tiles * d <= target:
-            best = d
-    return best
-
-
-def m_tile(m: int) -> int:
-    """Activation rows of the CUDA tile for ``m`` rows: 4, 8, 16 or 32."""
-    return next(t for t in (4, 8, 16, M_TILE_MAX) if m <= t or t == M_TILE_MAX)
-
-
 def _lib() -> ctypes.CDLL:
     lib = cuda_build.library("int8_matmul")
     if not getattr(lib, "_typed", False):
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.int8_matmul.argtypes = [p, i, p, p, i, i, i, i, p, p, p]
+        lib.int8_matmul.argtypes = [p, i, p, p] + [i] * 6 + [p] * 4
         lib.int8_matmul.restype = ctypes.c_int
+        lib.int8_matmul_encode.argtypes = [p, i, i, p]
+        lib.int8_matmul_encode.restype = ctypes.c_int
+        lib.int8_matmul_blocks.argtypes = [i, i]
+        lib.int8_matmul_blocks.restype = ctypes.c_int
         lib.int8_matmul_w8a8.argtypes = [p, i, p, p, i, i, i, i, i, p, p, p,
                                          p]
         lib.int8_matmul_w8a8.restype = ctypes.c_int
-        lib.w8a8_encode.argtypes = [p, i, i, p]
-        lib.w8a8_encode.restype = ctypes.c_int
         lib.w8a8_resident.argtypes = [i, i, p]
         lib.w8a8_resident.restype = ctypes.c_int
         lib._typed = True
     return lib
 
 
-def int8_matmul(x: torch.Tensor, w_q: torch.Tensor, scale: torch.Tensor,
-                block_n: int = 512) -> torch.Tensor:
-    """y = x [M, K] @ int8 w_q [K, N] · scale [N] → [M, N] in x.dtype, with
-    the kernel's rounding points (``int8_matmul_plain``)."""
-    if on_cpu(x, w_q, scale):
-        return int8_matmul_plain(x, w_q, scale)
+@functools.lru_cache(maxsize=None)
+def _grid(device: torch.device, mt: int, x_f32: bool) -> int:
+    """Blocks of the weight-only kernel ``device`` keeps resident at once
+    (two a SM) for the row tile ``mt``, at the most shared memory the plan
+    gives it; the query also sets the kernel's shared-memory attribute."""
+    with torch.cuda.device(device):
+        n = _lib().int8_matmul_blocks(mt, int(x_f32))
+    if n <= 0:
+        raise RuntimeError(f"int8_matmul: occupancy query failed ({n})")
+    return n
+
+
+def matmul_workspace(plan: WP.LayerPlan) -> tuple[int, int]:
+    """(float32 words, int32 counters) the kernel needs of the workspace:
+    the split partial tiles and a counter a tile; none with one split."""
+    if plan.products[1].ks == 1:
+        return 0, 0
+    return WP.part_words(plan), WP.tile_counters(plan)
+
+
+def _launch(x: torch.Tensor, w_q: torch.Tensor,
+            scale: torch.Tensor) -> torch.Tensor:
+    """Check every operand and make the one launch with the plan, the map
+    and the workspace; → y."""
     if x.dim() != 2 or w_q.dim() != 2:
         raise ValueError("x must be [M, K] and w_q [K, N]")
     m, k = x.shape
@@ -135,21 +148,35 @@ def int8_matmul(x: torch.Tensor, w_q: torch.Tensor, scale: torch.Tensor,
     if k % K_TILE or n % 16 or m < 1:
         raise ValueError(f"K={k} must be a multiple of {K_TILE} and N={n} of "
                          f"16")
-    mt = m_tile(m)
-    tiles = -(-m // mt) * -(-n // N_TILE)
-    ks = k_split(k, tiles, 2 * sm_count(x.device))
-    out = torch.empty((m, n), dtype=x.dtype, device=x.device)
-    partial = (torch.empty((ks, m, n), dtype=torch.float32, device=x.device)
-               if ks > 1 else None)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
+    dev = x.device
+    x_f32 = x.dtype == torch.float32
+    plan = WP.matmul_plan(m, k, n, _grid(dev, WP.layer_tile(m), x_f32),
+                          sm_count(dev))
+    ks = plan.products[1].ks
+    w_map = WP.weight_map(_lib().int8_matmul_encode, w_q, "int8_matmul")
+    out = torch.empty((m, n), dtype=x.dtype, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        part = counts = None
+        if ks > 1:
+            floats, ints = WP.workspace(dev, stream, *matmul_workspace(plan))
+            part, counts = floats.data_ptr(), ints.data_ptr()
         err = _lib().int8_matmul(
-            x.data_ptr(), int(x.dtype == torch.float32), w_q.data_ptr(),
-            scale.data_ptr(), m, k, n, ks,
-            None if partial is None else partial.data_ptr(), out.data_ptr(),
-            stream)
+            x.data_ptr(), int(x_f32), w_map, scale.data_ptr(), m, k, n, ks,
+            plan.ring, plan.grid, part, counts, out.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"int8_matmul launch failed: CUDA error {err}")
+    return out
+
+
+def int8_matmul(x: torch.Tensor, w_q: torch.Tensor, scale: torch.Tensor,
+                block_n: int = 512) -> torch.Tensor:
+    """y = x [M, K] @ int8 w_q [K, N] · scale [N] → [M, N] in x.dtype, with
+    the kernel's rounding points (``int8_matmul_plain``); on CUDA tensors
+    one kernel launch."""
+    if on_cpu(x, w_q, scale):
+        return int8_matmul_plain(x, w_q, scale)
+    out = _launch(x, w_q, scale)
     int8_matmul.launches += 1
     return out
 
@@ -246,26 +273,6 @@ def _w8a8_resident(frags: int, x_f32: bool, device: torch.device) -> int:
     return blocks.value
 
 
-_MAPS: dict = {}
-
-
-def _w8a8_map(w_q: torch.Tensor) -> int:
-    """Host address of the tensor map of the weight [K, N] int8 (TMA boxes
-    of 64 rows x 128 columns): encoded once a weight, then cached (a map
-    holds the address, shape and strides only, so a weight that takes a
-    freed one's address and shape has the same map)."""
-    key = (w_q.data_ptr(), tuple(w_q.shape))
-    buf = _MAPS.get(key)
-    if buf is None:
-        buf = ctypes.create_string_buffer(128)
-        err = _lib().w8a8_encode(w_q.data_ptr(), w_q.shape[0], w_q.shape[1],
-                                 buf)
-        if err != 0:
-            raise RuntimeError(f"W8A8 tensor map failed: CUDA error {err}")
-        _MAPS[key] = buf
-    return ctypes.addressof(buf)
-
-
 _WORKSPACES: dict = {}
 
 
@@ -304,9 +311,11 @@ def _w8a8_launch(x: torch.Tensor, w_q: torch.Tensor, scale: torch.Tensor,
             lambda size, dtype: torch.zeros((size,), dtype=dtype,
                                             device=x.device))
     with torch.cuda.device(x.device):
+        w_map = WP.weight_map(_lib().int8_matmul_encode, w_q,
+                              "int8_matmul_w8a8")
         err = _lib().int8_matmul_w8a8(
-            x.data_ptr(), int(x_f32), _w8a8_map(w_q), scale.data_ptr(), m, k,
-            n, ks, grid, None if part is None else part.data_ptr(),
+            x.data_ptr(), int(x_f32), w_map, scale.data_ptr(), m, k, n, ks,
+            grid, None if part is None else part.data_ptr(),
             None if count is None else count.data_ptr(), out.data_ptr(),
             stream)
     if err != 0:

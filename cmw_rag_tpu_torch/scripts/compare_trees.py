@@ -11,7 +11,7 @@ the call falls on both alike.
         [--phases scan,pipeline,flash,long_context,training,int8_llm,
                   w8a8_kv8,paged_kernel,local_llm,ivf,segmented]
         [--steps int8-s16,int8-kv8] [--batch] [--bits] [--flat-batch]
-        [--out FILE]
+        [--int8-mm] [--out FILE]
 
 BASE_ROOT is another checkout of the repository (for example the parent
 commit, ``git archive <commit> chip_smoke.py cmw_rag_tpu_torch | tar -x -C
@@ -55,8 +55,15 @@ package (``_BITS_CHILD``): equal hashes mean equal bits (the summary's
 ``ivf_bits``). ``--flat-batch`` also times, in every run, the flat scans
 (bf16 and int8) at batches phase 2 lacks (``FLAT_CASES``) over a 1M x
 5120 corpus through the tree's own package (``_FLAT_CHILD``: CUDA
-events over 10 calls after 2; the summary's ``flat_batch``). Each of the
-three runs in a process of its own from the tree's root (``run_extra``).
+events over 10 calls after 2; the summary's ``flat_batch``).
+``--int8-mm`` also times, in every run, the weight-only int8 matmul at
+phase 9's cases (``MM_CASES``: the QKV over 28 layers' weights in turn
+and the head, at 4 and 16 rows, which a parent's phase 9 may lack)
+through the tree's own package and ``chip_smoke.py`` helpers
+(``_MM_CHILD``: the whole call's device time from a complete profiler
+window of 56 calls, the kernels a call, the twin, the library yardstick,
+the bound; the summary's ``int8_mm``). Each of the four runs in a process
+of its own from the tree's root (``run_extra``).
 The phases' own log lines go to stderr.
 Needs a card.
 """
@@ -81,8 +88,9 @@ IVF_READINGS = ("ms", "plain_ms", "library_ms", "bound_ms", "scan_ms",
                 "select_ms")
 #: the kernels of phases 9 and 10 that a comparison reads (rows 19, 23, 24
 #: and 25 of PERF.md)
-INT8_KERNELS = ("paged_decode_attention_dma_slot", "fused_mlp_int8",
-                "decoder_layer_int8", "decoder_layer_int8_kv8")
+INT8_KERNELS = ("int8_matmul", "paged_decode_attention_dma_slot",
+                "fused_mlp_int8", "decoder_layer_int8",
+                "decoder_layer_int8_kv8")
 INT8_STEP = ("wall_ms_per_step_unprofiled", "wall_ms_per_step",
              "device_busy_ms_per_step", "idle_share",
              "kernel_launches_per_step", "named_kernel_ms_per_step")
@@ -103,6 +111,13 @@ BITS_CASES = (("probed", 1, 20), ("probed", 8, 1000), ("union", 8, 20),
 #: the flat scans' batches ``--flat-batch`` times past phase 2's Q 8, 32
 #: and 128: (Q, k) over 1M x 5120
 FLAT_CASES = ((64, 20), (256, 20))
+
+#: the weight-only int8 matmul's cases ``--int8-mm`` times (phase 9's,
+#: ``chip_smoke.INT8_MM_CASES``, which a parent's phase may lack): (case,
+#: rows, output columns, x's dtype) at K 1024
+MM_CASES = (("qkv-s4", 4, 4096, "bfloat16"), ("qkv-s16", 16, 4096, "bfloat16"),
+            ("head-s4", 4, 151680, "float32"),
+            ("head-s16", 16, 151680, "float32"))
 
 #: decode-step configurations ``--steps`` profiles: the CLI's arguments
 STEPS = {"int8-s16": ("--weights", "int8", "--slots", "16"),
@@ -246,11 +261,45 @@ print("EXTRA_RESULT " + json.dumps(out), flush=True)
 """
 
 
-#: what ``--batch``, ``--bits`` and ``--flat-batch`` add to a run: its key
-#: in the summary → (the cases, the child program that takes them)
+_MM_CHILD = """
+import json, sys, torch
+sys.path.insert(0, ".")
+import chip_smoke as c
+from cmw_rag_tpu_torch.ops import int8_matmul as IM
+gen = torch.Generator(device="cuda").manual_seed(9)
+d = 1024
+layers = c.int8_layers(28, gen)
+head = IM.quantize_weight(torch.randn((d, 151680), generator=gen,
+                                      device="cuda") * 0.02)
+out = {}
+for case, m, n, dtype in CASES:
+    x = torch.randn((m, d), generator=gen, device="cuda").to(
+        getattr(torch, dtype))
+    ws = ([head] if case.startswith("head")
+          else [(lay["wqkv_q"], lay["wqkv_s"]) for lay in layers])
+    kern = c.cycling(lambda i: IM.int8_matmul(x, *ws[i]), len(ws))
+    ms, seen, dropped = c.device_profile(kern, 56, "int8_matmul_kernel")
+    xb = x.element_size()
+    b = c.bound(d * n + 4 * n + m * d * xb + m * n * xb, 2.0 * m * d * n)
+    out[case] = {
+        "ms": ms, "kernels_per_call": len(seen) / 56,
+        "kernels": sorted(set(seen)), "dropped_windows": dropped,
+        "plain_ms": c.device_ms(c.cycling(
+            lambda i: IM.int8_matmul_plain(x, *ws[i]), len(ws)), 5),
+        "library_ms": c.device_ms(c.cycling(
+            lambda i: c.library_mm(x, *ws[i]), len(ws)), 5),
+        "call_ms": c.cuda_ms(kern, 56), **b, "bound_share": b["bound_ms"] / ms}
+print("EXTRA_RESULT " + json.dumps(out), flush=True)
+"""
+
+
+#: what ``--batch``, ``--bits``, ``--flat-batch`` and ``--int8-mm`` add to
+#: a run: its key in the summary → (the cases, the child program that
+#: takes them)
 EXTRAS = {"ivf_batch": (BATCH_CASES, _BATCH_CHILD),
           "ivf_bits": (BITS_CASES, _BITS_CHILD),
-          "flat_batch": (FLAT_CASES, _FLAT_CHILD)}
+          "flat_batch": (FLAT_CASES, _FLAT_CHILD),
+          "int8_mm": (MM_CASES, _MM_CHILD)}
 
 
 def run_extra(root: Path, name: str) -> dict:
@@ -328,7 +377,9 @@ def summary(phases: dict) -> dict:
         if phase in phases:
             out.setdefault("int8_kernels", {}).update({
                 case: {k: r.get(k) for k in ("ms", "plain_ms", "library_ms",
-                                             "bound_ms", "split", "n_split",
+                                             "bound_ms", "call_ms",
+                                             "kernels_per_call", "split",
+                                             "n_split",
                                              "grid_blocks", "ms_by_split",
                                              "noattn_ms", "ring", "splits",
                                              "grid_waits", "merges",
@@ -382,6 +433,8 @@ def main(argv=None) -> int:
                     help="also hash the IVF kernels' outputs at BITS_CASES")
     ap.add_argument("--flat-batch", action="store_true",
                     help="also time the flat scans at FLAT_CASES")
+    ap.add_argument("--int8-mm", action="store_true",
+                    help="also time int8_matmul at MM_CASES")
     ap.add_argument("--out", type=Path, default=None,
                     help="also write every run's result here as JSON lines")
     args = ap.parse_args(argv)
@@ -396,7 +449,8 @@ def main(argv=None) -> int:
     trees = {"A": args.base.resolve(), "B": HERE}
     extras = [name for name, on in (("ivf_batch", args.batch),
                                     ("ivf_bits", args.bits),
-                                    ("flat_batch", args.flat_batch)) if on]
+                                    ("flat_batch", args.flat_batch),
+                                    ("int8_mm", args.int8_mm)) if on]
     runs = []
     for i, tree in enumerate("ABBA"):
         res = (run_tree(trees[tree], phases) if phases

@@ -20,7 +20,10 @@ step plus 2e-2 (the twin, as JAX's golden, rounds the dequantized K and V to
 bf16 before attending; the kernel keeps them in float32), with the scatter
 wrapper's pools equal to the twin's bit for bit. The int8-weight kernels:
 int8_matmul to one bf16 step (bf16 outputs) plus 1e-5 of the largest
-|output| (float32 sums of exact products in another order); slot-major
+|output| (the tensor cores' truncating sums of exact products, in another
+order: within a few 1e-7 of it by the model of ``tests/tensor_core_model.py``,
+``test_torch_matmul_plan.py``), one kernel a call, bit for bit on a second
+call and on two streams at once; slot-major
 attention as the paged kernel; the fused MLP (one kernel a call) and the
 decoder-layer megakernel to one bf16 step plus 1e-3 of the largest
 |output| (both round the normed input, y and h to bf16, and sums in
@@ -72,6 +75,7 @@ from cmw_rag_tpu_torch.ops import int8_matmul as IM
 from cmw_rag_tpu_torch.ops import ivf_scan as V
 from cmw_rag_tpu_torch.ops import paged_attention as PA
 from cmw_rag_tpu_torch.ops import topk as T
+from cmw_rag_tpu_torch.ops import weight_phases as WP
 import tensor_core_model as TC
 
 pytestmark = pytest.mark.cuda
@@ -1086,11 +1090,19 @@ def _q8(card, gen, k, n):
                                           device=card) * 0.05)
 
 
-@pytest.mark.parametrize("m,k,n", [(1, 64, 16), (4, 1024, 4096),
-                                   (5, 256, 1040), (16, 1024, 4096),
-                                   (33, 128, 512), (4, 1024, 151680)])
+#: int8_matmul's card shapes (M, K, N)
+INT8_MM_SHAPES = [(1, 64, 16), (4, 1024, 4096), (5, 256, 1040),
+                  (16, 1024, 4096), (33, 128, 512), (4, 1024, 151680),
+                  (16, 3072, 1024), (32, 1024, 4096)]
+
+
+@pytest.mark.parametrize("m,k,n", INT8_MM_SHAPES)
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_int8_matmul_matches_plain_twin(card, m, k, n, dtype):
+    """Every shape the engine gives the kernel and its edges: N under one
+    column tile (16) and past whole ones (1,040), M past one row tile (33,
+    32), K past the 1,024 rows an item holds (3,072: the unfused down
+    product); the head."""
     gen = torch.Generator(device=card).manual_seed(m + n)
     wq, ws = _q8(card, gen, k, n)
     x = torch.randn((m, k), generator=gen, device=card).to(dtype)
@@ -1101,6 +1113,49 @@ def test_int8_matmul_matches_plain_twin(card, m, k, n, dtype):
     assert got.dtype == dtype and got.shape == (m, n)
     _close(got, IM.int8_matmul_plain(x, wq, ws), 1e-5)
     assert torch.equal(got, IM.int8_matmul(x, wq, ws))   # repeats exactly
+
+
+@pytest.mark.parametrize("m,k,n", INT8_MM_SHAPES + [(16, 1024, 151680)])
+def test_int8_matmul_call_is_one_kernel_launch(card, m, k, n):
+    """One wrapper call is one launch of the weight-only kernel and nothing
+    else on the card (no combine kernel, no zeroing of partial sums, no
+    copy): three calls under torch.profiler record three kernels, each the
+    int8_matmul one, at every card shape and phase 9's (the head at 16
+    rows); the head does not split the contraction, most others do."""
+    gen = torch.Generator(device=card).manual_seed(5)
+    wq, ws = _q8(card, gen, k, n)
+    x = torch.randn((m, k), generator=gen, device=card)
+    x = x.to(torch.float32 if n > 100000 else torch.bfloat16)
+    names = _cuda_kernels(lambda: IM.int8_matmul(x, wq, ws), iters=3)
+    assert len(names) == 3, names
+    assert all("int8_matmul_kernel" in name for name in names), names
+    assert not any("combine" in name for name in names), names
+
+
+def test_int8_matmul_on_two_streams(card):
+    """Two streams calling at once each get their own workspace (partial
+    tiles and arrival counters) and the answer one stream gives alone, bit
+    for bit; every launch leaves its counters 0."""
+    gen = torch.Generator(device=card).manual_seed(6)
+    wq, ws = _q8(card, gen, 1024, 4096)
+    xs = [torch.randn((m, 1024), generator=gen, device=card).bfloat16()
+          for m in (4, 16)]
+    want = [IM.int8_matmul(x, wq, ws) for x in xs]
+    streams = (torch.cuda.Stream(card), torch.cuda.Stream(card))
+    outs = {}
+    torch.cuda.synchronize()
+    for rnd in range(20):
+        for i, (st, x) in enumerate(zip(streams, xs)):
+            with torch.cuda.stream(st):
+                outs[(i, rnd)] = IM.int8_matmul(x, wq, ws)
+    torch.cuda.synchronize()
+    for (i, _), got in outs.items():
+        assert torch.equal(got, want[i]), i
+    spaces = [WP._WORKSPACES[(card.index or 0, st.cuda_stream)]
+              for st in streams]
+    assert spaces[0][0].data_ptr() != spaces[1][0].data_ptr()
+    assert spaces[0][1].data_ptr() != spaces[1][1].data_ptr()
+    assert not any(w[1].any() for w in spaces)
 
 
 @pytest.fixture(params=[64, 128])

@@ -427,7 +427,7 @@ def test_compare_trees_hashes_the_ivf_kernels_outputs():
 def test_compare_trees_times_flat_batches_past_phase_2():
     """``compare_trees.py --flat-batch`` times both trees' flat scans at
     batches phase 2 lacks, one past a chunk; its child program compiles,
-    and it runs through the one runner of the three extras."""
+    and it runs through the one runner of the extras."""
     import importlib.util
     from pathlib import Path
 
@@ -441,7 +441,8 @@ def test_compare_trees_times_flat_batches_past_phase_2():
     assert max(q for q, _ in CT.FLAT_CASES) > V.WIDE_CHUNK
     assert not {q for q, _ in CT.FLAT_CASES} & phase2
     assert CT.EXTRAS["flat_batch"] == (CT.FLAT_CASES, CT._FLAT_CHILD)
-    assert set(CT.EXTRAS) == {"ivf_batch", "ivf_bits", "flat_batch"}
+    assert set(CT.EXTRAS) == {"ivf_batch", "ivf_bits", "flat_batch",
+                              "int8_mm"}
     for name, (cases, child) in CT.EXTRAS.items():
         assert "EXTRA_RESULT " in child
         compile(f"CASES = {cases!r}\n" + child, name, "exec")

@@ -94,16 +94,6 @@ def test_int8_matmul_plain_rounds_x_to_bf16():
     assert T.int8_matmul_xla(x, wq, one).item() == 1.0 + 2 ** -10
 
 
-def test_cuda_tiles_and_splits():
-    assert [T.m_tile(m) for m in (1, 4, 5, 8, 9, 16, 17, 32, 33, 64)] == [
-        4, 4, 8, 8, 16, 16, 32, 32, 32, 32]
-    # the head has enough column tiles; the fused QKV is split 4 ways
-    assert T.k_split(1024, 2370, 264) == 1
-    assert T.k_split(1024, 64, 264) == 4
-    assert T.k_split(3072, 16, 264) == 16
-    assert T.k_split(64, 1, 264) == 1
-
-
 @pytest.mark.parametrize("vocab", [1000, 1024])
 def test_quantized_tree_is_bit_equal_to_jax(vocab):
     dims = dict(DIMS, vocab_size=vocab)
@@ -165,12 +155,13 @@ def test_every_new_source_is_built():
     includes, recursively (the two megakernel sources share
     ``decoder_layer.cuh``, which includes the weight phases of
     ``weight_phases.cuh``, built on ``hopper.cuh`` for its TMA pieces and
-    ``int8_decode.cuh``; the fused MLP is those weight phases too; the
-    W8A8 kernel of ``int8_matmul.cu`` takes its TMA and mma pieces from
-    ``hopper.cuh``)."""
+    ``int8_decode.cuh``; the fused MLP is those weight phases too, and so
+    is the weight-only kernel of ``int8_matmul.cu``, whose W8A8 kernel
+    takes its TMA and mma pieces from ``hopper.cuh``)."""
     phases = ["weight_phases.cuh", "hopper.cuh", "int8_decode.cuh"]
     megakernel = ["decoder_layer.cuh"] + phases
-    for stem, want in (("int8_matmul", ["hopper.cuh", "int8_decode.cuh"]),
+    for stem, want in (("int8_matmul", ["hopper.cuh", "weight_phases.cuh",
+                                        "int8_decode.cuh"]),
                        ("slot_attention", ["int8_decode.cuh"]),
                        ("fused_mlp", phases),
                        ("decoder_layer", megakernel),
