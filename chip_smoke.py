@@ -250,8 +250,27 @@ Phases, each printed with its seconds beside the card's name and power limit:
    and tokens a second; (d) ``save``, then ``restore`` into a fresh
    trainer: every parameter bit for bit.
 
+12. eval - the judged retrieval eval through the port's entry points at
+   ``EVAL_latest.json``'s ``shipped_config``: the generated dataset
+   (fingerprint ``2b4c73b23aac7cf6``, 312 queries, 8,320 articles), chunks
+   of 128 / 16 (31,841), ``create_embedder`` / ``create_reranker`` on the
+   card in bf16 (``frida-hybrid``; the 4-member ensemble, current version
+   v6: an identity fallback fails the phase), then ``evaluate_retrieval``
+   for ``shipped_stage1`` and ``shipped`` (rerank window 20, sibling
+   expansion 6 / 3). Gate 1: ndcg@10, recall@10 and mrr_grade3 of each row
+   within 2 bootstrap standard errors (the standard deviation of the mean
+   of the run's own 312 per-query values over 1,000 resamples drawn with
+   ``numpy.random.default_rng(0)``) of the record. Gate 2: the mean per-query
+   difference from the JAX package's rows (``tests/eval_reference_jax.json``,
+   made on a CPU by ``tests/eval_reference_jax.py``) within 3 paired
+   bootstrap standard errors, with the share of queries whose metrics are
+   equal. Seconds by stage; #1 launched (one search a row), its plain twin
+   never called; #1 at the eval's shape (all 312 queries over the index's
+   rows in one call, k 30 and 60) against its twin, timed beside its bound
+   and the library call.
+
 Every kernel's launch count is set to 0 just before each path (3, 5, 6, 7,
-8, 9, 10 and 11) is driven and read just after; each kernel of a path must have launched. The
+8, 9, 10, 11 and 12) is driven and read just after; each kernel of a path must have launched. The
 script then prints one JSON line with every kernel's numbers, the card's
 ``nvidia-smi`` name and power limit, and as its last line
 ``{"ok": true, "device": {...}}``. Any failed check raises and the script
@@ -564,10 +583,12 @@ def library_scan(corpus, scales, ids, queries, k, chunk=131072):
     return best_s, best_i
 
 
-def check_against_plain(name, got, want, ids, tie_groups):
-    """Scores to TOL; ids equal wherever neighbours differ by more than TOL;
-    exact ties in ascending id order; no tombstone; planted tie groups
-    surface whole and in id order. Returns the largest score error."""
+def check_against_plain(name, got, want, ids, tie_groups, beyond=None):
+    """Scores to TOL; ids equal wherever neighbours differ by more than TOL
+    (``beyond``, the twin's score just past its k-th [Q], when given,
+    stands as the last position's lower neighbour); exact ties in
+    ascending id order; no tombstone; planted tie groups surface whole and
+    in id order. Returns the largest score error."""
     import torch
 
     (gs, gi), (ws, wi) = got, want
@@ -578,8 +599,16 @@ def check_against_plain(name, got, want, ids, tie_groups):
     clear = torch.ones_like(wi, dtype=torch.bool)
     clear[:, 1:] &= gap
     clear[:, :-1] &= gap
+    if beyond is not None:
+        clear[:, -1] &= (ws[:, -1] - beyond).abs() > TOL
     if not torch.equal(gi[clear], wi[clear]):
-        raise AssertionError(f"{name}: ids differ from the plain twin")
+        where = (gi != wi) & clear
+        q, j = (int(x) for x in where.nonzero()[0])
+        raise AssertionError(
+            f"{name}: ids differ from the plain twin at {int(where.sum())} "
+            f"places, first query {q} position {j}: {int(gi[q, j])} against "
+            f"{int(wi[q, j])}, twin scores "
+            f"{ws[q, max(j - 1, 0):j + 2].tolist()}")
     live = gi >= 0
     tie = (gs[:, 1:] == gs[:, :-1]) & live[:, 1:] & live[:, :-1]
     if bool((tie & (gi[:, 1:] <= gi[:, :-1])).any()):
@@ -3752,6 +3781,248 @@ def training_phase(card_line: str) -> dict:
             "seconds": time.time() - t0}
 
 
+# ------------------------------------------------------------------ eval
+
+#: phase 12: the judged eval at ``EVAL_latest.json``'s ``shipped_config``
+EVAL_FINGERPRINT = "2b4c73b23aac7cf6"
+EVAL_SIZES = {"queries": 312, "articles": 8320, "chunks": 31841}
+EVAL_RECORD = "EVAL_latest.json"
+EVAL_REFERENCE = "tests/eval_reference_jax.json"
+#: the rows held to the record, and their metrics: (aggregate, per query)
+EVAL_ROWS = ("shipped_stage1", "shipped")
+EVAL_METRICS = (("ndcg@10", "ndcg"), ("recall@10", "recall"),
+                ("mrr_grade3", "mrr_grade3"))
+EVAL_RESAMPLES = 1000
+EVAL_RECORD_SES = 2.0      # gate 1: |port - record| within 2 bootstrap SEs
+EVAL_PAIRED_SES = 3.0      # gate 2: |mean(port - JAX)| within 3 paired SEs
+EVAL_CHUNK, EVAL_OVERLAP, EVAL_WINDOW, EVAL_K = 128, 16, 20, 10
+#: the two scans of phase 12: (case, k) = stage 1 (3 x 10), rerank (3 x 20)
+EVAL_SCANS = (("eval_k30", 30), ("eval_k60", 60))
+
+
+def eval_gates(rows: dict, record: dict, reference: dict | None) -> dict:
+    """Gate 1 (each row's metrics against ``EVAL_latest.json`` within
+    ``EVAL_RECORD_SES`` bootstrap SEs of the run's own per-query values)
+    and gate 2 (the mean per-query difference from the JAX package's rows
+    within ``EVAL_PAIRED_SES`` paired SEs); resamples drawn with
+    ``numpy.random.default_rng(0)`` (``scripts/eval_retrieval.bootstrap_se``).
+    Raises on a gate that fails."""
+    import numpy as np
+    from cmw_rag_tpu_torch.scripts.eval_retrieval import bootstrap_se
+
+    se = functools.partial(bootstrap_se, resamples=EVAL_RESAMPLES, seed=0)
+    out, failed = {}, []
+    for row in EVAL_ROWS:
+        got = rows[row]["per_query"]
+        ref = reference[row]["per_query"] if reference else None
+        if ref is not None and [q["query"] for q in got] != \
+                [q["query"] for q in ref]:
+            raise AssertionError(f"eval {row}: the reference's queries differ")
+        entry = {}
+        for agg, key in EVAL_METRICS:
+            vals = [q[key] for q in got]
+            e = {"port": rows[row][agg], "record": record[row][agg],
+                 "se": se(vals)}
+            e["record_ses"] = abs(e["port"] - e["record"]) / max(e["se"], 1e-12)
+            if not abs(e["port"] - e["record"]) <= EVAL_RECORD_SES * e["se"]:
+                failed.append(f"{row} {agg}: {e['port']:.4f} against the "
+                              f"record's {e['record']:.4f}, SE {e['se']:.4f}")
+            if ref is not None:
+                diff = np.asarray(vals) - np.asarray([q[key] for q in ref])
+                e["jax"] = reference[row][agg]
+                e["paired_mean"] = float(diff.mean())
+                e["paired_se"] = se(diff)
+                e["equal_share"] = float(np.mean(np.abs(diff) <= 1e-12))
+                if not abs(e["paired_mean"]) <= EVAL_PAIRED_SES * e["paired_se"]:
+                    failed.append(f"{row} {key}: mean port - JAX "
+                                  f"{e['paired_mean']:.4f}, paired SE "
+                                  f"{e['paired_se']:.4f}")
+            entry[agg] = e
+        if ref is not None:
+            same = [all(abs(g[k] - r[k]) <= 1e-12 for _, k in EVAL_METRICS)
+                    for g, r in zip(got, ref)]
+            entry["equal_share"] = float(np.mean(same))
+        out[row] = entry
+    if failed:
+        raise AssertionError("eval gates: " + "; ".join(failed))
+    return out
+
+
+def eval_scan_records(index, q_vecs, card_line: str) -> dict:
+    """#1 at phase 12's shape: the index's rows and all 312 queries in one
+    call at k 30 and 60, against its twin; time, twin, library call
+    (chunked ``torch.matmul`` + ``torch.topk``) and bound."""
+    import numpy as np
+    import torch
+    from cmw_rag_tpu_torch.ops import topk as T
+
+    q = np.asarray(q_vecs, np.float32)
+    q = q / np.maximum(np.linalg.norm(q, axis=1, keepdims=True), 1e-12)
+    qt = torch.from_numpy(q).to("cuda", torch.bfloat16).contiguous()
+    corpus, ids = index.vecs, index.ids
+    n, d = corpus.shape
+    nq = qt.shape[0]
+    out = {}
+    for case, k in EVAL_SCANS:
+        t0 = time.time()
+        kern = functools.partial(T.topk_scan_bf16, corpus, ids, qt, k)
+        plain = functools.partial(T.topk_plain, corpus, ids, qt, k)
+        lib = functools.partial(library_scan, corpus, None, ids, qt, k)
+        # the twin one row deeper: the chunks of the eval's versions and
+        # languages of one article score within a hair of each other, so
+        # the k-th row is held only where the next one is clear of it
+        ws, wi = T.topk_plain(corpus, ids, qt, k + 1)
+        got = kern()
+        torch.cuda.synchronize()
+        err = check_against_plain(f"topk_scan_bf16 {case}", got,
+                                  (ws[:, :k], wi[:, :k]), ids, [],
+                                  beyond=ws[:, k])
+        nbytes = 2 * n * d + 4 * n + 2 * nq * d + 8 * nq * k
+        entry = {"ms": cuda_ms(kern, 20), "plain_ms": cuda_ms(plain, 3),
+                 "library_ms": cuda_ms(lib, 3), "max_abs_err": err,
+                 **bound(nbytes, 2.0 * nq * n * d),
+                 "shape": {"Q": nq, "N": n, "live": index.n_live, "D": d,
+                           "k": k}}
+        log(f"kernel-topk_scan_bf16-{case}", time.time() - t0, card_line,
+            Q=nq, N=n, D=d, k=k, **fmt(entry))
+        out[case] = entry
+    return out
+
+
+def eval_phase(card_line: str) -> dict:
+    """Phase 12: the judged eval through the port's entry points at the
+    shipping configuration, its rows held to the record and to the JAX
+    package's rows, #1 timed at the eval's shape."""
+    import numpy as np
+    import torch
+    from cmw_rag_tpu_torch.config import Settings
+    from cmw_rag_tpu_torch.eval.corpus_gen import (CURRENT_VERSION,
+                                                   generate_corpus)
+    from cmw_rag_tpu_torch.eval.dataset import dataset_fingerprint
+    from cmw_rag_tpu_torch.eval.judged_queries import build_judged_dataset
+    from cmw_rag_tpu_torch.eval.runner import evaluate_retrieval
+    from cmw_rag_tpu_torch.index.flat import FlatIndex
+    from cmw_rag_tpu_torch.ops import topk as T
+    from cmw_rag_tpu_torch.retrieval.embedder import create_embedder
+    from cmw_rag_tpu_torch.retrieval.reranker import (EnsembleReranker,
+                                                      create_reranker)
+    from cmw_rag_tpu_torch.retrieval.siblings import SiblingIndex
+    from cmw_rag_tpu_torch.scripts.eval_retrieval import _CachedEmbedder
+
+    record = json.loads((ROOT / EVAL_RECORD).read_text(encoding="utf-8"))
+    ref_path = ROOT / EVAL_REFERENCE
+    reference = (json.loads(ref_path.read_text(encoding="utf-8"))
+                 if ref_path.is_file() else None)
+    seconds = {}
+    t0 = time.time()
+    dataset = build_judged_dataset(generate_corpus())
+    fp = dataset_fingerprint(dataset)
+    sizes = (len(dataset["queries"]), len(dataset["corpus"]))
+    if fp != EVAL_FINGERPRINT or sizes != (EVAL_SIZES["queries"],
+                                           EVAL_SIZES["articles"]):
+        raise AssertionError(f"eval: dataset {fp}, {sizes}")
+    sib = SiblingIndex()
+    for c in dataset["corpus"]:
+        if c.get("tags"):
+            sib.add(c["kb_id"], c["tags"])
+    seconds["generate"] = time.time() - t0
+    log("eval-generate", seconds["generate"], card_line, fingerprint=fp,
+        queries=sizes[0], articles=sizes[1])
+
+    t0 = time.time()
+    settings = Settings()
+    emb = _CachedEmbedder(create_embedder(settings.embedding_model))
+    rr = create_reranker(settings)
+    slugs = settings.reranker_model.split(",")
+    if not (isinstance(rr, EnsembleReranker)
+            and [m.spec.slug for m in rr.members] == slugs):
+        raise AssertionError(f"eval: the shipped reranker is {rr!r}, not the "
+                             f"ensemble of {slugs}")
+    rr.current_version = CURRENT_VERSION  # the dataset's, as the script sets
+    if rr.current_version != "v6":
+        raise AssertionError(f"eval: current version {rr.current_version}")
+    torch.cuda.synchronize()
+    seconds["models"] = time.time() - t0
+    log("eval-models", seconds["models"], card_line,
+        embedder=settings.embedding_model, members=len(rr.members),
+        dtype=str(emb.inner.cfg.dtype))
+
+    shared = dict(k=EVAL_K, pre_rerank_k=EVAL_WINDOW, chunk_tokens=EVAL_CHUNK,
+                  chunk_overlap=EVAL_OVERLAP, current_version=CURRENT_VERSION,
+                  device="cuda")
+    plain_calls = []
+    twins = {name: getattr(T, name) for name in ("topk_plain",
+                                                 "topk_plain_int8")}
+    for name, fn in twins.items():
+        setattr(T, name, lambda *a, _fn=fn, **kw: (plain_calls.append(1),
+                                                   _fn(*a, **kw))[1])
+    reset_counts()
+    rows, stages = {}, {}
+    try:
+        for row in EVAL_ROWS:
+            t0 = time.time()
+            timings: dict = {}
+            extra = (dict(reranker=rr, sibling_index=sib,
+                          sibling_slots=settings.sibling_expand_slots,
+                          sibling_anchors=settings.sibling_expand_anchors)
+                     if row == "shipped" else {})
+            rows[row] = evaluate_retrieval(emb, dataset, timings=timings,
+                                           **shared, **extra)
+            stages[row] = timings
+            r = rows[row]
+            if r["n_chunks"] != EVAL_SIZES["chunks"] or \
+                    r["n_queries"] != EVAL_SIZES["queries"]:
+                raise AssertionError(f"eval {row}: {r['n_chunks']} chunks, "
+                                     f"{r['n_queries']} queries")
+            vals = [r[a] for a, _ in EVAL_METRICS]
+            if not all(np.isfinite(vals)) or not all(0 <= v <= 1
+                                                     for v in vals):
+                raise AssertionError(f"eval {row}: metrics {vals}")
+            log(f"eval-{row}", time.time() - t0, card_line,
+                **{a: f"{r[a]:.4f}" for a, _ in EVAL_METRICS},
+                record=json.dumps({a: round(record[row][a], 4)
+                                   for a, _ in EVAL_METRICS}),
+                stages=json.dumps({s: round(v, 3)
+                                   for s, v in timings.items()}))
+    finally:
+        for name, fn in twins.items():
+            setattr(T, name, fn)
+    launches = read_counts()
+    if launches["topk_scan_bf16"] < len(EVAL_ROWS) or plain_calls:
+        raise AssertionError(f"eval: #1 launched {launches['topk_scan_bf16']} "
+                             f"times, the plain twin {len(plain_calls)}")
+    for s in ("chunk", "embed", "index", "search", "rerank"):
+        seconds[s] = sum(t.get(s, 0.0) for t in stages.values())
+    log("eval-stages", 0.0, card_line,
+        **{s: f"{v:.3f}" for s, v in seconds.items()},
+        launches=json.dumps({k: v for k, v in launches.items() if v}))
+
+    gates = eval_gates(rows, record, reference)
+    for row, g in gates.items():
+        log(f"eval-gates-{row}", 0.0, card_line,
+            equal_share=g.get("equal_share", "no reference"),
+            **{a: json.dumps({k: round(v, 4) for k, v in e.items()})
+               for a, e in g.items() if isinstance(e, dict)})
+
+    # #1 at the eval's shape: the same rows and queries, out of the cache
+    vecs = next(v for key, v in emb._cache.items() if key[0] == "docs")
+    q_vecs = next(v for key, v in emb._cache.items() if key[0] == "queries")
+    index = FlatIndex(dim=vecs.shape[1], capacity=len(vecs))
+    index.add(vecs, np.arange(len(vecs)))
+    scans = eval_scan_records(index, q_vecs, card_line)
+    result = {"launches": launches, "seconds": seconds,
+              "fingerprint": fp, "chunks": rows["shipped"]["n_chunks"],
+              "gates": gates, "paired_reference": reference is not None,
+              "scans": scans,
+              "rows": {row: {k: v for k, v in r.items()
+                             if k not in ("per_query", "by_language",
+                                          "by_source")}
+                       for row, r in rows.items()}}
+    del emb, rr, index
+    torch.cuda.empty_cache()
+    return result
+
+
 def main() -> int:
     import torch
 
@@ -3791,13 +4062,16 @@ def main() -> int:
     w8a8 = w8a8_kv8_phase(card_line)
     w8a8_seconds = time.time() - t_new
     train = training_phase(card_line)
+    t_eval = time.time()
+    ev = eval_phase(card_line)
+    eval_seconds = time.time() - t_eval
 
     by_path = {"fused": fused["launches"], "long_context": long_ctx["launches"],
                "ivf": ivf["launches"], "segmented": segmented["launches"],
                "local_llm": llm["launches"],
                "local_llm_int8": int8["launches"],
                "local_llm_w8a8_kv8": w8a8["launches"],
-               "train": train["launches"]}
+               "train": train["launches"], "eval": ev["launches"]}
     rows = []
     for name in ("topk_scan_bf16", "topk_scan_int8"):
         main_shape = scans[(name, "main")]
@@ -3816,6 +4090,10 @@ def main() -> int:
                 "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
                 "max_abs_err", "scan_ms", "select_ms", "workspace_mib",
                 "shape")}
+        if name == "topk_scan_bf16":
+            row.update(ev["scans"])
+            row["max_abs_err"] = max(row["max_abs_err"], *(
+                e["max_abs_err"] for e in ev["scans"].values()))
         rows.append(row)
     fa = flash["rerank"]
     rows.append({
@@ -4006,6 +4284,9 @@ def main() -> int:
                           "backward_degenerate":
                               train["kernels"]["degenerate"]},
                       "training_phase_seconds": round(train["seconds"], 3),
+                      "eval": {k: v for k, v in ev.items()
+                               if k not in ("launches", "scans")},
+                      "eval_phase_seconds": round(eval_seconds, 3),
                       "seconds": round(time.time() - t_all, 3),
                       "card": card_line}), flush=True)
     print(card_line, flush=True)

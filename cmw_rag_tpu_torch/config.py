@@ -1,11 +1,12 @@
 """Model specs and retrieval-shape settings of the ported query paths.
 
 Plain dataclasses holding the values of ``cmw_rag_tpu/config/models.yaml``
-(``frida-hybrid`` :50-69; ``qwen3-mini`` :86-101; ``qwen3-embedding-0.6b``
-:102-117; ``identity``, ``qwen3-reranker-0.6b`` :153-173;
-``qwen3-reranker-micro``, ``cross-encoder-micro``, ``cross-encoder-micro-r3``,
+(``frida-mini`` :22-35; ``frida-hybrid`` :50-69; ``qwen3-mini`` :86-101;
+``qwen3-embedding-0.6b`` :102-117; ``identity``, ``qwen3-reranker-0.6b``
+:153-173; ``qwen3-reranker-micro``, ``cross-encoder-small``,
+``cross-encoder-micro``, ``cross-encoder-micro-r3``,
 ``cross-encoder-small-r3`` :193-273; the local LLM ``qwen3guard-0.6b``
-:310-331) and of ``config/settings.py:47-81, 125-132, 164-166``. Field
+:310-331) and of ``config/settings.py:47-81, 125-132, 164-166, 180-181``. Field
 names and ``format_*`` methods match the JAX package's spec classes
 (``config/registry.py``), so code written against either reads the same. No yaml, no pydantic: the values are written out.
 """
@@ -114,6 +115,11 @@ EMBEDDING_MODELS: dict[str, EmbeddingModelSpec] = {
         max_tokens=8192, pooling="last_token", normalize=True,
         instruction_template="Instruct: {task}\nQuery: {query}",
         default_task=_QWEN3_TASK, **_QWEN3_06B),
+    "frida-mini": EmbeddingModelSpec(
+        slug="frida-mini", arch="t5_encoder", dimensions=256,
+        max_tokens=256, pooling="mean", normalize=True,
+        query_prefix="search_query: ", document_prefix="search_document: ",
+        d_model=256, d_ff=768, num_layers=4, num_heads=4, vocab_size=16512),
     "frida-hybrid": EmbeddingModelSpec(
         slug="frida-hybrid", arch="t5_encoder", dimensions=5120,
         max_tokens=256, pooling="mean", normalize=True,
@@ -146,6 +152,8 @@ RERANKERS: dict[str, RerankerModelSpec] = {
         default_instruction="", yes_token="yes", no_token="no",
         d_model=256, d_ff=768, num_layers=4, num_heads=4, num_kv_heads=2,
         head_dim=64, vocab_size=16512),
+    "cross-encoder-small": RerankerModelSpec(
+        slug="cross-encoder-small", **_SMALL_CE),
     "cross-encoder-micro": RerankerModelSpec(
         slug="cross-encoder-micro", **_MICRO_CE),
     "cross-encoder-micro-r3": RerankerModelSpec(
@@ -232,6 +240,9 @@ class Settings:
     current_product_version: str = ""
     prior_version_weight: float = 0.4
     prior_language_weight: float = 0.0
+    # version/translation family expansion (retrieval/siblings.py); 0 = off
+    sibling_expand_slots: int = 6
+    sibling_expand_anchors: int = 3
     # the in-process LLM of /v1/chat/completions (the reference's vLLM role)
     serve_local_llm: bool = False
     local_llm_continuous_batching: bool = True

@@ -57,10 +57,13 @@ def _relative_position_bucket(rel_pos: torch.Tensor, num_buckets: int,
 def _bucket_table(length: int, num_buckets: int,
                   max_distance: int) -> torch.Tensor:
     """[L, L] int64 buckets, built on the CPU (a device ``log`` may round
-    differently at a bucket boundary) and cached per length."""
-    pos = torch.arange(length)
-    rel = pos[None, :] - pos[:, None]  # key - query
-    return _relative_position_bucket(rel, num_buckets, max_distance).long()
+    differently at a bucket boundary) and cached per length. Built outside
+    inference mode: the cached table also indexes the bias in training,
+    where autograd cannot save an inference tensor."""
+    with torch.inference_mode(False):
+        pos = torch.arange(length)
+        rel = pos[None, :] - pos[:, None]  # key - query
+        return _relative_position_bucket(rel, num_buckets, max_distance).long()
 
 
 def _rel_pos_bias(params: Params, cfg: T5EncoderConfig,

@@ -12,8 +12,13 @@ keeping the max score, and the score threshold; (6) full-article
 reconstruction from the source file (frontmatter stripped) or, when it is
 unreadable, the matched chunks; (7) ``normalized_rank`` and ``last_trace``.
 
-Sibling expansion (``retrieval/siblings.py``) and LLM query decomposition
-are not ported: asking for either raises.
+With a ``SiblingIndex`` and ``sibling_expand_slots`` > 0, the ranked kbIds
+are expanded by their version/translation families after the rerank
+(``retrieval/siblings.expand_ranked_kb_ids``, as the JAX retriever's
+:213-254): an expanded sibling is fetched from the store's metadata
+(``get_any_doc_meta``) and scored just under the lowest kept article;
+displaced originals backfill when a sibling cannot be fetched. LLM query
+decomposition is not ported: asking for it raises.
 """
 
 from __future__ import annotations
@@ -27,8 +32,10 @@ import numpy as np
 
 from cmw_rag_tpu_torch.ingest.documents import parse_frontmatter
 from cmw_rag_tpu_torch.retrieval.confidence import compute_retrieval_confidence
+from cmw_rag_tpu_torch.retrieval.priors import detect_language
 from cmw_rag_tpu_torch.retrieval.reranker import Candidate, IdentityReranker
 from cmw_rag_tpu_torch.retrieval.segments import split_query_segments
+from cmw_rag_tpu_torch.retrieval.siblings import expand_ranked_kb_ids
 from cmw_rag_tpu_torch.utils.metadata import extract_numeric_kbid
 
 log = logging.getLogger(__name__)
@@ -70,11 +77,11 @@ class Retriever:
                  rerank_score_threshold: float = 0.5, multiquery: bool = True,
                  max_segments: int = 4, segment_tokens: int = 448,
                  segment_overlap: int = 64, query_decomposition: bool = False,
-                 sibling_index=None, sibling_expand_slots: int = 0):
+                 url_template: str = ARTICLE_URL_TEMPLATE,
+                 sibling_index=None, sibling_expand_slots: int = 0,
+                 sibling_expand_anchors: int = 1, current_version: str = ""):
         if query_decomposition:
             raise NotImplementedError("LLM query decomposition is not ported")
-        if sibling_index is not None and sibling_expand_slots > 0:
-            raise NotImplementedError("sibling expansion is not ported")
         self.embedder = embedder
         self.store = store
         self.reranker = reranker or IdentityReranker()
@@ -87,6 +94,11 @@ class Retriever:
         self.max_segments = max_segments
         self.segment_tokens = segment_tokens
         self.segment_overlap = segment_overlap
+        self.url_template = url_template
+        self.sibling_index = sibling_index
+        self.sibling_expand_slots = int(sibling_expand_slots)
+        self.sibling_expand_anchors = int(sibling_expand_anchors)
+        self.current_version = str(current_version or "")
         self.last_trace: dict[str, Any] = {}
 
     def retrieve(self, query: str, top_k: int = 10,
@@ -143,7 +155,35 @@ class Retriever:
         kept = [(kb, g) for kb, g in by_kb.items()
                 if g["score"] >= self.rerank_score_threshold]
         kept.sort(key=lambda kv: -kv[1]["score"])
-        articles = [self._reconstruct_article(kb, g) for kb, g in kept[:top_k]]
+        groups = dict(kept)
+        final_kbs = [kb for kb, _ in kept[:top_k]]
+        if self.sibling_index is not None and self.sibling_expand_slots > 0:
+            final_kbs = expand_ranked_kb_ids(
+                [kb for kb, _ in kept], self.sibling_index, top_k,
+                self.sibling_expand_slots, self.sibling_expand_anchors,
+                self.current_version, detect_language(query),
+                exclude=exclude_kb_ids)
+
+        articles = []
+        n_siblings = 0
+        floor = min((g["score"] for g in groups.values()),
+                    default=self.rerank_score_threshold)
+        # displaced originals backfill after the fetches: a sibling missing
+        # from the store must not shrink the response below top_k
+        chosen = set(final_kbs)
+        backfill = [kb for kb, _ in kept if kb not in chosen]
+        for kb in final_kbs + backfill:
+            if len(articles) >= top_k:
+                break
+            g = groups.get(kb)
+            if g is None:  # an expanded sibling, fetched by kbId metadata
+                a = self._fetch_sibling_article(
+                    kb, floor - 1e-3 * (n_siblings + 1))
+                if a is not None:
+                    n_siblings += 1
+                    articles.append(a)
+                continue
+            articles.append(self._reconstruct_article(kb, g))
         n = len(articles)
         for idx, a in enumerate(articles):
             a.normalized_rank = idx / (n - 1) if n > 1 else 0.0
@@ -155,7 +195,7 @@ class Retriever:
             "candidates": len(candidates),
             "reranked": len(reranked),
             "articles": n,
-            "sibling_expansions": 0,
+            "sibling_expansions": n_siblings,
             "confidence": compute_retrieval_confidence(
                 [a.score for a in articles], self.rerank_score_threshold),
         }
@@ -178,6 +218,18 @@ class Retriever:
                                           score=doc.score)
         return list(best.values())
 
+    def _fetch_sibling_article(self, kb: str, score: float) -> Optional[Article]:
+        """An expanded sibling, rebuilt from the store's metadata: it was no
+        vector-stage candidate, so it has no chunk group."""
+        getter = getattr(self.store, "get_any_doc_meta", None)
+        meta = getter({"kbId": kb}) if getter is not None else None
+        if meta is None:
+            return None
+        a = self._reconstruct_article(
+            kb, {"meta": meta, "chunks": [], "score": float(score)})
+        a.metadata["expansion"] = "sibling"
+        return a
+
     def _reconstruct_article(self, kb: str, group: dict[str, Any]) -> Article:
         meta = dict(group["meta"])
         title = str(meta.get("title", f"Article {kb}"))
@@ -197,4 +249,4 @@ class Retriever:
         return Article(kb_id=kb, title=title, content=content.strip(),
                        metadata=meta, score=float(group["score"]),
                        matched_chunks=list(group["chunks"]),
-                       article_url=ARTICLE_URL_TEMPLATE.format(kb_id=kb))
+                       article_url=self.url_template.format(kb_id=kb))

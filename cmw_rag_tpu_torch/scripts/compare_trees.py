@@ -45,8 +45,10 @@ the IVF union scans of phase 6's index at batches past one query chunk
 tree's package (``_BATCH_CHILD``; a parent's chip_smoke.py has no such
 case): each call's device ms (CUDA events), its largest |score - plain
 twin's|, the share of ids equal to the twin's, the distinct blocks
-scanned, and the device memory a first call takes beyond what was
-allocated before it (the summary's ``ivf_batch``). ``--bits`` also
+scanned, the device memory a first call takes beyond what was allocated
+before it, and phase 6's bound and library call
+(``chip_smoke.bound``, ``chip_smoke.library_ivf``) at the same batch
+(the summary's ``ivf_batch``). ``--bits`` also
 hashes, in every run, the IVF kernels' outputs (probed and union, bf16
 and int8, ``BITS_CASES``) over a seeded blocked corpus of phase 6's shape
 (rows cut into blocks in order, tables drawn from a seed, no k-means,
@@ -146,6 +148,7 @@ print("COMPARE_RESULT " + json.dumps({"card": line, "phases": out}), flush=True)
 _BATCH_CHILD = """
 import json, sys, torch
 sys.path.insert(0, ".")
+import chip_smoke as c
 from cmw_rag_tpu_torch.index.ivf import IVFIndex, union_blocks
 from cmw_rag_tpu_torch.ops import ivf_scan as V
 from cmw_rag_tpu_torch.scripts import ivf as I
@@ -185,11 +188,20 @@ for quantize in (False, True):
             call()
         b.record()
         torch.cuda.synchronize()
+        # phase 6's bound: the union's blocks read once, every query over
+        # every row of them; its library call over the same blocks
+        blocks = table[: int(nu.item())]
+        row_bytes = 2 * I.DIM + 4 if idx.scales is None else I.DIM + 8
+        nbytes = (blocks.numel() * I.BLOCK_N * row_bytes + 2 * nq * I.DIM
+                  + 4 * blocks.numel() + 8 * nq * k)
+        lib = lambda: c.library_ivf(idx.corpus, idx.scales, idx.ids, q,
+                                    blocks[None, :], k, I.BLOCK_N)
         out[f"{name}/q{nq}k{k}"] = {
             "ms": a.elapsed_time(b) / 20, "blocks": int(nu.item()),
             "max_abs_err": float((got[0] - want[0]).abs().max()),
             "ids_equal_share": float((got[1] == want[1]).float().mean()),
-            "extra_mib": extra_mib}
+            "extra_mib": extra_mib, "library_ms": c.cuda_ms(lib, 3),
+            **c.bound(nbytes, 2.0 * nq * blocks.numel() * I.BLOCK_N * I.DIM)}
     del idx
     torch.cuda.empty_cache()
 print("EXTRA_RESULT " + json.dumps(out), flush=True)

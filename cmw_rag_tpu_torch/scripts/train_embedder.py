@@ -18,8 +18,9 @@ forward and backward (``--max-tokens`` a multiple of 64 on a card).
 cosine decay to lr/100 (``warmup_cosine_decay_schedule``, equal to optax's).
 
 Not ported yet, each exits with code 2: ``--generated`` and ``--chunk-docs``
-(``eval/corpus_gen.py``, ``ingest/chunker.py``: ``ROADMAP.md`` Queue 1 item
-2), ``--corpus`` (``DocumentProcessor``: item 5), ``--mesh`` (item 9).
+(their wiring onto the ported ``eval/corpus_gen.py`` and
+``ingest/chunker.py``: ``ROADMAP.md`` Queue 1 item 7), ``--corpus``
+(``DocumentProcessor``: item 5), ``--mesh`` (item 9).
 """
 
 from __future__ import annotations
@@ -31,8 +32,10 @@ import sys
 
 #: flags whose modules are not ported yet, and the ROADMAP item that ports them
 NOT_PORTED = {
-    "generated": "eval/corpus_gen.py (ROADMAP.md Queue 1 item 2)",
-    "chunk_docs": "ingest/chunker.py (ROADMAP.md Queue 1 item 2)",
+    "generated": "generate_training_pairs wired in (ROADMAP.md Queue 1 "
+                 "item 7)",
+    "chunk_docs": "split_text_with_context wired in (ROADMAP.md Queue 1 "
+                  "item 7)",
     "corpus": "ingest/documents.py DocumentProcessor (ROADMAP.md Queue 1 "
               "item 5)",
     "mesh": "the multi-device trainer (ROADMAP.md Queue 1 item 9)",

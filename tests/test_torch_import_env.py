@@ -9,7 +9,10 @@ local LLM transport over the paged engine's loop (kernel route, the twins
 on the CPU), then an int8-KV engine with chunked prefill, then an
 int8-weight engine on the decoder-layer megakernel's twin, then trains a
 tiny qwen3 embedder on its flash route (both directions on the twins) and
-runs ``scripts/train_embedder.py`` end to end on a two-pair dataset."""
+runs ``scripts/train_embedder.py`` end to end on a two-pair dataset, then
+generates the judged eval's dataset and runs ``evaluate_retrieval`` (chunks,
+rerank, sibling expansion) and ``scripts/eval_retrieval.py`` on a slice of
+it."""
 
 import ast
 import os
@@ -172,6 +175,35 @@ CHILD = textwrap.dedent("""
                 "--fp32", "--device", "cpu", "--out", out]) == 0
         assert "checkpoint saved" in said.getvalue()
         assert os.path.getsize(out) > 0
+
+    from cmw_rag_tpu_torch.eval.corpus_gen import generate_corpus
+    from cmw_rag_tpu_torch.eval.dataset import dataset_fingerprint, save_dataset
+    from cmw_rag_tpu_torch.eval.judged_queries import build_judged_dataset
+    from cmw_rag_tpu_torch.eval.runner import evaluate_retrieval
+    from cmw_rag_tpu_torch.retrieval.siblings import SiblingIndex
+    from cmw_rag_tpu_torch.scripts import eval_retrieval
+    ds = build_judged_dataset(generate_corpus())
+    assert dataset_fingerprint(ds) == "2b4c73b23aac7cf6"
+    small = {{"queries": ds["queries"][:4], "corpus": ds["corpus"][:40]}}
+    sib = SiblingIndex()
+    for c in small["corpus"]:
+        sib.add(c["kb_id"], c["tags"])
+    res = evaluate_retrieval(emb, small, reranker=rr, pre_rerank_k=6,
+                             chunk_tokens=64, sibling_index=sib,
+                             sibling_slots=2, sibling_anchors=2,
+                             current_version="v6", device="cpu")
+    assert res["n_queries"] == 4 and res["n_chunks"] > 40, res
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "small.json")
+        save_dataset(small, path)
+        out = os.path.join(tmp, "eval.json")
+        with contextlib.redirect_stdout(io.StringIO()):
+            assert eval_retrieval.main([
+                "--dataset", path, "--model", "frida-mini", "--k", "5",
+                "--device", "cpu", "--out", out]) == 0
+        with open(out, encoding="utf-8") as f:
+            assert json.load(f)["random"]["n_queries"] == 4
+        assert sorted(os.listdir(tmp)) == ["eval.json", "small.json"]
 
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in REFUSED)
     assert not leaked, leaked

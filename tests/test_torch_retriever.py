@@ -135,8 +135,11 @@ def test_retrieve_excludes_kb_ids_and_reads_the_article(kb):
 def test_unported_options_raise():
     with pytest.raises(NotImplementedError, match="decomposition"):
         Retriever(None, None, query_decomposition=True)
-    with pytest.raises(NotImplementedError, match="sibling"):
-        Retriever(None, None, sibling_index=object(), sibling_expand_slots=6)
+    # sibling expansion is ported (tests/test_torch_siblings.py)
+    r = Retriever(None, None, sibling_index=object(), sibling_expand_slots=6,
+                  sibling_expand_anchors=3, current_version="v6")
+    assert (r.sibling_expand_slots, r.sibling_expand_anchors,
+            r.current_version) == (6, 3, "v6")
 
 
 @pytest.mark.parametrize("name", sorted(p.name for p in FIXTURES.glob("*.md")))

@@ -160,6 +160,29 @@ def test_t5_encoder_and_pooling_gradients_match_jax(pooling):
                                    atol=1e-4 * np.abs(ref).max())
 
 
+def test_t5_trains_after_inference_at_the_same_length():
+    """The relative-position bucket table is cached per length; a table
+    first built under ``torch.inference_mode`` (an embedder's forward)
+    must still index the bias of a later training step at that length
+    (autograd cannot save an inference tensor)."""
+    from cmw_rag_tpu_torch.models import t5_encoder as T5
+
+    tcfg = ARCHS["t5"]["tcfg"]
+    tp = params_from_jax(jax.tree.map(np.asarray, jax_t5_init(
+        jax.random.PRNGKey(4), ARCHS["t5"]["jcfg"])))
+    ids, mask = (torch.from_numpy(a) for a in _ids_mask(5, l=40))
+    T5._bucket_table.cache_clear()
+    with torch.inference_mode():
+        want = t5_encode(tp, tcfg, ids, mask)
+    leaves = tree_leaves(tp)
+    for t in leaves:
+        t.requires_grad_(True)
+    h = t5_encode(tp, tcfg, ids, mask)
+    grads = torch.autograd.grad(h.sum(), leaves)
+    assert all(torch.isfinite(g).all() for g in grads)
+    torch.testing.assert_close(h.detach(), want, rtol=0, atol=0)
+
+
 def test_info_nce_loss_and_gradient_match_jax():
     rng = np.random.default_rng(7)
     q, d = (rng.standard_normal((8, 16)).astype(np.float32) for _ in range(2))
@@ -333,7 +356,7 @@ def test_pairs_from_dataset_and_refused_flags(tmp_path, capsys):
     assert TS.pairs_from_dataset(ds) == JS.pairs_from_dataset(ds) == PAIRS
     path = tmp_path / "ds.json"
     path.write_text(json.dumps(ds), encoding="utf-8")
-    for flag, item in (("--generated", "item 2"), ("--chunk-docs=64", "item 2"),
+    for flag, item in (("--generated", "item 7"), ("--chunk-docs=64", "item 7"),
                        ("--corpus=docs", "item 5"), ("--mesh", "item 9")):
         assert TS.main(["--dataset", str(path), flag]) == 2
         assert item in capsys.readouterr().err
